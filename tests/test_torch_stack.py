@@ -1,0 +1,136 @@
+"""The port's fused DenseNet stack against the JAX reference.
+
+On the CPU the port's ``dense_stack`` runs its plain PyTorch version; it
+must match the reference's Pallas kernel (interpret mode) and its XLA
+streaming twin on the same seeded inputs, for every fused connectivity and
+activation, with lane-unaligned (d0=5, U=24) and 128-aligned dims, at the
+bar of ``tests/test_dense_stack.py`` (rtol = atol = 1e-5: float32
+reassociation only). The CUDA kernel is held against the plain version on
+the card (skipped without one); those tests import no JAX, so they run on
+a machine with a card and no JAX:
+
+    python -m pytest tests/test_torch_stack.py -k cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.dense_block import stack as tstack
+
+CONNS = ("densenet", "d2rl", "mlp")
+ACTS = ("swish", "silu", "relu", "tanh", "identity")
+
+
+def _make(conn, L, d0, u, m, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, d0)).astype(np.float32)
+    # fan-in scaled, so activations stay O(1) through identity layers
+    ws = [(rng.standard_normal((k, u)) / np.sqrt(k)).astype(np.float32)
+          for k in (tstack.in_dim(conn, i, d0, u) for i in range(L))]
+    bs = [(rng.standard_normal((u,)) * 0.3).astype(np.float32)
+          for _ in range(L)]
+    return x, ws, bs
+
+
+def _torch(x, ws, bs, device="cpu"):
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(x), [t(w) for w in ws], [t(b) for b in bs]
+
+
+@pytest.mark.parametrize("dims", [(5, 24), (128, 128)],
+                         ids=["ragged", "aligned"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("conn", CONNS)
+def test_plain_stack_matches_jax_pallas_and_xla(conn, act, dims):
+    import jax.numpy as jnp
+    from repro.kernels.dense_block import stack as jstack
+    d0, u = dims
+    x, ws, bs = _make(conn, L=3, d0=d0, u=u, m=9,
+                      seed=10 * CONNS.index(conn) + ACTS.index(act))
+    tx, tws, tbs = _torch(x, ws, bs)
+    got = tstack.dense_stack(tx, tws, tbs, connectivity=conn,
+                             activation=act).numpy()
+    jx = jnp.asarray(x)
+    jws = tuple(jnp.asarray(w) for w in ws)
+    jbs = tuple(jnp.asarray(b) for b in bs)
+    for impl, kw in (("pallas", dict(interpret=True, block_m=8)),
+                     ("xla", {})):
+        want = jstack.dense_stack(jx, jws, jbs, connectivity=conn,
+                                  activation=act, impl=impl, **kw)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5, err_msg=impl)
+    assert got.shape == (9, tstack.feature_dim(conn, 3, d0, u))
+
+
+def test_plain_stack_grads_match_jax():
+    """On the CPU the plain version differentiates through autograd."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.dense_block import stack as jstack
+    conn = "d2rl"
+    x, ws, bs = _make(conn, L=3, d0=5, u=24, m=9, seed=3)
+    v = np.random.default_rng(4).standard_normal((9, 24)).astype(np.float32)
+
+    def jloss(x, ws, bs):
+        return jnp.mean(jstack.dense_stack(x, ws, bs, connectivity=conn,
+                                           impl="xla") * v)
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), tuple(map(jnp.asarray, ws)),
+        tuple(map(jnp.asarray, bs)))
+    tx, tws, tbs = _torch(x, ws, bs)
+    for t in [tx, *tws, *tbs]:
+        t.requires_grad_(True)
+    loss = torch.mean(tstack.dense_stack(tx, tws, tbs, connectivity=conn)
+                      * torch.from_numpy(v))
+    loss.backward()
+    got = [tx.grad] + [w.grad for w in tws] + [b.grad for b in tbs]
+    want = [jg[0], *jg[1], *jg[2]]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                   atol=2e-5)
+
+
+def test_stack_rejects_bad_config():
+    x, ws, bs = _torch(*_make("mlp", L=1, d0=4, u=8, m=2, seed=0))
+    with pytest.raises(ValueError, match="not fused"):
+        tstack.dense_stack(x, ws, bs, connectivity="resnet")
+    with pytest.raises(ValueError, match="not fused"):
+        tstack.dense_stack(x, ws, bs, activation="gelu")
+    with pytest.raises(ValueError, match="at least one layer"):
+        tstack.dense_stack(x, [], [])
+
+
+def test_launch_plan_fills_the_card_at_serving_slots():
+    """Serving slots of 1-32 rows get their parallelism from the columns
+    and a split of K: the actor's wide layer launches >= 2 blocks per SM."""
+    for m in (1, 32, 256):
+        config, tiles, splits, per_split = tstack.plan(m, 2048, 2307, 132)
+        bm, bn, bk = tstack._CONFIGS[config]
+        assert tiles == -(-m // bm) * (2048 // bn)
+        assert tiles * splits >= 2 * 132
+        assert (splits - 1) * per_split < -(-2307 // bk) <= splits * per_split
+    assert tstack.plan(4, 8, 3, 132)[2] == 1          # tiny K: no split
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("act", ("swish", "relu", "tanh", "identity"))
+@pytest.mark.parametrize("conn", CONNS)
+def test_cuda_kernel_matches_plain(cuda_device, conn, act):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for L, d0, u, m in ((3, 7, 40, 5), (2, 259, 2048, 32), (4, 3, 64, 256)):
+        x, ws, bs = _make(conn, L=L, d0=d0, u=u, m=m, seed=L)
+        want = tstack.dense_stack(*_torch(x, ws, bs), connectivity=conn,
+                                  activation=act).numpy()
+        before = tstack.launch_count()
+        got = tstack.dense_stack(*_torch(x, ws, bs, cuda_device),
+                                 connectivity=conn, activation=act)
+        torch.cuda.synchronize()
+        assert tstack.launch_count() - before == L
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())
