@@ -1,6 +1,5 @@
-"""OFENet state and state-action features (port of
-``repro/core/ofenet.py``; the serving slice needs ``features`` only — the
-auxiliary loss and the target update come with training).
+"""OFENet state and state-action features, trained decoupled from RL by
+the auxiliary next-state loss (port of ``repro/core/ofenet.py``).
 
 With densenet connectivity the feature width grows: ``phi_s`` emits
 ``dim(s) + L*U`` columns.
@@ -12,7 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.common import Params, dense_init, tree_map
+from repro_torch.common import (Params, dense_apply, dense_init, ema_update,
+                                tree_map)
 from repro_torch.core.blocks import (MLPBlockConfig, mlp_block_apply,
                                      mlp_block_init)
 
@@ -81,3 +81,19 @@ def features(params: Params, cfg: OFENetConfig, s: torch.Tensor,
             train=train)
     new_net = {**net, "phi_s": new_phi_s, "phi_sa": new_phi_sa}
     return z_s, z_sa, {**params, which: new_net}
+
+
+def aux_loss(params: Params, cfg: OFENetConfig, s: torch.Tensor,
+             a: torch.Tensor, s_next: torch.Tensor
+             ) -> Tuple[torch.Tensor, Params]:
+    """Auxiliary next-state prediction loss (eq. 1), on the online net."""
+    _, z_sa, new_params = features(params, cfg, s, a, train=True,
+                                   which="online")
+    pred = dense_apply(params["online"]["pred"], z_sa)
+    loss = torch.mean(torch.sum(torch.square(pred - s_next), dim=-1))
+    return loss, new_params
+
+
+def target_update(params: Params, cfg: OFENetConfig) -> Params:
+    return {**params, "target": ema_update(params["target"],
+                                           params["online"], cfg.tau)}

@@ -28,7 +28,8 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                 # guards _LOCKS
+_LOCKS: Dict[str, threading.Lock] = {}   # one per library: builds overlap
 _LOADED: Dict[str, Tuple[ctypes.CDLL, float]] = {}
 
 
@@ -43,10 +44,12 @@ def _nvcc() -> str:
                        "kernels are built on the machine with the card")
 
 
-def library_path(name: str, sources: Sequence[Path]) -> Path:
-    """Where the library of ``sources`` lives once built."""
+def library_path(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = ()) -> Path:
+    """Where the library of ``sources`` (and the ``headers`` they include)
+    lives once built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -57,12 +60,16 @@ def build_seconds(name: str) -> float:
     return _LOADED[name][1]
 
 
-def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
-    """Build (once per source hash) and load ``sources`` as one library."""
+def load_library(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = ()) -> ctypes.CDLL:
+    """Build (once per hash of sources and headers) and load ``sources`` as
+    one library. Different libraries build concurrently from threads."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LOADED:
             return _LOADED[name][0]
-        out = library_path(name, sources)
+        out = library_path(name, sources, headers)
         seconds = 0.0
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,16 +1,23 @@
-"""The experiment spec tree (port of the spec half of
-``repro/rl/experiment.py``; the ``Experiment`` runner comes with training).
+"""The experiment spec tree and the ``Experiment`` handle (port of
+``repro/rl/experiment.py``).
 
 A spec crosses between the packages as ``to_dict()`` JSON — the form both
 write into checkpoint metadata — so every section, field, default and
 validation rule here is the reference's, including a copy of
 ``repro.guard.monitor.GuardSpec``.
+
+``Experiment.from_spec(spec).run(steps)`` trains on the card (or on the
+CPU with ``device="cpu"``) through ``runner.Trainer``: evaluation fires at
+absolute multiples of ``eval.every``, as in the reference. ``save`` and
+``restore`` with the bitwise-resume contract are not ported yet (ROADMAP
+A.2) and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.common import ACTIVATIONS
 from repro_torch.core.blocks import BLOCK_BACKENDS, CONNECTIVITIES
@@ -391,3 +398,106 @@ class ExperimentSpec:
             num_units=o.num_units, connectivity=o.connectivity,
             activation=o.activation, batch_norm=o.batch_norm,
             block_backend=self.network.block_backend)
+
+
+class Experiment:
+    """A handle on one training run.
+
+    ``from_spec`` builds the ``Trainer`` without running anything; the
+    first ``run``/``policy`` initializes the state (agent init + the
+    random-policy warm-up). ``run(steps)`` advances ``steps`` supersteps,
+    evaluating at absolute multiples of ``spec.eval.every`` (and at the end
+    of the call with ``eval_at_end``)."""
+
+    def __init__(self, spec: ExperimentSpec, *, device=None):
+        from repro_torch.rl.runner import Trainer
+        self.spec = spec
+        self.trainer = Trainer(spec, device)
+        self._ls = None
+        self.step = 0
+        self.returns: List[float] = []
+        self.eval_steps: List[int] = []
+        self._rows: List[Dict[str, float]] = []
+        self._last_metrics: Dict[str, float] = {}
+        self._last_batch = None
+        self._last_priorities = None
+        self._wall = 0.0
+
+    @classmethod
+    def from_spec(cls, spec: ExperimentSpec, *, device=None) -> "Experiment":
+        return cls(spec, device=device)
+
+    @classmethod
+    def restore(cls, path: str, **_kw) -> "Experiment":
+        raise NotImplementedError(
+            "Experiment.restore is not ported yet (ROADMAP A.2: save/restore "
+            "with bitwise resume inside the port)")
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError(
+            "Experiment.save is not ported yet (ROADMAP A.2: save/restore "
+            "with bitwise resume inside the port); rl.policy.save_params "
+            "writes the agent's params")
+
+    def _ensure_init(self):
+        if self._ls is None:
+            self._ls = self.trainer.init()
+
+    def run(self, steps: Optional[int] = None, *,
+            progress: Optional[Callable] = None, eval_at_end: bool = False,
+            keep_last: bool = False):
+        """Advance ``steps`` supersteps (default: the spec budget) and
+        return the cumulative ``RunResult``. ``execution.loop`` "python"
+        and "scan" run the same eager loop in the port."""
+        t0 = time.time()
+        every = self.spec.eval.every
+        if steps is None:
+            steps = self.spec.execution.total_steps
+        self._ensure_init()
+        trainer, ls = self.trainer, self._ls
+        metrics = batch = None
+        step, end = self.step, self.step + steps
+        while step < end:
+            step += 1
+            ls, metrics, batch = trainer.step(ls)
+            if step % every == 0 or (eval_at_end and step == end):
+                rets = trainer.evaluate(ls).cpu().numpy()
+                self._record_eval(
+                    step, float(rets.mean()),
+                    {k: float(v) for k, v in metrics.items()
+                     if v.ndim == 0}, progress)
+        if keep_last and metrics is not None:
+            self._last_batch = batch
+            self._last_priorities = metrics["priorities"]
+        self._ls, self.step = ls, end
+        self._wall += time.time() - t0
+        return self.result(include_state=keep_last)
+
+    def _record_eval(self, step, ret, scalars, progress):
+        self.returns.append(ret)
+        self.eval_steps.append(step)
+        self._last_metrics = scalars
+        self._rows.append({"step": step, "return": ret, **scalars})
+        if progress:
+            progress(step, ret, scalars)
+
+    def metrics(self):
+        """The eval rows recorded so far (step, return, scalar metrics)."""
+        return iter([dict(r) for r in self._rows])
+
+    def policy(self):
+        """The run's current inference handle (``rl.policy.Policy``)."""
+        from repro_torch.rl.policy import Policy
+        return Policy.from_experiment(self)
+
+    def result(self, *, include_state: bool = False):
+        from repro_torch.rl.runner import RunResult
+        return RunResult(
+            returns=list(self.returns), eval_steps=list(self.eval_steps),
+            sranks=[], metrics=dict(self._last_metrics),
+            param_count=self.trainer.n_params, wall_time_s=self._wall,
+            state=(self._ls.agent if include_state and self._ls is not None
+                   else None),
+            last_batch=self._last_batch,
+            last_priorities=(None if self._last_priorities is None
+                             else self._last_priorities.cpu().numpy()))

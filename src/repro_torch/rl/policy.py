@@ -108,6 +108,13 @@ class Policy:
         return cls(core, params, resolve_device(device))
 
     @classmethod
+    def from_experiment(cls, exp) -> "Policy":
+        """The live ``Experiment``'s current policy, on its device
+        (initializing the run state if needed)."""
+        exp._ensure_init()
+        return exp.trainer.policy(exp._ls.agent["params"])
+
+    @classmethod
     def from_checkpoint(cls, path: str,
                         device: DeviceLike = None) -> "Policy":
         """A serving handle from a checkpoint of either package: spec from

@@ -63,20 +63,15 @@ def test_plain_stack_matches_jax_pallas_and_xla(conn, act, dims):
 
 
 def test_plain_stack_grads_match_jax():
-    """On the CPU the plain version differentiates through autograd."""
+    """On the CPU the plain version differentiates through autograd; its
+    gradients match the reference's XLA twin and its Pallas backward
+    kernel (``_bwd_kernel``, interpret mode)."""
     import jax
     import jax.numpy as jnp
     from repro.kernels.dense_block import stack as jstack
     conn = "d2rl"
     x, ws, bs = _make(conn, L=3, d0=5, u=24, m=9, seed=3)
     v = np.random.default_rng(4).standard_normal((9, 24)).astype(np.float32)
-
-    def jloss(x, ws, bs):
-        return jnp.mean(jstack.dense_stack(x, ws, bs, connectivity=conn,
-                                           impl="xla") * v)
-    jg = jax.grad(jloss, argnums=(0, 1, 2))(
-        jnp.asarray(x), tuple(map(jnp.asarray, ws)),
-        tuple(map(jnp.asarray, bs)))
     tx, tws, tbs = _torch(x, ws, bs)
     for t in [tx, *tws, *tbs]:
         t.requires_grad_(True)
@@ -84,10 +79,18 @@ def test_plain_stack_grads_match_jax():
                       * torch.from_numpy(v))
     loss.backward()
     got = [tx.grad] + [w.grad for w in tws] + [b.grad for b in tbs]
-    want = [jg[0], *jg[1], *jg[2]]
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
-                                   atol=2e-5)
+    for impl, kw in (("xla", {}),
+                     ("pallas", dict(interpret=True, block_m=8))):
+        def jloss(x, ws, bs):
+            return jnp.mean(jstack.dense_stack(
+                x, ws, bs, connectivity=conn, impl=impl, **kw) * v)
+        jg = jax.grad(jloss, argnums=(0, 1, 2))(
+            jnp.asarray(x), tuple(map(jnp.asarray, ws)),
+            tuple(map(jnp.asarray, bs)))
+        want = [jg[0], *jg[1], *jg[2]]
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                       atol=2e-5, err_msg=impl)
 
 
 def test_stack_rejects_bad_config():
