@@ -7,9 +7,11 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
 
 1. Card and settings: the ``nvidia-smi`` name and power limit; TF32 off
    for matmul and cuDNN (the reference is fp32).
-2. Build: compile the three CUDA sources from the checkout, one nvcc each,
-   all at once (dense_stack_fwd.cu, dense_stack_bwd.cu, replay_tree.cu).
-3. Kernels against their plain versions:
+2. Build: compile the six CUDA sources from the checkout, one nvcc each,
+   all at once (dense_stack_fwd.cu, dense_stack_bwd.cu, replay_tree.cu,
+   fused_dense.cu, flash_attention.cu, ssd_scan.cu).
+3. Kernels against their plain versions (new kernels in float32 within
+   1e-4 and bfloat16 within 2e-2, as rtol and atol * max|plain|):
    - the stack forward for every fused connectivity x {swish, relu, tanh,
      identity}, at a ragged small shape and at the served model's shapes
      (OFENet ``phi_s`` and the actor stack) for M in {1, 32, 256}, with
@@ -21,7 +23,16 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
      atol * max), and two calls bitwise equal;
    - the sum-tree sample (B=256, edge targets 0 and total) and write
      (n=32, 256 with duplicates and siblings, 9,984) at capacity 100,000:
-     bitwise equal to the plain versions.
+     bitwise equal to the plain versions;
+   - fused dense (``dense_concat_matmul``, one launch): 1, 2 and 3
+     segments, with and without bias, every activation, ragged (M=33,
+     N=70) and full (the Ant DenseNet layer 3, M=256 K=4207 N=2048);
+   - flash attention: causal and not, window 32, softcap 50, Sq != Skv,
+     rows with no valid key (the mean of v), GQA G=4 up to the full
+     B=2 S=2048 H=16 KV=4 hd=64;
+   - SSD: ``ssd_chunk_dual`` at chunk 8, a ragged 100 and 256 (the full
+     G=16 H=16 N=P=64), and the whole ``ssd_chunked_kernel`` against the
+     plain ``ssd_chunked`` + D x at chunk 8 and 256.
 4. Serving main path: the paper's "large" Fig. 10 SAC agent
    (``fig10-ablation`` at the paper budget, 2048 units, fused blocks,
    pendulum) is initialised on the card from a seed, saved with the port's
@@ -39,13 +50,18 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    finite losses, a consistent replay count and tree total, and
    ``Policy.from_experiment`` checked against the plain path. Wall time
    per superstep and a ``torch.profiler`` breakdown.
+   Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
+   (the fused dense, flash and SSD kernels, which no training or serving
+   path runs) with every count set to 0 just before; each row must launch
+   its kernel once per call.
 6. Times at the main paths' shapes, each beside its plain version, a
    library yardstick the port never calls, and the least time the card
    could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
    H100 SXM data sheet): the actor-stack forward at slots 1, 8, 32, 256
    (weights read cold); the full stack backward of each net at M=256; the
-   tree sample at B=256 and write at n=32/256/9,984.
-7. One JSON line of kernel records, then the device line, last.
+   tree sample at B=256 and write at n=32/256/9,984; fused dense, flash
+   attention and the SSD chunk at their full shapes (``phase_new_times``).
+7. One JSON line of seven kernel records, then the device line, last.
 """
 from __future__ import annotations
 
@@ -909,14 +925,332 @@ def phase_tree_times(gen, capacity=100_000, b=256):
     return rows
 
 
+def _rand_segments(gen, widths, m, n, dtype, bias=True):
+    """Parts (M, k_i), a fan-in scaled W (sum k_i, N) and a bias, on the
+    card in ``dtype``."""
+    import torch
+    k = sum(widths)
+    parts = [torch.randn((m, w), generator=gen, device="cuda").to(dtype)
+             for w in widths]
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         / math.sqrt(k)).to(dtype)
+    b = (0.1 * torch.randn((n,), generator=gen, device="cuda")).to(dtype) \
+        if bias else None
+    return parts, w, b
+
+
+# dtype -> the bar of |kernel - plain| (rtol, and atol rtol * max|plain|)
+NEW_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# full shapes: the paper's Ant DenseNet layer 3 (Table 2); flash and SSD at
+# the sizes of the reference kernels' own docstrings and defaults
+DENSE_FULL = dict(m=256, widths=(111, 2048, 2048), n=2048)
+FLASH_FULL = dict(b=2, s=2048, h=16, kv=4, hd=64)
+SSD_FULL = dict(b=2, s=2048, h=16, p=64, n=64, chunk=256)
+
+
+def phase_dense_parity(gen):
+    """fused_dense / dense_concat_matmul against the plain version: 1, 2 and
+    3 segments, with and without bias, every activation, float32 and
+    bfloat16, at ragged small shapes and at the full ones."""
+    import torch
+    from repro_torch.kernels.dense_block import dense_block, ops, ref
+    m, n = DENSE_FULL["m"], DENSE_FULL["n"]
+    shapes = [((13,), 33, 70), ((7, 30), 33, 70), ((5, 11, 21), 33, 70),
+              ((111 + 2048 + 2048,), m, n), ((111, 2048), 64, 256),
+              (DENSE_FULL["widths"], m, n)]
+    worst = {}
+    for dname, rtol in NEW_RTOL.items():
+        dtype = getattr(torch, dname)
+        for widths, mm, nn in shapes:
+            for bias in (True, False):
+                parts, w, b = _rand_segments(gen, widths, mm, nn, dtype, bias)
+                for act in sorted(dense_block.ACT_CODE):
+                    before = dense_block.launch_count()
+                    got = ops.dense_concat_matmul(parts, w, b, activation=act)
+                    if dense_block.launch_count() - before != 1:
+                        raise AssertionError("dense_concat_matmul did not "
+                                             "launch once")
+                    want = ref.dense_concat_matmul_ref(parts, w, b, act)
+                    ok, err = close_enough(got.float(), want.float(), rtol)
+                    worst[dname] = max(worst.get(dname, 0.0), err)
+                    if not ok:
+                        raise AssertionError(
+                            f"fused_dense kernel != plain: {dname} parts "
+                            f"{widths} M={mm} N={nn} bias={bias} {act}: max "
+                            f"abs err {err:.3e}")
+    log(f"[parity] fused_dense == plain: 1/2/3 segments x bias/none x "
+        f"{len(dense_block.ACT_CODE)} activations x {len(shapes)} shapes "
+        f"(ragged M=33 N=70; K=4207 as 1 and 3 parts at M=256 N=2048; "
+        f"[111|2048] at M=64 N=256), max abs err f32 "
+        f"{worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e}")
+    return worst
+
+
+def phase_flash_parity(gen):
+    """flash_attention / gqa_flash against the plain versions: causal and
+    not, window 32, softcap 50, GQA G=4, Sq != Skv, rows with no valid key
+    (the mean of v), in float32 and bfloat16, small and full shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops, ref
+    flat = ((100, 100, 32, True, 0, 0.0), (128, 256, 16, False, 0, 0.0),
+            (128, 128, 64, True, 32, 0.0), (64, 64, 32, True, 0, 50.0),
+            (200, 130, 128, False, 32, 50.0), (128, 64, 32, True, 16, 0.0))
+    f = FLASH_FULL
+    gqa = ((2, 96, 80, 8, 2, 32, True, 32, 0.0),
+           (f["b"], f["s"], f["s"], f["h"], f["kv"], f["hd"], True, 0, 0.0),
+           (f["b"], f["s"], f["s"], f["h"], f["kv"], f["hd"], False, 0,
+            50.0))
+    worst = {}
+    for dname, rtol in NEW_RTOL.items():
+        dtype = getattr(torch, dname)
+        rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
+            dtype)
+        for sq, skv, d, causal, window, cap in flat:
+            q, k, v = rnd(3, sq, d), rnd(3, skv, d), rnd(3, skv, d)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     softcap=cap)
+            want = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                     softcap=cap)
+            ok, err = close_enough(got.float(), want.float(), rtol)
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            if not ok:
+                raise AssertionError(f"flash kernel != plain: {dname} Sq={sq}"
+                                     f" Skv={skv} d={d} causal={causal} "
+                                     f"window={window} softcap={cap}: {err:.3e}")
+            if sq == 128 and skv == 64:            # rows 79.. see no key
+                mean_v = v.float().mean(1, keepdim=True).expand(-1, sq - 79,
+                                                                -1)
+                ok, err = close_enough(got[:, 79:].float(), mean_v, rtol)
+                if not ok:
+                    raise AssertionError(f"flash rows with no valid key are "
+                                         f"not the mean of v ({err:.3e})")
+        for b, sq, skv, h, kvh, hd, causal, window, cap in gqa:
+            q, k, v = rnd(b, sq, h, hd), rnd(b, skv, kvh, hd), \
+                rnd(b, skv, kvh, hd)
+            before = fa.launch_count()
+            got = ops.gqa_flash(q, k, v, causal=causal, window=window,
+                                softcap=cap)
+            if fa.launch_count() - before != 1:
+                raise AssertionError("gqa_flash did not launch once")
+            want = ref.plain_attention(q, k, v, causal=causal,
+                                       window=window or None, attn_cap=cap)
+            ok, err = close_enough(got.float(), want.float(), rtol)
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            if not ok:
+                raise AssertionError(f"gqa_flash kernel != plain: {dname} "
+                                     f"B={b} S={sq}/{skv} H={h} KV={kvh} "
+                                     f"hd={hd}: {err:.3e}")
+    log(f"[parity] flash_attention == plain: {len(flat)} flat cases (causal "
+        f"and not, window 32, softcap 50, Sq != Skv, rows with no valid key "
+        f"= mean of v) + {len(gqa)} GQA cases (G=4, the full B=2 S=2048 "
+        f"H=16 KV=4 hd=64), max abs err f32 {worst['float32']:.2e}, bf16 "
+        f"{worst['bfloat16']:.2e}")
+    return worst
+
+
+def _ssd_chunk_inputs(gen, g, h, q, n, p, dtype):
+    import torch
+    import torch.nn.functional as F
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    c, b, x = rnd(g, q, n).to(dtype), rnd(g, q, n).to(dtype), \
+        rnd(g, h, q, p).to(dtype)
+    cum = torch.cumsum(-F.softplus(rnd(g, h, q)), -1)
+    return c, b, x, cum, F.softplus(rnd(g, h, q)), rnd(g, h, p, n), rnd(h)
+
+
+def _ssd_seq_inputs(gen, b, s, h, p, n):
+    import torch
+    import torch.nn.functional as F
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    return (rnd(b, s, h, p), rnd(b, s, n), rnd(b, s, n),
+            F.softplus(rnd(b, s, h)), 0.3 * rnd(h), rnd(h))
+
+
+def phase_ssd_parity(gen):
+    """ssd_chunk_dual against the plain version at chunk 8 and 256 (and a
+    ragged 100), float32 and bfloat16; the whole ssd_chunked_kernel
+    against the plain ssd_chunked + D x at chunk 8 and 256."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
+    s = SSD_FULL
+    chunks = ((4, 2, 8, 4, 16), (3, 2, 100, 24, 40),
+              (s["b"] * s["s"] // 256, s["h"], 256, s["n"], s["p"]))
+    worst = {}
+    for dname, rtol in NEW_RTOL.items():
+        dtype = getattr(torch, dname)
+        for shape in chunks:
+            args = _ssd_chunk_inputs(gen, *shape, dtype)
+            got = ssd_scan.ssd_chunk_dual(*args)
+            want = ref.ssd_chunk_dual_ref(*args)
+            ok, err = close_enough(got.float(), want.float(), rtol)
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            if not ok:
+                raise AssertionError(f"ssd kernel != plain: {dname} (G, H, Q,"
+                                     f" N, P)={shape}: {err:.3e}")
+    for chunk in (8, 256):
+        x, b, c, dt, log_a, d_skip = _ssd_seq_inputs(
+            gen, s["b"], s["s"], s["h"], s["p"], s["n"])
+        before = ssd_scan.launch_count()
+        y, final = ops.ssd_chunked_kernel(x, b, c, dt, log_a, d_skip,
+                                          chunk=chunk)
+        if ssd_scan.launch_count() - before != 1:
+            raise AssertionError("ssd_chunked_kernel did not launch once")
+        y_p, f_p = ref.ssd_chunked(x, b, c, dt, log_a, chunk=chunk)
+        y_p = y_p + d_skip[None, None, :, None] * x
+        ok, err = close_enough(y, y_p)
+        ok2, err2 = close_enough(final, f_p)
+        worst["float32"] = max(worst["float32"], err)
+        if not (ok and ok2):
+            raise AssertionError(f"ssd_chunked_kernel != plain ssd_chunked + "
+                                 f"D x at chunk {chunk}: y {err:.3e}, final "
+                                 f"state {err2:.3e}")
+    log(f"[parity] ssd_chunk_dual == plain at (G, H, Q, N, P) {chunks}; "
+        f"ssd_chunked_kernel == plain ssd_chunked + D x (and final state) at "
+        f"B=2 S=2048 H=16 P=N=64, chunk 8 and 256; max abs err f32 "
+        f"{worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e}")
+    return worst
+
+
+def phase_micro():
+    """The port's kernel micro-benchmark, the path of the three kernels
+    that no training or serving path runs: ``kernels_micro.run()`` with
+    every count set to 0 just before; each row launches its kernel once
+    per call."""
+    from repro_torch.kernels.dense_block import dense_block
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import kernels_micro
+    _reset_counts()
+    for mod in (dense_block, flash_attention, ssd_scan):
+        mod.reset_launch_count()
+    rows = kernels_micro.run()
+    counts = {"fused_dense": dense_block.launch_count(),
+              "flash_attention": flash_attention.launch_count(),
+              "ssd_chunk_dual": ssd_scan.launch_count()}
+    for r, (kernel, n) in zip(rows, counts.items()):
+        log(f"[micro] {r['name']}: {r['us_per_call']:.1f} us/call (CUDA "
+            f"events), plain {r['ref_us']:.1f} us, {r['derived']}, "
+            f"{r['launches']} launches / {r['calls']} calls ({kernel}), "
+            f"{r['device']}")
+        if r["launches"] != r["calls"] or n != r["calls"] \
+                or r["maxerr"] > 1e-3:
+            raise AssertionError(f"kernels_micro {r['name']}: {r['launches']}"
+                                 f" launches for {r['calls']} calls ({n} "
+                                 f"counted), maxerr {r['maxerr']:.3e}")
+    if any(_counts().values()):
+        raise AssertionError(f"kernels_micro launched a kernel of another "
+                             f"path: {_counts()}")
+    return counts
+
+
+def _time_row(name, kernel, plain, library, copies, nbytes, flops, err):
+    t_k, h_k = time_ms(kernel, copies)
+    t_p, _ = time_ms(plain, copies)
+    t_l = None if library is None else time_ms(library, copies)[0]
+    t_k2, _ = time_ms(kernel, copies)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    r = dict(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=t_l,
+             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+             host_ms=h_k)
+    lib = "none" if t_l is None else f"{t_l * 1e3:.1f} us"
+    log(f"[time] {name}: kernel {r['ms'] * 1e3:.1f} us (runs "
+        f"{t_k * 1e3:.1f}/{t_k2 * 1e3:.1f}), plain {t_p * 1e3:.1f} us, "
+        f"library {lib}, bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+        f"{100 * bound_ms / r['ms']:.0f}% of bound, max abs err {err:.2e}")
+    return r
+
+
+def phase_new_times(gen):
+    """The three kernels at their full shapes, float32: kernel, plain
+    version, library yardstick, bound. Fused dense: the Ant DenseNet layer
+    3 with bias and swish, W cycled through copies larger than L2;
+    library ``silu(addmm(b, x, W))`` on the concat already built. Flash:
+    causal GQA at B=2 S=2048 H=16 KV=4 hd=64; library
+    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``;
+    operations counted over the causal half. SSD: one ``ssd_chunk_dual`` at
+    B=2 S=2048 (G=16 cells) H=16 Q=256 N=P=64; no library call; C B^T
+    counted once per cell (the heads share it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.dense_block import ops as dops
+    from repro_torch.kernels.dense_block import ref as dref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rows = {}
+    m, n, widths = DENSE_FULL["m"], DENSE_FULL["n"], DENSE_FULL["widths"]
+    k = sum(widths)
+    parts, w, b = _rand_segments(gen, widths, m, n, torch.float32)
+    wbytes = 4 * (k * n + n)
+    copies = [(w.clone(), b.clone())
+              for _ in range(max(2, math.ceil(120e6 / wbytes)))]
+    xcat = torch.cat(parts, 1)
+    got = dops.dense_concat_matmul(parts, w, b)
+    _, err = close_enough(got, dref.dense_concat_matmul_ref(parts, w, b))
+    rows["fused_dense"] = _time_row(
+        f"fused_dense M={m} parts {list(widths)} N={n} (swish, bias)",
+        lambda c: dops.dense_concat_matmul(parts, c[0], c[1]),
+        lambda c: dref.dense_concat_matmul_ref(parts, c[0], c[1]),
+        lambda c: F.silu(torch.addmm(c[1], xcat, c[0])), copies,
+        4 * (m * k + k * n + n + m * n), 2 * m * k * n, err)
+
+    f = FLASH_FULL
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    q = rnd(f["b"], f["s"], f["h"], f["hd"])
+    kk, v = rnd(f["b"], f["s"], f["kv"], f["hd"]), \
+        rnd(f["b"], f["s"], f["kv"], f["hd"])
+    _, err = close_enough(fops.gqa_flash(q, kk, v),
+                          fref.plain_attention(q, kk, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    pairs = f["s"] * (f["s"] + 1) // 2             # causal (q, k) pairs
+    rows["flash_attention"] = _time_row(
+        f"gqa_flash B={f['b']} S={f['s']} H={f['h']} KV={f['kv']} "
+        f"hd={f['hd']} causal",
+        lambda _: fops.gqa_flash(q, kk, v),
+        lambda _: fref.plain_attention(q, kk, v),
+        lambda _: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True), [0],
+        4 * f["b"] * f["s"] * f["hd"] * (2 * f["h"] + 2 * f["kv"]),
+        4 * f["hd"] * pairs * f["b"] * f["h"], err)
+
+    s = SSD_FULL
+    g, qq = s["b"] * s["s"] // s["chunk"], s["chunk"]
+    args = _ssd_chunk_inputs(gen, g, s["h"], qq, s["n"], s["p"],
+                             torch.float32)
+    _, err = close_enough(ssd_scan.ssd_chunk_dual(*args),
+                          sref.ssd_chunk_dual_ref(*args))
+    tri = qq * (qq + 1) // 2
+    flops = g * 2 * s["n"] * tri + g * s["h"] * (
+        2 * s["p"] * tri + 2 * qq * s["p"] * s["n"] + 2 * qq * s["p"])
+    nbytes = 4 * (2 * g * qq * s["n"] + 2 * g * s["h"] * qq * s["p"]
+                  + 2 * g * s["h"] * qq + g * s["h"] * s["p"] * s["n"]
+                  + s["h"])
+    rows["ssd_chunk_dual"] = _time_row(
+        f"ssd_chunk_dual G={g} H={s['h']} Q={qq} N={s['n']} P={s['p']}",
+        lambda _: ssd_scan.ssd_chunk_dual(*args),
+        lambda _: sref.ssd_chunk_dual_ref(*args), None, [0], nbytes, flops,
+        err)
+    return rows
+
+
 def build_all():
-    """Build the three kernel libraries, one nvcc each, all at once."""
+    """Build the six kernel libraries, one nvcc each, all at once."""
     from repro_torch.kernels import build_seconds
-    from repro_torch.kernels.dense_block import stack
+    from repro_torch.kernels.dense_block import dense_block, stack
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.replay_tree import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan
     builders = {"dense_stack_fwd": stack._library,
                 "dense_stack_bwd": stack._bwd_library,
-                "replay_tree": ops._library}
+                "replay_tree": ops._library,
+                "fused_dense": dense_block._library,
+                "flash_attention": flash_attention._library,
+                "ssd_scan": ssd_scan._library}
     errors = []
 
     def run(fn):
@@ -969,6 +1303,9 @@ def main() -> int:
     phase_parity(gen)
     phase_backward_parity(gen)
     phase_tree_parity(gen)
+    phase_dense_parity(gen)
+    phase_flash_parity(gen)
+    phase_ssd_parity(gen)
 
     spec = presets.get("fig10-ablation").override(
         **PAPER_BUDGET, num_units=2048, block_backend="fused")
@@ -981,10 +1318,12 @@ def main() -> int:
                                replay_kernel="pallas")
     exp, train_launches = phase_train(train_spec)
     phase_train_profile(exp)
+    micro_launches = phase_micro()
 
     rows = phase_times(pol.params, gen)
     bwd = phase_bwd_times(gen)
     tree = phase_tree_times(gen)
+    new = phase_new_times(gen)
     r = rows[main_slot]
     fwd_rec = record(
         "dense_stack_fwd",
@@ -1014,6 +1353,26 @@ def main() -> int:
                "tree 2^18 nodes, n=256 (the priority refresh)",
                also_replaces="src/repro/kernels/replay_tree/"
                              "replay_tree.py:127"),
+        record("fused_dense",
+               "src/repro_torch/kernels/dense_block/csrc/fused_dense.cu",
+               "src/repro/kernels/dense_block/dense_block.py:36",
+               micro_launches["fused_dense"], new["fused_dense"],
+               f"M={DENSE_FULL['m']}, parts {list(DENSE_FULL['widths'])}, "
+               f"N={DENSE_FULL['n']}, swish + bias (Ant DenseNet layer 3); "
+               f"launches from kernels_micro.run()"),
+        record("flash_attention",
+               "src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+               "src/repro/kernels/flash_attention/flash_attention.py:33",
+               micro_launches["flash_attention"], new["flash_attention"],
+               "gqa_flash B=2 S=2048 H=16 KV=4 hd=64 causal; launches from "
+               "kernels_micro.run()"),
+        record("ssd_chunk_dual",
+               "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan/ssd_scan.py:24",
+               micro_launches["ssd_chunk_dual"], new["ssd_chunk_dual"],
+               "G=16 H=16 Q=256 N=P=64 (B=2 S=2048 at chunk 256); launches "
+               "from kernels_micro.run()"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

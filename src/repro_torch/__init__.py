@@ -5,11 +5,14 @@ module layout and parameter trees (nested dicts of tensors, dense ``w``
 stored ``(in, out)``) so weights and checkpoints cross between the two.
 It imports neither ``jax`` nor ``repro``.
 
-What is ported so far is the serving path: ``rl.policy.Policy`` over SAC or
-TD3 (OFENet features + MLP-DenseNet actor) behind the continuous-batching
-``launch.serve_policy.PolicyServer``. The fused DenseNet stack forward is a
-hand-written CUDA kernel (``kernels/dense_block``); its plain PyTorch
-version runs only for tensors on the CPU.
+What is ported so far: serving (``rl.policy.Policy`` over SAC or TD3
+behind the continuous-batching ``launch.serve_policy.PolicyServer``), SAC
+training on the device replay (``rl.experiment.Experiment``), and the
+kernel micro-benchmark ``launch.kernels_micro``. Every Pallas kernel of
+the reference is a hand-written CUDA kernel here (``kernels/``: the
+DenseNet stack forward and backward, the sum-tree sample and write, the
+fused dense layer, flash attention, the SSD chunk); each one's plain
+PyTorch version runs only for tensors on the CPU.
 
 Device rule: entry points take ``device=None`` and then run on the card.
 With no card they raise; they never pick the CPU on their own. Tests pass
