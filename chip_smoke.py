@@ -18,9 +18,11 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
      non-zero biases: |kernel - plain| <= 1e-4 * |plain| + 1e-4 *
      max|plain|;
    - the stack backward (dx, dW, db) for the same 12 cases at the ragged
-     shape and at the four nets the training path differentiates at M=256
-     (actor, critic, ``phi_s``, ``phi_sa``): within 1e-3 (rtol and
-     atol * max), and two calls bitwise equal;
+     shape, at the four nets the training path differentiates at M=256
+     (actor, critic, ``phi_s``, ``phi_sa``) and at two ragged shapes of the
+     register tile (201/203 rows): within 1e-3 (rtol and atol * max; relu's
+     slope at the kernel forward's pre-activations), and two calls bitwise
+     equal;
    - the sum-tree sample (B=256, edge targets 0 and total) and write
      (n=32, 256 with duplicates and siblings, 9,984) at capacity 100,000:
      bitwise equal to the plain versions;
@@ -58,9 +60,13 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    library yardstick the port never calls, and the least time the card
    could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
    H100 SXM data sheet): the actor-stack forward at slots 1, 8, 32, 256
-   (weights read cold); the full stack backward of each net at M=256; the
-   tree sample at B=256 and write at n=32/256/9,984; fused dense, flash
-   attention and the SSD chunk at their full shapes (``phase_new_times``).
+   (weights read cold); the full stack backward of each net at M=256, and
+   the critic's and the actor's product by product (``bwd_breakdown``:
+   act_grad, db, dW, W^T, dx, each beside ``torch.mm`` of its shape and
+   its bound) with the training profile's per-superstep time of the
+   backward's product classes; the tree sample at B=256 and write at
+   n=32/256/9,984; fused dense, flash attention and the SSD chunk at
+   their full shapes (``phase_new_times``).
 7. One JSON line of seven kernel records, then the device line, last.
 """
 from __future__ import annotations
@@ -143,6 +149,10 @@ def phase_parity(gen):
 # the nets whose stacks the training main path runs (name, M, d0, U, L)
 TRAIN_NETS = (("actor", 256, 259, 2048, 2), ("critic", 256, 516, 2048, 2),
               ("phi_s", 256, 3, 64, 4), ("phi_sa", 256, 260, 64, 4))
+# ragged shapes large enough for the backward's register tile: no size a
+# multiple of 4 (scalar loads), and strides that allow 16-byte loads
+RAGGED_RT = (("ragged_rt", 201, 37, 301, 3),
+             ("ragged_rt_vec", 203, 36, 300, 3))
 
 
 def grads_close(got, want):
@@ -164,10 +174,11 @@ def stack_grads(stack, x, ws, bs, g, conn, act):
 
 def phase_backward_parity(gen):
     """dx, dW, db of the backward kernels against autograd of the plain
-    version, and bitwise-equal across two calls."""
+    version (relu's slope taken at the kernel forward's pre-activations:
+    ``dense_stack_grads_ref``), and bitwise-equal across two calls."""
     import torch
     from repro_torch.kernels.dense_block import stack
-    shapes = (("ragged", 5, 7, 40, 3),) + TRAIN_NETS
+    shapes = (("ragged", 5, 7, 40, 3),) + TRAIN_NETS + RAGGED_RT
     worst = 0.0
     for conn in stack.FUSED_CONNECTIVITIES:
         for act in ("swish", "relu", "tanh", "identity"):
@@ -181,8 +192,11 @@ def phase_backward_parity(gen):
                 if stack.bwd_launch_count() - before != 2:
                     raise AssertionError("backward did not go through the "
                                          "kernel")
+                # relu's slope at the kernel forward's own pre-activations
+                zs = torch.empty((m, L * u), device="cuda")
+                stack._kernel_forward(x, ws, bs, conn, act, zs)
                 want = stack.dense_stack_grads_ref(
-                    x, ws, bs, g, connectivity=conn, activation=act)
+                    x, ws, bs, g, connectivity=conn, activation=act, zs=zs)
                 flat = lambda t: [t[0], *t[1], *t[2]]
                 ok, err = grads_close(flat(got), flat(want))
                 worst = max(worst, err)
@@ -729,9 +743,27 @@ def phase_train(spec, steps=50, warm=10):
     return exp, launches
 
 
+def bwd_product_class(key):
+    """'dW', 'dx', 'act_grad' or None for a profiler kernel name: the
+    register-tiled kernels by name (dx with the transpose of W it reads,
+    act_grad with its db pass), dense_tile.cuh's by their layout template
+    arguments (TA, TW): (true, false) for dW, (false, true) for dx."""
+    if "act_grad_kernel" in key or "db_sum_kernel" in key:
+        return "act_grad"
+    if "dw_tile_kernel" in key or ("tile_kernel<" in key
+                                   and "true, false>" in key):
+        return "dW"
+    if "dx_tile_kernel" in key or "transpose_kernel" in key or (
+            "tile_kernel<" in key and "false, true>" in key):
+        return "dx"
+    return None
+
+
 def phase_train_profile(exp, steps=10):
     """Where a superstep's time goes: wall clock against the device time
-    torch.profiler sees, and the kernels that take it."""
+    torch.profiler sees, and the kernels that take it. Returns the
+    backward's product classes per superstep, ``{class: (ms, launches)}``,
+    and the int32 fills per superstep (split counters by ``torch.zeros``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -755,15 +787,122 @@ def phase_train_profile(exp, steps=10):
     if not events:
         log("[train-prof] the profiler saw no device time: busy share not "
             "measured")
+    classes = {c: [0.0, 0.0] for c in ("dW", "dx", "act_grad")}
+    fills = 0.0
+    for e in events:
+        c = bwd_product_class(e.key)
+        if c is not None:
+            classes[c][0] += e.self_device_time_total / 1e3 / steps
+            classes[c][1] += e.count / steps
+        if "FillFunctor<int>" in e.key:
+            fills += e.count / steps
+    return {c: tuple(v) for c, v in classes.items()}, fills
 
 
-def phase_bwd_times(gen):
+def _bound(nbytes, flops):
+    """``(bound_ms, "bytes" or "operations")`` at 3.35 TB/s and fp32
+    67 TFLOP/s."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def bwd_breakdown(name, x, ws, out, zs, g):
+    """Each layer's products of a densenet stack backward (swish), timed
+    alone, one line each: ``act_grad`` (gz, gz^T and the per-row-block
+    sums; beside gz, db and gz^T in plain torch ops), its second pass
+    ``db``, dW_i, the transpose of W_i that dx reads (beside
+    ``W.t().contiguous()``), and dx_i (the transpose included, added into
+    the gradient stream); the products with both register-tiled shapes
+    (128x128 and 128x64) and the one ``plan_bwd`` picks, beside
+    ``torch.mm`` of the same shape, the bound and the share of it reached.
+    Returns the records."""
+    import torch
+    from repro_torch.kernels.dense_block import stack
+    m, d0 = x.shape
+    u, L = ws[0].shape[1], len(ws)
+    bw = stack._Backward(m, u, "swish", x.device)
+    feat = g.shape[1]                   # the stream of _kernel_backward
+    gb = torch.empty((m, stack._pad4(feat)), device=x.device)[:, :feat]
+    gb.copy_(g)
+    shape_name = {c: f"{bm}x{bn}" for c, (bm, bn, _) in
+                  stack._RT_CONFIGS.items()}
+    recs = []
+
+    def add(layer, product, shape, ms, mm_ms, nbytes, flops, configs=None,
+            plan=None):
+        bound, by = _bound(nbytes, flops)
+        rec = dict(layer=layer, product=product, shape=shape, ms=ms,
+                   mm_ms=mm_ms, bound_ms=bound, bound_by=by,
+                   configs=configs, plan=plan)
+        alt = "" if configs is None else " (" + ", ".join(
+            f"{c} {v * 1e3:.1f}" for c, v in configs.items()) + \
+            f"; plan {list(plan)})"
+        log(f"[bwd-prod] {name} layer {layer} {product:8s} {shape:>18s}: "
+            f"kernel {ms * 1e3:7.1f} us{alt}; "
+            f"{'torch' if configs is None else 'torch.mm'} "
+            f"{mm_ms * 1e3:7.1f} us; bound {bound * 1e3:6.1f} us ({by}), "
+            f"{100 * bound / ms:.0f}% of bound")
+        recs.append(rec)
+
+    for i in reversed(range(L)):
+        k = d0 + i * u
+        zi, gi = zs[:, i * u:(i + 1) * u], gb[:, k:k + u]
+
+        def plain_act_grad(_):
+            sg = torch.sigmoid(zi)
+            gzp = gi * (sg * (1 + zi * (1 - sg)))
+            return gzp, gzp.sum(0), gzp.t().contiguous()
+        gz, gzt, part = bw.act_grad(gb, k, zs, i, True, True)
+        add(i, "act_grad", f"({m}, {u})",
+            time_ms(lambda _: bw.act_grad(gb, k, zs, i, True, True), [0])[0],
+            time_ms(plain_act_grad, [0])[0],
+            4 * (4 * m * u + stack._ACT_ROW_BLOCKS * u), 0)
+        db = torch.empty((u,), device=x.device)
+        add(i, "db", f"({stack._ACT_ROW_BLOCKS}, {u})",
+            time_ms(lambda _: bw.db(part, db), [0])[0],
+            time_ms(lambda _: part.sum(0), [0])[0],
+            4 * (stack._ACT_ROW_BLOCKS + 1) * u, 0)
+
+        dw = torch.empty((k, u), device=x.device)
+        plan = stack.plan_bwd(k, u, m, bw.num_sms, vec=stack.vec_aligned(
+            stack.operand(out)))
+        cfgs = {shape_name[c]: time_ms(
+            lambda _, c=c: bw.dw(out, 0, k, gz, dw, 0, config=c), [0])[0]
+            for c in stack._RT_CONFIGS}
+        inp = out[:, :k]
+        add(i, "dW", f"({k}, {u}) K={m}", cfgs[shape_name[plan[0]]],
+            time_ms(lambda _: torch.mm(inp.t(), gz), [0])[0],
+            4 * (m * k + m * u + k * u), 2 * m * k * u, cfgs, plan)
+
+        add(i, "W^T", f"({k}, {u})",
+            time_ms(lambda _: bw.transpose(ws[i]), [0])[0],
+            time_ms(lambda _: ws[i].t().contiguous(), [0])[0],
+            4 * 2 * k * u, 0)
+        plan = stack.plan_bwd(m, k, u, bw.num_sms, dx=True)
+        cfgs = {shape_name[c]: time_ms(
+            lambda _, c=c: bw.dinput(gz, gzt, ws[i], 0, k, gb, 0, True,
+                                     config=c), [0])[0]
+            for c in stack._RT_CONFIGS}
+        add(i, "dx", f"({m}, {k}) K={u}", cfgs[shape_name[plan[0]]],
+            time_ms(lambda _: torch.mm(gz, ws[i].t()), [0])[0],
+            4 * (m * u + k * u + 2 * m * k), 2 * m * k * u, cfgs, plan)
+    alone = [r for r in recs if r["product"] != "W^T"]   # inside dx's
+    log(f"[bwd-prod] {name}: act_grad, db, dW and dx alone sum to "
+        f"{sum(r['ms'] for r in alone) * 1e3:.1f} us (torch and torch.mm: "
+        f"{sum(r['mm_ms'] for r in alone) * 1e3:.1f} us)")
+    return recs
+
+
+def phase_bwd_times(gen, profile_classes=None):
     """One full stack backward (dx, every dW and db) at the main path's
     M=256 for each net: the kernels, the plain version (autograd of the
     concat loop, backward only), and a cuBLAS yardstick (per layer: the
     swish derivative, ``mm`` for dW, ``sum`` for db, ``addmm_`` into the
     gradient stream), beside the bound (fp32 operations of dW + dx at
-    67 TFLOP/s vs the bytes at 3.35 TB/s)."""
+    67 TFLOP/s vs the bytes at 3.35 TB/s). Then each product of the
+    critic and the actor on its own (``bwd_breakdown``), and the training
+    profile's device time per superstep of the three product classes."""
     import torch
     from repro_torch.kernels.dense_block import stack
     rows = {}
@@ -820,6 +959,14 @@ def phase_bwd_times(gen):
             f"({r['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
             f"GFLOP), {100 * bound_ms / r['ms']:.0f}% of bound, max abs err "
             f"{err:.2e}")
+        if name in ("critic", "actor"):
+            r["products"] = bwd_breakdown(name, x, ws, out, zs, g)
+    if profile_classes is not None:
+        classes, fills = profile_classes
+        log("[bwd-prof] training superstep, device time per superstep: "
+            + ", ".join(f"{c} {ms:.3f} ms over {n:.1f} launches"
+                        for c, (ms, n) in classes.items())
+            + f"; int32 fills (torch.zeros split counters) {fills:.1f}")
     return rows
 
 
@@ -1317,11 +1464,11 @@ def main() -> int:
     train_spec = spec.override(replay_backend="device",
                                replay_kernel="pallas")
     exp, train_launches = phase_train(train_spec)
-    phase_train_profile(exp)
+    profile_classes = phase_train_profile(exp)
     micro_launches = phase_micro()
 
     rows = phase_times(pol.params, gen)
-    bwd = phase_bwd_times(gen)
+    bwd = phase_bwd_times(gen, profile_classes)
     tree = phase_tree_times(gen)
     new = phase_new_times(gen)
     r = rows[main_slot]

@@ -11,17 +11,24 @@ the last hidden layer for mlp and d2rl.
   path. When autograd will differentiate the call, the forward also keeps
   every layer's pre-activation in an ``(M, L*U)`` side buffer, and the
   backward (``_StackKernel.backward``, the port of ``_bwd_kernel``)
-  launches ``csrc/dense_stack_bwd.cu`` layer by layer in reverse; it
-  computes only the gradients autograd asks for, and it is bitwise the
+  launches ``csrc/dense_stack_bwd.cu`` layer by layer in reverse, W^T, dW
+  and db on a side stream beside the act_grad -> dx chain; products of at
+  least 128 x 128 x 128 (every one of the actor and the critic) take the
+  register tile of ``csrc/dense_tile_rt.cuh`` as ``plan_bwd`` plans them.
+  It computes only the gradients autograd asks for, and it is bitwise the
   same from run to run (no floating-point atomics).
 * On a CPU tensor it runs ``dense_stack_ref``, the plain PyTorch concat
   loop, which autograd differentiates as usual. This is the reference the
   kernels are held against on the card (``dense_stack_grads_ref`` for the
   backward).
 
-Workspaces, counters and scratch are ``torch.empty`` tensors freed after
-the launch: PyTorch's caching allocator hands their memory out again only
-in stream order, after the kernel has run.
+Workspaces and scratch are ``torch.empty`` tensors freed after the
+launch: PyTorch's caching allocator hands their memory out again only in
+stream order, after the kernel has run (a tensor one stream makes and the
+other uses is recorded for it). The forward's split counters are
+``torch.zeros`` per launch; the backward's come from one zeroed buffer per
+(device, stream) (``_tile_counters``), which every backward kernel leaves
+at zero.
 
 Buffer layout (logical widths, no lane padding; see the kernel's header):
 densenet writes every layer into its column slot of one ``(M, d0 + L*U)``
@@ -31,6 +38,7 @@ the order of the weight's logical rows.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import threading
 from pathlib import Path
@@ -48,12 +56,27 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = _CSRC / "dense_stack_fwd.cu"
 BWD_SOURCE = _CSRC / "dense_stack_bwd.cu"
 HEADER = _CSRC / "dense_tile.cuh"
+RT_HEADER = _CSRC / "dense_tile_rt.cuh"
 # (BM, BN, BK) per kernel config id — must match dense_layer_fwd's switch
 _CONFIGS = ((16, 64, 32), (32, 64, 32), (64, 64, 16))
 # split K until the grid holds about this many blocks per SM
 _BLOCKS_PER_SM = 2
 # ... but give each split at least this many BK chunks
 _MIN_CHUNKS_PER_SPLIT = 4
+# the backward's register-tiled tiles (BM, BN, BK) by config id, mirrored
+# by dense_tile_rt.cuh's launch_config
+_RT_CONFIGS = {3: (128, 128, 8), 4: (128, 64, 8)}
+# the register tile takes outputs of at least this many rows and columns
+# and reductions at least this long; smaller products keep _CONFIGS
+_RT_MIN = 128
+# ... and gives each split at least this many BK chunks
+_RT_MIN_CHUNKS_PER_SPLIT = 8
+# what a split of dx costs, in BK chunks of one block's work: its partials
+# written, read back and summed by the tile's last block (fit to the split
+# sweeps of launch/bwd_sweep.py at the four dx products, M=256, H100)
+_RT_SPLIT_CHUNKS = 6.7
+# act_grad_kernel's row blocks: rows of per-block column sums for db
+_ACT_ROW_BLOCKS = 8
 
 _count_lock = threading.Lock()
 _launches = 0
@@ -118,12 +141,8 @@ def in_dim(connectivity: str, i: int, d0: int, u: int) -> int:
 # plain PyTorch version: the reference, and the path for CPU tensors
 # ---------------------------------------------------------------------------
 
-def dense_stack_ref(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                    bs: Sequence[torch.Tensor], *,
-                    connectivity: str = "densenet",
-                    activation: str = "swish") -> torch.Tensor:
-    """The concat loop of ``stack.py::dense_stack_ref``, on 2-D ``x``."""
-    act = get_activation(activation)
+def _concat_loop(x: torch.Tensor, ws, bs, connectivity: str, acts):
+    """The concat loop with layer i's activation ``acts[i]``."""
     stream, h = x, x
     for i, (w, b) in enumerate(zip(ws, bs)):
         if connectivity == "densenet":
@@ -132,25 +151,46 @@ def dense_stack_ref(x: torch.Tensor, ws: Sequence[torch.Tensor],
             inp = torch.cat([h, x], dim=-1)
         else:
             inp = h
-        h = act(inp @ w + b)
+        h = acts[i](inp @ w + b)
         if connectivity == "densenet":
             stream = torch.cat([stream, h], dim=-1)
     return stream if connectivity == "densenet" else h
 
 
+def dense_stack_ref(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                    bs: Sequence[torch.Tensor], *,
+                    connectivity: str = "densenet",
+                    activation: str = "swish") -> torch.Tensor:
+    """The concat loop of ``stack.py::dense_stack_ref``, on 2-D ``x``."""
+    return _concat_loop(x, ws, bs, connectivity,
+                        [get_activation(activation)] * len(ws))
+
+
 def dense_stack_grads_ref(x: torch.Tensor, ws: Sequence[torch.Tensor],
                           bs: Sequence[torch.Tensor], g: torch.Tensor, *,
                           connectivity: str = "densenet",
-                          activation: str = "swish"):
+                          activation: str = "swish",
+                          zs: Optional[torch.Tensor] = None):
     """``(dx, dws, dbs)`` of ``<dense_stack_ref(x, ws, bs), g>``: autograd of
-    the plain version, the reference the backward kernel is held against."""
+    the plain version, the reference the backward kernel is held against.
+
+    With ``zs`` (a forward's pre-activations, ``(M, L*U)``), relu's
+    derivative is taken at their signs. Relu has a kink at 0: a
+    pre-activation within rounding of 0 gets slope 0 from one forward and 1
+    from another, and the gradients then differ by a whole row of g. Taking
+    the slope at the kernel forward's own pre-activations holds the
+    backward to the tolerance; the forward is held on its own."""
+    n = len(ws)
+    acts = [get_activation(activation)] * n
+    if zs is not None and activation == "relu":
+        u = ws[0].shape[1]
+        acts = [lambda z, on=(zs[:, i * u:(i + 1) * u] > 0): z * on
+                for i in range(n)]
     with torch.enable_grad():
         var = [t.detach().requires_grad_(True) for t in (x, *ws, *bs)]
-        out = dense_stack_ref(var[0], var[1:1 + len(ws)],
-                              var[1 + len(ws):], connectivity=connectivity,
-                              activation=activation)
+        out = _concat_loop(var[0], var[1:1 + n], var[1 + n:], connectivity,
+                           acts)
         grads = torch.autograd.grad(out, var, g)
-    n = len(ws)
     return grads[0], list(grads[1:1 + n]), list(grads[1 + n:])
 
 
@@ -172,15 +212,21 @@ def _library() -> ctypes.CDLL:
 
 def _bwd_library() -> ctypes.CDLL:
     from repro_torch.kernels import load_library
-    lib = load_library("dense_stack_bwd", [BWD_SOURCE], [HEADER])
+    lib = load_library("dense_stack_bwd", [BWD_SOURCE], [HEADER, RT_HEADER])
     if lib.dense_bwd_gemm.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dense_bwd_act_grad.argtypes = [p, ll, p, ll, p, p, i, i, i, p]
+        lib.dense_bwd_act_grad.argtypes = [p, ll, p, ll, p, p, ll, p, i, i,
+                                           i, p]
+        lib.dense_bwd_db.argtypes = [p, p, i, p]
         lib.dense_bwd_act.argtypes = [p, ll, p, i, i, i, p]
+        lib.dense_bwd_transpose.argtypes = [p, ll, p, ll, i, i, p]
         lib.dense_bwd_gemm.argtypes = [i, i, i, p, ll, i, p, ll, i, p, ll,
                                        p, ll, i, p, p, i, i, i, i, p]
-        for fn in (lib.dense_bwd_act_grad, lib.dense_bwd_act,
-                   lib.dense_bwd_gemm):
+        lib.dense_bwd_gemm_rt.argtypes = [i, i, i, p, ll, p, ll, p, ll, p,
+                                          ll, p, p, i, i, i, i, i, p]
+        for fn in (lib.dense_bwd_act_grad, lib.dense_bwd_db,
+                   lib.dense_bwd_act, lib.dense_bwd_transpose,
+                   lib.dense_bwd_gemm, lib.dense_bwd_gemm_rt):
             fn.restype = ctypes.c_int
     return lib
 
@@ -200,6 +246,110 @@ def plan(m: int, n: int, k: int, num_sms: int) -> Tuple[int, int, int, int]:
     splits = max(1, min(want, chunks // _MIN_CHUNKS_PER_SPLIT))
     per_split = -(-chunks // splits)
     return config, tiles, -(-chunks // per_split), per_split
+
+
+def plan_bwd(m: int, n: int, k: int, num_sms: int,
+             config: Optional[int] = None, dx: bool = False,
+             vec: bool = True) -> Tuple[int, int, int, int]:
+    """``(config, tiles, splits, chunks_per_split)`` of one backward product
+    with an ``(m, n)`` output and a reduction of length ``k``: dW (the
+    reduction over the batch) or, with ``dx``, the input gradient (over U).
+
+    Outputs of at least ``_RT_MIN`` rows and columns with a reduction at
+    least as long take a register-tiled config of ``_RT_CONFIGS``
+    (``config`` forces one); smaller products (the narrow OFENet stacks,
+    small test shapes) keep the forward's ``plan``. The rules follow the
+    card (``launch/bwd_sweep.py``: both tiles and every split at the
+    critic's and the actor's products, H100):
+
+    * dW reduces over only the batch, and its output is large: 128x128
+      tiles where they are one wave or more and ``vec`` (the stream takes
+      16-byte copies), else 128x64; no split unless the tiles fill less
+      than half the SMs (a split writes and rereads the whole output).
+    * dx reduces over U = 2048 into a small output, so K is split. Its
+      blocks stream W^T from device memory, and a second block on an SM
+      added nothing, so the plan counts waves of one block per SM: it
+      takes 128x64 tiles and the split that minimises waves x chunks per
+      split + splits x ``_RT_SPLIT_CHUNKS``; ties go to fewer splits."""
+    if min(m, n, k) < _RT_MIN:
+        if config is not None:
+            raise ValueError(f"config {config} forced on a ({m}, {n}) x "
+                             f"{k} product below the register tile")
+        return plan(m, n, k, num_sms)
+    if config is not None and config not in _RT_CONFIGS:
+        raise ValueError(f"config {config} is not a register-tiled config "
+                         f"{tuple(_RT_CONFIGS)}")
+
+    def tiles_of(cfg):
+        bm, bn, _ = _RT_CONFIGS[cfg]
+        return -(-m // bm) * -(-n // bn)
+
+    if config is None:
+        config = 3 if not dx and vec and tiles_of(3) >= num_sms else 4
+    tiles, bk = tiles_of(config), _RT_CONFIGS[config][2]
+    chunks = -(-k // bk)
+    max_splits = max(1, chunks // _RT_MIN_CHUNKS_PER_SPLIT)
+    if not dx:
+        want = -(-num_sms // tiles) if 2 * tiles < num_sms else 1
+        per_split = -(-chunks // min(want, max_splits))
+        return config, tiles, -(-chunks // per_split), per_split
+    best = None
+    for want in range(1, max_splits + 1):
+        per_split = -(-chunks // want)
+        splits = -(-chunks // per_split)
+        cost = -(-tiles * splits // num_sms) * per_split \
+            + _RT_SPLIT_CHUNKS * (splits - 1)
+        if best is None or (cost, splits) < best[0]:
+            best = ((cost, splits), (config, tiles, splits, per_split))
+    return best[1]
+
+
+def vec_aligned(*operands: Tuple[int, int]) -> bool:
+    """True when every ``(address, row stride in floats)`` operand takes
+    16-byte loads: the address a multiple of 16 bytes, the stride of 4
+    floats. The register tile copies each operand 16 bytes at a time where
+    this holds for it, single floats elsewhere."""
+    return all(ptr % 16 == 0 and ld % 4 == 0 for ptr, ld in operands)
+
+
+def operand(t: torch.Tensor, col: int = 0) -> Tuple[int, int]:
+    """``(address, row stride)`` of a float32 tensor from column ``col``
+    of its row 0: one operand of ``vec_aligned``."""
+    return t.data_ptr() + 4 * col, t.stride(0)
+
+
+_state_lock = threading.Lock()      # guards the two dicts below
+_counter_bufs: dict = {}
+_side_streams: dict = {}
+
+
+def _tile_counters(n: int, dev: torch.device, stream: int) -> torch.Tensor:
+    """``n`` zeroed int32 counters for a backward launch on ``stream``.
+
+    One buffer per (device, stream), filled with zeros only when it is made
+    or grown: every backward kernel resets the counters it used to 0 before
+    it exits, and launches on one stream run in order, so the next launch
+    finds them zeroed."""
+    key = (dev, stream)
+    with _state_lock:
+        buf = _counter_bufs.get(key)
+        if buf is None or buf.numel() < n:
+            size = max(n, 1024, 0 if buf is None else 2 * buf.numel())
+            buf = torch.zeros((size,), device=dev, dtype=torch.int32)
+            _counter_bufs[key] = buf
+        return buf
+
+
+def _side_stream(dev: torch.device, main: torch.cuda.Stream
+                 ) -> torch.cuda.Stream:
+    """The stream a backward on ``main`` runs its db, dW and W^T work on:
+    one per (device, main stream), made at first use."""
+    key = (dev, main.cuda_stream)
+    with _state_lock:
+        side = _side_streams.get(key)
+        if side is None:
+            side = _side_streams[key] = torch.cuda.Stream(device=dev)
+        return side
 
 
 def _split_buffers(m: int, n: int, tiles: int, splits: int,
@@ -307,6 +457,11 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
         return h
 
 
+def _pad4(n: int) -> int:
+    """n rounded up to a multiple of 4 (a 16-byte row of float32)."""
+    return n + -n % 4
+
+
 class _Backward:
     """One stack backward on the card: the launches of
     ``dense_stack_bwd.cu`` (see its header), layer by layer in reverse."""
@@ -322,21 +477,47 @@ class _Backward:
     def _empty(self, *shape) -> torch.Tensor:
         return torch.empty(shape, device=self.dev, dtype=torch.float32)
 
+    def _counters(self, n: int) -> torch.Tensor:
+        return _tile_counters(n, self.dev, self.stream)
+
     @staticmethod
     def _check(err: int, what: str) -> None:
         if err != 0:
             raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
+    def dx_rt(self, k: int) -> bool:
+        """Whether ``dinput`` of width k takes the register tile (and so
+        needs gz^T from ``act_grad``)."""
+        return plan_bwd(self.m, k, self.u, self.num_sms,
+                        dx=True)[0] in _RT_CONFIGS
+
+    def on(self, stream: torch.cuda.Stream) -> "_Backward":
+        """The same backward, launching on ``stream``."""
+        other = copy.copy(self)
+        other.stream = stream.cuda_stream
+        return other
+
     def act_grad(self, g: torch.Tensor, gcol: int, zs: torch.Tensor,
-                 i: int, need_db: bool):
-        """``(gz, db)`` of layer i: ``g[:, gcol:gcol+U] * act'(z_i)``."""
+                 i: int, need_db: bool, transpose: bool = False):
+        """``(gz, gzt, db_part)`` of layer i: ``gz = g[:, gcol:gcol+U] *
+        act'(z_i)``; with ``transpose`` gz^T (U, M) for the register-tiled
+        dx products (else None); with ``need_db`` the per-row-block column
+        sums that ``db`` adds up (else None)."""
         gz = self._empty(self.m, self.u)
-        db = self._empty(self.u) if need_db else None
+        gzt = self._empty(self.u, _pad4(self.m))[:, :self.m] if transpose \
+            else None
+        part = self._empty(_ACT_ROW_BLOCKS, self.u) if need_db else None
         self._check(self.lib.dense_bwd_act_grad(
             _ptr(g, gcol), g.stride(0), _ptr(zs, i * self.u), zs.stride(0),
-            gz.data_ptr(), _ptr(db), self.m, self.u, self.act, self.stream),
+            gz.data_ptr(), _ptr(gzt), 0 if gzt is None else gzt.stride(0),
+            _ptr(part), self.m, self.u, self.act, self.stream),
             "dense_bwd_act_grad")
-        return gz, db
+        return gz, gzt, part
+
+    def db(self, part: torch.Tensor, db: torch.Tensor) -> None:
+        """``db`` = the rows of ``act_grad``'s sums added in order."""
+        self._check(self.lib.dense_bwd_db(part.data_ptr(), db.data_ptr(),
+                                          self.u, self.stream), "dense_bwd_db")
 
     def act_of(self, zs: torch.Tensor, i: int) -> torch.Tensor:
         """``act(z_i)``: layer i's output, for mlp/d2rl."""
@@ -346,36 +527,92 @@ class _Backward:
             self.u, self.act, self.stream), "dense_bwd_act")
         return h
 
-    def _gemm(self, ta: int, tw: int, a: torch.Tensor, acol: int, k: int,
-              w: torch.Tensor, wrow: int, out: torch.Tensor, ocol: int,
-              orow: int, m: int, n: int, accumulate: bool) -> None:
-        config, tiles, splits, per_split = plan(m, n, k, self.num_sms)
-        ws_buf, counters = _split_buffers(m, n, tiles, splits, self.dev)
-        self._check(self.lib.dense_bwd_gemm(
-            config, ta, tw, _ptr(a, acol), a.stride(0), k, None, 0, 0,
-            _ptr(w, wrow * w.stride(0)), w.stride(0),
-            _ptr(out, orow * out.stride(0) + ocol), out.stride(0),
-            int(accumulate), _ptr(ws_buf), _ptr(counters), m, n, splits,
-            per_split, self.stream), "dense_bwd_gemm")
+    def transpose(self, t: torch.Tensor) -> torch.Tensor:
+        """``t^T`` of a 2-D float32 view with unit column stride, rows
+        padded to 4 floats."""
+        rows, cols = t.shape
+        out = self._empty(cols, _pad4(rows))[:, :rows]
+        self._check(self.lib.dense_bwd_transpose(
+            t.data_ptr(), t.stride(0), out.data_ptr(), out.stride(0), rows,
+            cols, self.stream), "dense_bwd_transpose")
+        return out
+
+    def _product(self, plan, dx: bool, a_op, b_op, out: torch.Tensor,
+                 ocol: int, orow: int, m: int, n: int, k: int,
+                 accumulate: bool, add=None) -> None:
+        """``out[orow:, ocol:]`` (m, n) (+)= a product over k, or = ``add`` +
+        the product (register tile only). Register tile: ``a^T @ b`` with a
+        (k, m) and b (k, n); dense_tile.cuh: dW as ``a^T @ b`` likewise, dx
+        as ``a @ b^T`` with a (m, k) and b (n, k). Operands, ``add`` too,
+        are ``(address, row stride)``."""
+        config, tiles, splits, per_split = plan
+        rt = config in _RT_CONFIGS
+        ws_buf = counters = None
+        if splits > 1:
+            ws_buf = self._empty(splits, m, _pad4(n) if rt else n)
+            counters = self._counters(tiles)
+        out_ptr = _ptr(out, orow * out.stride(0) + ocol)
+        if rt:
+            vec = int(vec_aligned(a_op)) | 2 * int(vec_aligned(b_op))
+            if add is None:
+                add = (out_ptr, out.stride(0)) if accumulate else (None, 0)
+            err = self.lib.dense_bwd_gemm_rt(
+                config, int(dx), vec, *a_op, *b_op, out_ptr, out.stride(0),
+                *add, _ptr(ws_buf), _ptr(counters), m, n, k, splits,
+                per_split, self.stream)
+        else:
+            if add is not None:
+                raise ValueError("dense_tile.cuh adds in place only")
+            err = self.lib.dense_bwd_gemm(
+                config, int(not dx), int(dx), *a_op, k, None, 0, 0, *b_op,
+                out_ptr, out.stride(0), int(accumulate), _ptr(ws_buf),
+                _ptr(counters), m, n, splits, per_split, self.stream)
+        self._check(err, f"dense_bwd_gemm (config {config}, m={m}, n={n}, "
+                         f"k={k}, splits={splits})")
 
     def dw(self, inp: torch.Tensor, col: int, k: int, gz: torch.Tensor,
-           dw: torch.Tensor, row: int) -> None:
+           dw: torch.Tensor, row: int, config: Optional[int] = None) -> None:
         """``dw[row:row+k] = inp[:, col:col+k]^T @ gz`` (reduces the batch)."""
-        self._gemm(1, 0, inp, col, self.m, gz, 0, dw, 0, row, k, self.u,
-                   False)
+        a_op = operand(inp, col)
+        plan = plan_bwd(k, self.u, self.m, self.num_sms, config,
+                        vec=vec_aligned(a_op))
+        self._product(plan, False, a_op, operand(gz), dw, 0, row, k, self.u,
+                      self.m, False)
 
-    def dinput(self, gz: torch.Tensor, w: torch.Tensor, row: int, k: int,
-               out: torch.Tensor, col: int, accumulate: bool) -> None:
-        """``out[:, col:col+k] (+)= gz @ w[row:row+k]^T`` (reduces U)."""
-        self._gemm(0, 1, gz, 0, self.u, w, row, out, col, 0, self.m, k,
-                   accumulate)
+    def dinput(self, gz: torch.Tensor, gzt: Optional[torch.Tensor],
+               w: torch.Tensor, row: int, k: int, out: torch.Tensor,
+               col: int, accumulate: bool, config: Optional[int] = None,
+               wt: Optional[torch.Tensor] = None, add=None) -> None:
+        """``out[:, col:col+k] (+)= gz @ w[row:row+k]^T`` (reduces U), or =
+        ``add`` + the product. The register tile reads ``gzt`` (gz^T from
+        ``act_grad``) and W's rows transposed (``wt`` if already made, else
+        made here), both padded to 16-byte rows, so both operands run along
+        the output."""
+        plan = plan_bwd(self.m, k, self.u, self.num_sms, config, dx=True)
+        # a and b stay referenced until the launch is queued: the allocator
+        # would hand a freed W^T to the split workspace of this very launch
+        a, b = gz, w[row:row + k]
+        if plan[0] in _RT_CONFIGS:
+            a, b = gzt, self.transpose(b) if wt is None else wt
+        self._product(plan, True, operand(a), operand(b), out, col, 0,
+                      self.m, k, self.u, accumulate, add)
 
 
 def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                      activation: str, need_dx: bool, need_dw, need_db):
     """``(dx, dws, dbs)`` on the card, None where not asked for. ``saved``
     is the forward's output stream (densenet) or its input ``x`` (mlp,
-    d2rl), then the pre-activations ``zs``."""
+    d2rl), then the pre-activations ``zs``.
+
+    The chain act_grad_i -> dx_i -> act_grad_{i-1} runs on the caller's
+    stream. Off it, on a side stream: (densenet) every W_i^T the dx
+    products read, up front, then each db_i and dW_i, which need only
+    act_grad_i's outputs; they run at once with the chain, on the SMs it
+    leaves idle.
+    Tensors that one stream makes and the other uses are recorded for it,
+    so the allocator does not hand their memory out while it is still in
+    use; the caller's stream waits for the side stream before the
+    gradients are returned."""
     stream_or_x, zs = saved
     n_layers, u = len(ws), ws[0].shape[1]
     d0 = ws[0].shape[0]
@@ -391,19 +628,75 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                         f"got {g.dtype}")
     dev = g.device
     with torch.cuda.device(dev):
+        main = torch.cuda.current_stream(dev)
+        side = _side_stream(dev, main)
         bw = _Backward(m, u, activation, dev)
+        bws = bw.on(side)
         g = g.contiguous()
+
+        def off_chain(i, gz, part, segments):
+            """db_i and dW_i on the side stream, once the caller's stream
+            has made gz and the row sums: dW's rows from each ``(input,
+            first row)`` segment."""
+            dbs[i] = bw._empty(u) if part is not None else None
+            if segments:
+                dws[i] = bw._empty(ws[i].shape[0], u)
+            side.wait_stream(main)
+            for t in (gz, part, dbs[i], dws[i], *(t for t, _ in segments)):
+                if t is not None:
+                    t.record_stream(side)
+            with torch.cuda.stream(side):
+                if part is not None:
+                    bws.db(part, dbs[i])
+                for inp, row in segments:
+                    bws.dw(inp, 0, inp.shape[1], gz, dws[i], row)
+
         if connectivity == "densenet":
-            gb = g.clone()          # gradient stream, accumulated in place
+            # gb, the gradient stream below the top slot, accumulated in
+            # place; its row stride is rounded up to 4 floats, so the dx
+            # products store 16 bytes at a time whatever the stream's width
+            # (the actor's is 4355). Where the top layer's dx takes the
+            # register tile, it writes gb = g's prefix + its product, and g
+            # is not copied; where the bottom one does, it writes dx = gb's
+            # prefix + its product, and gb's prefix is not copied out.
+            top = n_layers - 1
+            k_top = d0 + top * u
+            from_g = (top > lowest or need_dx) and bw.dx_rt(k_top)
+            width = k_top if from_g else g.shape[1]
+            gb = torch.empty((m, _pad4(width)), device=dev,
+                             dtype=torch.float32)[:, :width]
+            if not from_g:
+                gb.copy_(g)
+            dx = torch.empty((m, d0), device=dev) \
+                if need_dx and bw.dx_rt(d0) else None
+            # every W_i^T dx will read, made up front on the side stream,
+            # top layer first: off the chain, which waits only for its own
+            wts, ready = {}, {}
+            side.wait_stream(main)          # W may still be being written
+            with torch.cuda.stream(side):
+                for i in reversed(range(lowest, n_layers)):
+                    if (i > lowest or need_dx) and bw.dx_rt(d0 + i * u):
+                        wts[i] = bws.transpose(ws[i])
+                        wts[i].record_stream(main)
+                        ready[i] = torch.cuda.Event()
+                        ready[i].record(side)
             for i in reversed(range(lowest, n_layers)):
                 k = d0 + i * u
-                gz, dbs[i] = bw.act_grad(gb, k, zs, i, need_db[i])
-                if need_dw[i]:
-                    dws[i] = bw._empty(k, u)
-                    bw.dw(stream_or_x, 0, k, gz, dws[i], 0)
-                if i > lowest or need_dx:
-                    bw.dinput(gz, ws[i], 0, k, gb, 0, accumulate=True)
-            dx = gb[:, :d0].contiguous() if need_dx else None
+                g_in = i > lowest or need_dx
+                src = g if i == top and from_g else gb
+                gz, gzt, part = bw.act_grad(src, k, zs, i, need_db[i],
+                                            g_in and bw.dx_rt(k))
+                off_chain(i, gz, part,
+                          [(stream_or_x[:, :k], 0)] if need_dw[i] else [])
+                if g_in:
+                    if i in wts:
+                        main.wait_event(ready[i])
+                    out = dx if i == 0 and dx is not None else gb
+                    bw.dinput(gz, gzt, ws[i], 0, k, out, 0, accumulate=True,
+                              wt=wts.pop(i, None),
+                              add=None if src is out else operand(src))
+            if need_dx and dx is None:
+                dx = gb[:, :d0].contiguous()
         else:
             x = stream_or_x
             d2rl = connectivity == "d2rl"
@@ -411,27 +704,30 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
             gx = torch.zeros((m, d0), device=dev) if need_dx and d2rl \
                 else None
             for i in reversed(range(lowest, n_layers)):
-                gz, dbs[i] = bw.act_grad(gh, 0, zs, i, need_db[i])
-                h_prev = bw.act_of(zs, i - 1) if i > 0 else x
-                if need_dw[i]:
-                    dws[i] = bw._empty(ws[i].shape[0], u)
-                    bw.dw(h_prev, 0, h_prev.shape[1], gz, dws[i], 0)
-                    if d2rl and i > 0:           # weight rows [h | x]
-                        bw.dw(x, 0, d0, gz, dws[i], u)
-                if i == 0:
-                    if need_dx and d2rl:
-                        bw.dinput(gz, ws[0], 0, d0, gx, 0, accumulate=True)
-                    elif need_dx:
+                inputs = []                  # the input gradients it makes
+                if i == 0 and need_dx:
+                    if not d2rl:
                         gx = bw._empty(m, d0)
-                        bw.dinput(gz, ws[0], 0, d0, gx, 0, accumulate=False)
-                    continue
-                if i == lowest:              # nothing below needs gh or dx
-                    break
-                gh = bw._empty(m, u)
-                bw.dinput(gz, ws[i], 0, u, gh, 0, accumulate=False)
-                if need_dx and d2rl:
-                    bw.dinput(gz, ws[i], u, d0, gx, 0, accumulate=True)
+                    inputs.append((0, d0, gx, d2rl))
+                elif i > lowest:             # layer i-1 needs gh
+                    inputs.append((0, u, bw._empty(m, u), False))
+                    if need_dx and d2rl:     # weight rows [h | x]
+                        inputs.append((u, d0, gx, True))
+                gz, gzt, part = bw.act_grad(
+                    gh, 0, zs, i, need_db[i],
+                    any(bw.dx_rt(k) for _, k, _, _ in inputs))
+                segments = []
+                if need_dw[i]:
+                    h_prev = bw.act_of(zs, i - 1) if i > 0 else x
+                    segments = [(h_prev, 0)] + ([(x, u)] if d2rl and i > 0
+                                                else [])
+                off_chain(i, gz, part, segments)
+                for row, k, out, acc in inputs:
+                    bw.dinput(gz, gzt, ws[i], row, k, out, 0, acc)
+                if i > lowest:
+                    gh = inputs[0][2]
             dx = gx
+        main.wait_stream(side)
     _count_launch(backward=True)
     return dx, dws, dbs
 
