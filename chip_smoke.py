@@ -12,11 +12,15 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    fused_dense.cu, flash_attention.cu, ssd_scan.cu).
 3. Kernels against their plain versions (new kernels in float32 within
    1e-4 and bfloat16 within 2e-2, as rtol and atol * max|plain|):
-   - the stack forward for every fused connectivity x {swish, relu, tanh,
-     identity}, at a ragged small shape and at the served model's shapes
-     (OFENet ``phi_s`` and the actor stack) for M in {1, 32, 256}, with
-     non-zero biases: |kernel - plain| <= 1e-4 * |plain| + 1e-4 *
-     max|plain|;
+   - the stack forward (its three kernels: weight-streaming at M <= 32,
+     register tile over ``stream^T`` at M=256 with U >= 128, the old tile
+     for the narrow OFENet stacks) for every fused connectivity x {swish,
+     relu, tanh, identity}, at a ragged small shape, at the model's
+     shapes (OFENet ``phi_s`` and the actor at every serving slot, 1, 2,
+     4, 8, 16, 32, and at 256; the critic at 1, 8, 32, 256) and at two
+     ragged shapes of the register tile (201/203 rows), with non-zero
+     biases: |kernel - plain| <= 1e-4 * |plain| + 1e-4 * max|plain|, and
+     two calls bitwise equal;
    - the stack backward (dx, dW, db) for the same 12 cases at the ragged
      shape, at the four nets the training path differentiates at M=256
      (actor, critic, ``phi_s``, ``phi_sa``) and at two ragged shapes of the
@@ -41,17 +45,22 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    checkpoint code, served through ``Policy.from_checkpoint`` +
    ``PolicyServer`` to 8 client threads (256 requests), checked against
    the plain path on the CPU, then hot-swapped to a second init. Every tick
-   must launch the stack kernel once per layer it runs. One tick at the
-   most used slot is timed and traced with ``torch.profiler``.
+   must launch the stack kernel once per layer it runs, all of them the
+   weight-streaming kernel. One tick at the most used slot is timed and
+   traced with ``torch.profiler``.
 5. Training main path: the same agent with the device replay and its
    kernels (``replay_backend="device"``, ``replay_kernel="pallas"``)
    through ``Experiment.from_spec(spec).run``: the warm-up (9,984
    transitions), one superstep on the card against the same superstep on
    the CPU plain path (same state, same draws), then 50 supersteps with
-   the launches of every superstep asserted (``expected_launches``),
+   the launches of every superstep asserted (``expected_launches``: the
+   forward by kernel, its stream^T transposes, the backward, the tree),
    finite losses, a consistent replay count and tree total, and
    ``Policy.from_experiment`` checked against the plain path. Wall time
-   per superstep and a ``torch.profiler`` breakdown.
+   per superstep and a ``torch.profiler`` breakdown (the forward's wide,
+   narrow, streaming and transpose classes; the int32 fills of the whole
+   superstep, read, not asserted). ``phase_fwd_fills`` then asserts that
+   the stack forward itself issues no int32 fill.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
    (the fused dense, flash and SSD kernels, which no training or serving
    path runs) with every count set to 0 just before; each row must launch
@@ -59,8 +68,9 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
 6. Times at the main paths' shapes, each beside its plain version, a
    library yardstick the port never calls, and the least time the card
    could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
-   H100 SXM data sheet): the actor-stack forward at slots 1, 8, 32, 256
-   (weights read cold); the full stack backward of each net at M=256, and
+   H100 SXM data sheet): the stack forward of the actor and ``phi_s`` at
+   slots 1, 8, 32, 256 and of the critic at 256 (weights read cold); the
+   full stack backward of each net at M=256, and
    the critic's and the actor's product by product (``bwd_breakdown``:
    act_grad, db, dW, W^T, dx, each beside ``torch.mm`` of its shape and
    its bound) with the training profile's per-superstep time of the
@@ -98,6 +108,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def num_sms():
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def close_enough(got, want, rtol=1e-4):
     """(ok, max_abs_err) at rtol, atol rtol * max|want|."""
     import torch
@@ -121,18 +136,36 @@ def stack_inputs(conn, L, d0, u, m, gen):
     return x, ws, bs
 
 
+# the nets whose stacks the training main path runs (name, M, d0, U, L)
+TRAIN_NETS = (("actor", 256, 259, 2048, 2), ("critic", 256, 516, 2048, 2),
+              ("phi_s", 256, 3, 64, 4), ("phi_sa", 256, 260, 64, 4))
+# ragged shapes large enough for the register tile: no size a multiple of
+# 4 (scalar loads), and strides that allow 16-byte loads
+RAGGED_RT = (("ragged_rt", 201, 37, 301, 3),
+             ("ragged_rt_vec", 203, 36, 300, 3))
+
+
 def phase_parity(gen):
+    import torch
     from repro_torch.kernels.dense_block import stack
+    from repro_torch.launch.serve_policy import ServeConfig
     shapes = [("ragged", 5, 7, 40, 3)]
-    for m in (1, 32, 256):
+    # the served nets at every slot the server pads to (each row count of
+    # the streaming kernel's templates) and at the training batch
+    for m in sorted(set(ServeConfig().batch_slots) | set(SLOTS)):
         shapes += [("phi_s", m, 3, 64, 4), ("actor", m, 259, 2048, 2)]
+    shapes += [("critic", m, 516, 2048, 2) for m in SLOTS]
+    shapes += list(RAGGED_RT)
     worst = 0.0
+    before = {k: stack.launch_count(k) for k in stack.FWD_KERNELS}
     for conn in stack.FUSED_CONNECTIVITIES:
         for act in ("swish", "relu", "tanh", "identity"):
             for name, m, d0, u, L in shapes:
                 x, ws, bs = stack_inputs(conn, L, d0, u, m, gen)
                 got = stack.dense_stack(x, ws, bs, connectivity=conn,
                                         activation=act)
+                again = stack.dense_stack(x, ws, bs, connectivity=conn,
+                                          activation=act)
                 want = stack.dense_stack_ref(x, ws, bs, connectivity=conn,
                                              activation=act)
                 ok, err = close_enough(got, want)
@@ -141,18 +174,16 @@ def phase_parity(gen):
                     raise AssertionError(
                         f"kernel != plain: {conn}/{act} {name} M={m} "
                         f"d0={d0} U={u} L={L}: max abs err {err:.3e}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"forward not bitwise repeatable: "
+                                         f"{conn}/{act} {name} M={m}")
+    ran = {k: stack.launch_count(k) - before[k] for k in stack.FWD_KERNELS}
+    if not all(ran.values()):
+        raise AssertionError(f"a forward kernel was not held: launches {ran}")
     log(f"[parity] dense_stack kernel == plain: 3 connectivities x 4 "
-        f"activations x {len(shapes)} shapes, max abs err {worst:.3e}")
+        f"activations x {len(shapes)} shapes, max abs err {worst:.3e}; two "
+        f"calls bitwise equal; launches by kernel {ran}")
     return worst
-
-
-# the nets whose stacks the training main path runs (name, M, d0, U, L)
-TRAIN_NETS = (("actor", 256, 259, 2048, 2), ("critic", 256, 516, 2048, 2),
-              ("phi_s", 256, 3, 64, 4), ("phi_sa", 256, 260, 64, 4))
-# ragged shapes large enough for the backward's register tile: no size a
-# multiple of 4 (scalar loads), and strides that allow 16-byte loads
-RAGGED_RT = (("ragged_rt", 201, 37, 301, 3),
-             ("ragged_rt_vec", 203, 36, 300, 3))
 
 
 def grads_close(got, want):
@@ -389,14 +420,20 @@ def phase_main_path(spec, acfg):
         raise AssertionError(f"stack launches per tick {sorted(set(deltas))}"
                              f" (want {per_tick}), total {launches} over "
                              f"{ticks} ticks")
+    # every slot is at most 32 rows: the weight-streaming kernel, alone
+    if stack.launch_count("stream") != launches or stack.transpose_count():
+        raise AssertionError(f"serving launched "
+                             f"{stack.launch_count('stream')} of {launches} "
+                             f"layers on the streaming kernel, "
+                             f"{stack.transpose_count()} transposes")
     err_a = check(out_a, obs_a, params, 0, "generation 0")
     hist = dict(sorted(server.stats["batch_hist"].items()))
     lat = np.asarray(server.stats["latencies_ms"])
     log(f"[main] 256 requests / 8 clients in {wall:.3f}s "
         f"({256 / wall:.0f} req/s), p50 {np.percentile(lat, 50):.2f} ms, "
         f"p99 {np.percentile(lat, 99):.2f} ms; {ticks} ticks, batch_hist "
-        f"{hist}; stack launches {launches} = {per_tick}/tick; max abs err "
-        f"vs plain {err_a:.2e}")
+        f"{hist}; stack launches {launches} = {per_tick}/tick, all on the "
+        f"streaming kernel; max abs err vs plain {err_a:.2e}")
 
     params_b = init(1)
     server.push_params(params_b)
@@ -492,79 +529,150 @@ def time_ms(fn, copies, reps=20, repeats=5):
     return float(np.median(samples)), host_ms
 
 
-def phase_times(params, gen):
+def device_kernels(fn, copies, calls=5):
+    """``[(kernel name, us per call)]`` of the device kernels ``calls``
+    calls of ``fn`` launch (``torch.profiler``), longest first: which
+    library kernels a yardstick runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(copies[i % len(copies)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return [(e.key, e.self_device_time_total / calls) for e in
+            sorted(events, key=lambda e: -e.self_device_time_total)]
+
+
+def time_stack(name, ws, bs, m, gen):
+    """One densenet stack forward (swish) at M rows: the kernels, the plain
+    version and the library yardstick (``addmm`` + ``silu`` per layer into
+    a stream built once), each cycling its weights through copies larger
+    than the 50 MB L2 (at most 64 copies: a narrow stack's stay in L2),
+    beside the bound (the weight bytes and the stream read and written
+    once at 3.35 TB/s, or the fp32 operations at 67 TFLOP/s)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.dense_block import stack
-    ws = [l["dense"]["w"] for l in params["actor"]["layers"]]
-    bs = [l["dense"]["b"] for l in params["actor"]["layers"]]
     d0, u, L = ws[0].shape[0], ws[0].shape[1], len(ws)
     wbytes = 4 * sum(w.numel() + b.numel() for w, b in zip(ws, bs))
-    n_copies = max(2, math.ceil(120e6 / wbytes))   # > 2x the 50 MB L2
+    n_copies = min(64, max(2, math.ceil(120e6 / wbytes)))
     copies = [([w.clone() for w in ws], [b.clone() for b in bs])
               for _ in range(n_copies)]
+    x = torch.randn((m, d0), generator=gen, device="cuda")
+    feat = d0 + L * u
+    stream = torch.empty((m, feat), device="cuda")
+
+    def kernel(c):
+        return stack.dense_stack(x, c[0], c[1])
+
+    def plain(c):
+        return stack.dense_stack_ref(x, c[0], c[1])
+
+    def library(c):
+        stream[:, :d0].copy_(x)
+        for i, (w, b) in enumerate(zip(*c)):
+            d = d0 + i * u
+            stream[:, d:d + u] = F.silu(torch.addmm(b, stream[:, :d], w))
+        return stream
+
+    _, err = close_enough(kernel(copies[0]), plain(copies[0]))
+    t_k, h_k = time_ms(kernel, copies)
+    t_p, _ = time_ms(plain, copies)
+    t_l, _ = time_ms(library, copies)
+    t_k2, _ = time_ms(kernel, copies)
+    flops = 2 * m * sum(w.shape[0] * w.shape[1] for w in ws)
+    nbytes = wbytes + 4 * m * (d0 + feat)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    r = dict(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=t_l,
+             bound_ms=bound_ms, max_abs_err=err, host_ms=h_k,
+             bound_by=bound_by)
+    kind = stack.fwd_kernel_of(stack.plan_fwd(m, u, d0, num_sms())[0])
+    log(f"[time] {name} stack M={m:3d} d0={d0} U={u} L={L} ({kind}): "
+        f"kernel {r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
+        f"{t_k2 * 1e3:.1f}), plain {t_p * 1e3:8.1f} us, library "
+        f"{t_l * 1e3:8.1f} us ({'faster' if r['ms'] <= t_l else 'SLOWER'} "
+        f"than it), bound {bound_ms * 1e3:6.1f} us ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+        f"{100 * bound_ms / r['ms']:.0f}% of bound, max abs err {err:.2e}")
+    if name == "actor":
+        seen = device_kernels(library, copies)[:4]
+        log(f"[time]   library kernels at M={m}: " + ("; ".join(
+            f"{us:.1f} us {key[:70]}" for key, us in seen)
+            or "none seen by the profiler"))
+    return r
+
+
+def phase_times(params, gen):
+    """The stack forward's times: the served actor (its weights) and the
+    OFENet ``phi_s`` stack at every slot, the critic stack at the training
+    batch (random weights from the seed). Keys ``(stack, M)``."""
+    actor = ([l["dense"]["w"] for l in params["actor"]["layers"]],
+             [l["dense"]["b"] for l in params["actor"]["layers"]])
     rows = {}
     for m in SLOTS:
-        x = torch.randn((m, d0), generator=gen, device="cuda")
-        feat = d0 + L * u
-        stream = torch.empty((m, feat), device="cuda")
-
-        def kernel(c):
-            return stack.dense_stack(x, c[0], c[1])
-
-        def plain(c):
-            return stack.dense_stack_ref(x, c[0], c[1])
-
-        def library(c):
-            stream[:, :d0].copy_(x)
-            for i, (w, b) in enumerate(zip(*c)):
-                d = d0 + i * u
-                stream[:, d:d + u] = F.silu(torch.addmm(b, stream[:, :d], w))
-            return stream
-
-        _, err = close_enough(kernel(copies[0]), plain(copies[0]))
-        t_k, h_k = time_ms(kernel, copies)
-        t_p, h_p = time_ms(plain, copies)
-        t_l, h_l = time_ms(library, copies)
-        t_k2, _ = time_ms(kernel, copies)
-        flops = 2 * m * sum(w.shape[0] * w.shape[1] for w in ws)
-        nbytes = wbytes + 4 * m * (d0 + feat)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-        bound_ms = 1e3 * max(t_bytes, t_ops)
-        rows[m] = dict(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=t_l,
-                       bound_ms=bound_ms, max_abs_err=err, host_ms=h_k,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
-        r = rows[m]
-        log(f"[time] actor stack M={m:3d}: kernel {r['ms'] * 1e3:8.1f} us "
-            f"(runs {t_k * 1e3:.1f}/{t_k2 * 1e3:.1f}), plain "
-            f"{t_p * 1e3:8.1f} us, library {t_l * 1e3:8.1f} us, bound "
-            f"{bound_ms * 1e3:6.1f} us ({r['bound_by']}: {nbytes / 1e6:.1f}"
-            f" MB, {flops / 1e9:.2f} GFLOP), {100 * bound_ms / r['ms']:.0f}%"
-            f" of bound, max abs err {err:.2e}")
+        rows[("actor", m)] = time_stack("actor", *actor, m, gen)
+    _, ws, bs = stack_inputs("densenet", 2, 516, 2048, 256, gen)
+    rows[("critic", 256)] = time_stack("critic", ws, bs, 256, gen)
+    for m in SLOTS:
+        _, ws, bs = stack_inputs("densenet", 4, 3, 64, m, gen)
+        rows[("phi_s", m)] = time_stack("phi_s", ws, bs, m, gen)
     return rows
 
 
-def expected_launches(acfg):
+def expected_launches(tr):
     """Kernel launches of one training superstep, read off the code.
 
     Stack forwards (one launch per layer): collect's ``sample_action``
-    (phi_s + actor); ``sac_update``: the aux loss (phi_s + phi_sa), the
-    target's ``sample_action`` (phi_s + actor) and ``q_values`` (phi_s +
-    phi_sa + q1 + q2), the critic loss's, the actor loss's and the
-    priorities' ``q_values`` (4 nets each) and the actor loss's
-    ``sample_action``: 24 calls, 13*Lo + 11*L layers. Stack backwards: aux
-    (phi_sa, phi_s), critic loss (q1, q2), actor loss (q1, q2, phi_sa for
-    dx, the actor for dW): 8. Tree: one sample, two writes (the add, the
-    priority refresh)."""
+    (phi_s + actor) at the actor pool's rows; ``sac_update``, at the
+    batch's: the aux loss (phi_s + phi_sa), the target's ``sample_action``
+    (phi_s + actor) and ``q_values`` (phi_s + phi_sa + q1 + q2), the critic
+    loss's, the actor loss's and the priorities' ``q_values`` (4 nets each)
+    and the actor loss's ``sample_action``: 24 calls, 13*Lo + 11*L layers,
+    of which 12*Lo + 10*L at the batch: ``fwd_<kernel>`` counts them by the
+    kernel ``plan_fwd`` gives each (phi_s and phi_sa at U=64 take the old
+    tile, the actor and the critics the register tile at 256 rows, every
+    stack the streaming kernel at 32), and ``fwd_t`` the register tile's
+    stream^T inits, one per wide stack call (2 actor + 8 critic calls).
+    Stack backwards: aux (phi_sa, phi_s), critic loss (q1, q2), actor loss
+    (q1, q2, phi_sa for dx, the actor for dW): 8. Tree: one sample, two
+    writes (the add, the priority refresh)."""
+    from repro_torch.kernels.dense_block import stack
+    acfg = tr.acfg
     lo = acfg.ofenet.num_layers if acfg.ofenet else 0
-    return {"fwd": 13 * lo + 11 * acfg.num_layers, "bwd": 8 if lo else 5,
-            "sample": 1, "set": 2}
+    want = {f"fwd_{k}": 0 for k in stack.FWD_KERNELS}
+    want["fwd_t"] = 0
+
+    def calls(n, m, u, layers, conn):
+        kind = stack.fwd_kernel_of(stack.plan_fwd(
+            m, u, 1, num_sms(), transposed=conn == "densenet")[0])
+        want[f"fwd_{kind}"] += n * layers
+        if kind == "rt":
+            want["fwd_t"] += n
+    u_o, c_o = (acfg.ofenet.num_units, acfg.ofenet.connectivity) \
+        if acfg.ofenet else (0, "")
+    for n, m in ((1, tr.n_actors), (12, tr.batch_size)):
+        calls(n, m, u_o, lo, c_o)
+    for n, m in ((1, tr.n_actors), (10, tr.batch_size)):
+        calls(n, m, acfg.num_units, acfg.num_layers, acfg.connectivity)
+    want["fwd"] = 13 * lo + 11 * acfg.num_layers
+    if sum(want[f"fwd_{k}"] for k in stack.FWD_KERNELS) != want["fwd"]:
+        raise AssertionError(f"expected forward launches do not add up: "
+                             f"{want}")
+    want.update(bwd=8 if lo else 5, sample=1, set=2)
+    return want
 
 
 def _counts():
     from repro_torch.kernels.dense_block import stack
     from repro_torch.kernels.replay_tree import ops
-    return {"fwd": stack.launch_count(), "bwd": stack.bwd_launch_count(),
+    return {"fwd": stack.launch_count(),
+            **{f"fwd_{k}": stack.launch_count(k) for k in stack.FWD_KERNELS},
+            "fwd_t": stack.transpose_count(),
+            "bwd": stack.bwd_launch_count(),
             "sample": ops.launch_count("sample"),
             "set": ops.launch_count("set")}
 
@@ -663,7 +771,7 @@ def phase_train(spec, steps=50, warm=10):
     from repro_torch.rl.policy import Policy
     exp = Experiment.from_spec(spec)
     tr = exp.trainer
-    want = expected_launches(tr.acfg)
+    want = expected_launches(tr)
     t0 = time.perf_counter()
     exp._ensure_init()
     torch.cuda.synchronize()
@@ -703,7 +811,8 @@ def phase_train(spec, steps=50, warm=10):
     wall = (time.perf_counter() - t0) / (steps - warm)
     launches = _counts()
     bad = [c for c in per_step if c != want]
-    if bad or any(launches[k] != want[k] * (steps - warm) for k in want):
+    if bad or any(launches[k] != want[k] * (steps - warm) for k in want) \
+            or not all(launches.values()):
         raise AssertionError(f"launches per superstep {bad[:2]} (want "
                              f"{want}), totals {launches}")
     vals = torch.stack(scal).cpu()
@@ -753,9 +862,28 @@ def bwd_product_class(key):
     if "dw_tile_kernel" in key or ("tile_kernel<" in key
                                    and "true, false>" in key):
         return "dW"
-    if "dx_tile_kernel" in key or "transpose_kernel" in key or (
+    if "dx_tile_kernel" in key or "transpose_kernel<false>" in key or (
             "tile_kernel<" in key and "false, true>" in key):
         return "dx"
+    return None
+
+
+def fwd_class(key):
+    """The forward kernel class of a profiler kernel name, or None:
+    'wide' (the register tile over stream^T), 'narrow' (dense_tile.cuh's
+    forward: its layout template arguments are (false, false)), 'stream'
+    (the weight-streaming kernel) or 'transpose' (the stream^T init, the
+    copying case of dense_tile.cuh's transpose; the backward's W^T is the
+    other)."""
+    if "transpose_kernel<true>" in key:
+        return "transpose"
+    if "stream_kernel<" in key:
+        return "stream"
+    if "fwd_tile_kernel" in key:
+        return "wide"
+    if "tile_kernel<" in key and "false, false>" in key and not any(
+            t in key for t in ("dw_tile_kernel", "dx_tile_kernel")):
+        return "narrow"
     return None
 
 
@@ -763,7 +891,8 @@ def phase_train_profile(exp, steps=10):
     """Where a superstep's time goes: wall clock against the device time
     torch.profiler sees, and the kernels that take it. Returns the
     backward's product classes per superstep, ``{class: (ms, launches)}``,
-    and the int32 fills per superstep (split counters by ``torch.zeros``)."""
+    the int32 fills per superstep (``torch.zeros`` of int32: split
+    counters were made so before) and the forward's classes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -788,15 +917,60 @@ def phase_train_profile(exp, steps=10):
         log("[train-prof] the profiler saw no device time: busy share not "
             "measured")
     classes = {c: [0.0, 0.0] for c in ("dW", "dx", "act_grad")}
+    fwd = {c: [0.0, 0.0] for c in ("wide", "narrow", "stream", "transpose")}
     fills = 0.0
     for e in events:
-        c = bwd_product_class(e.key)
-        if c is not None:
-            classes[c][0] += e.self_device_time_total / 1e3 / steps
-            classes[c][1] += e.count / steps
+        for table, c in ((classes, bwd_product_class(e.key)),
+                         (fwd, fwd_class(e.key))):
+            if c is not None:
+                table[c][0] += e.self_device_time_total / 1e3 / steps
+                table[c][1] += e.count / steps
         if "FillFunctor<int>" in e.key:
             fills += e.count / steps
-    return {c: tuple(v) for c, v in classes.items()}, fills
+    log("[fwd-prof] training superstep, forward device time per superstep:"
+        f" {sum(ms for ms, _ in fwd.values()):.3f} ms = "
+        + ", ".join(f"{c} {ms:.3f} ms over {n:.1f} launches"
+                    for c, (ms, n) in fwd.items())
+        + f"; int32 fills (torch.zeros of int32, any op) {fills:.1f} per "
+        f"superstep")
+    return {c: tuple(v) for c, v in classes.items()}, fills, \
+        {c: tuple(v) for c, v in fwd.items()}
+
+
+def phase_fwd_fills(gen):
+    """The int32 fills the stack forward itself issues (split counters
+    once came from a ``torch.zeros`` per launch): ``torch.profiler`` over
+    one forward with autograd of every stack the training path runs, at
+    its batch and at the actor pool's 32 rows, and of the served actor and
+    ``phi_s`` at every slot. Must be 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.dense_block import stack
+    cases = [(name, mm, d0, u, L) for name, m, d0, u, L in TRAIN_NETS
+             for mm in (m, 32)]
+    cases += [(name, m, d0, u, L) for name, _, d0, u, L in TRAIN_NETS[::2]
+              for m in SLOTS[:-1]]
+    inputs = []
+    for name, m, d0, u, L in cases:
+        x, ws, bs = stack_inputs("densenet", L, d0, u, m, gen)
+        inputs.append([t.requires_grad_(True) for t in (x, *ws, *bs)])
+    torch.cuda.synchronize()
+    before = {k: stack.launch_count(k) for k in stack.FWD_KERNELS}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for (name, m, d0, u, L), var in zip(cases, inputs):
+            stack.dense_stack(var[0], var[1:1 + L], var[1 + L:])
+        torch.cuda.synchronize()
+    ran = {k: stack.launch_count(k) - before[k] for k in stack.FWD_KERNELS}
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    fills = sum(e.count for e in events if "FillFunctor<int>" in e.key)
+    if not events or fills or not all(ran.values()):
+        raise AssertionError(f"stack forward: {fills} int32 fills over "
+                             f"{len(cases)} calls (launches {ran}); the "
+                             f"profiler saw {len(events)} device kernels")
+    log(f"[fwd-prof] {len(cases)} stack forwards with autograd (every "
+        f"training stack at 256 and 32 rows, actor and phi_s at slots "
+        f"{SLOTS[:-1]}; launches {ran}): 0 int32 fills")
 
 
 def _bound(nbytes, flops):
@@ -962,11 +1136,12 @@ def phase_bwd_times(gen, profile_classes=None):
         if name in ("critic", "actor"):
             r["products"] = bwd_breakdown(name, x, ws, out, zs, g)
     if profile_classes is not None:
-        classes, fills = profile_classes
+        classes, fills, _ = profile_classes
         log("[bwd-prof] training superstep, device time per superstep: "
             + ", ".join(f"{c} {ms:.3f} ms over {n:.1f} launches"
                         for c, (ms, n) in classes.items())
-            + f"; int32 fills (torch.zeros split counters) {fills:.1f}")
+            + f"; int32 fills {fills:.1f} (none from the stack: "
+            f"[fwd-prof])")
     return rows
 
 
@@ -1465,13 +1640,16 @@ def main() -> int:
                                replay_kernel="pallas")
     exp, train_launches = phase_train(train_spec)
     profile_classes = phase_train_profile(exp)
+    phase_fwd_fills(gen)
     micro_launches = phase_micro()
 
     rows = phase_times(pol.params, gen)
     bwd = phase_bwd_times(gen, profile_classes)
     tree = phase_tree_times(gen)
     new = phase_new_times(gen)
-    r = rows[main_slot]
+    r = rows[("actor", main_slot)]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
     fwd_rec = record(
         "dense_stack_fwd",
         "src/repro_torch/kernels/dense_block/csrc/dense_stack_fwd.cu",
@@ -1480,7 +1658,13 @@ def main() -> int:
         f"actor stack d0=259 U=2048 L=2, M={main_slot} (the serving main "
         f"path's most used slot)",
         launches_by_path={"serve": serve_launches,
-                          "train": train_launches["fwd"]})
+                          "train": train_launches["fwd"]},
+        launches_by_kernel={k: train_launches[f"fwd_{k}"]
+                            for k in ("stream", "rt", "tile")},
+        stream_t_inits=train_launches["fwd_t"],
+        by_shape={f"{name} M={m}": {k: v[k] for k in keys}
+                  for (name, m), v in rows.items()},
+        profile_ms=dict(profile_classes[2]))
     print(json.dumps({"kernels": [
         fwd_rec,
         record("dense_stack_bwd",

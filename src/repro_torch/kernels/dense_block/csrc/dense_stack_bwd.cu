@@ -25,7 +25,8 @@
 //                 chain act_grad_i -> (c)_i -> act_grad_{i-1}.
 //   (c) g_in (+)= gz @ W_i^T: a block owns an (M-tile x k-tile) of g_in
 //                 and reduces over U, split in K (its output is small).
-//                 It reads gz^T (from (a)) and W_i^T (transpose_kernel,
+//                 It reads gz^T (from (a)) and W_i^T (dense_tile.cuh's
+//                 transpose_kernel,
 //                 every layer's up front on the side stream), so both
 //                 operands run along the output like dW's. densenet adds
 //                 into the gradient stream's prefix [:, :k], which holds
@@ -151,27 +152,6 @@ __global__ void db_sum_kernel(const float* db_part, float* db, int n) {
   db[c] = s;
 }
 
-// dst (cols, rows) of row stride ldd = src (rows, cols)^T, through a
-// 32 x 33 shared tile so reads and writes are both whole rows
-__global__ void __launch_bounds__(kCols * kRowGroups)
-transpose_kernel(const float* src, long long lds, float* dst, long long ldd,
-                 int rows, int cols) {
-  __shared__ float tile[kRows][kCols + 1];
-  const int tx = threadIdx.x % kCols, ty = threadIdx.x / kCols;
-  const int r0 = blockIdx.y * kRows, c0 = blockIdx.x * kCols;
-#pragma unroll
-  for (int j = 0; j < kRows / kRowGroups; ++j) {
-    const int r = r0 + ty + j * kRowGroups, c = c0 + tx;
-    if (r < rows && c < cols) tile[ty + j * kRowGroups][tx] = src[r * lds + c];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kCols / kRowGroups; ++j) {
-    const int c = c0 + ty + j * kRowGroups, r = r0 + tx;
-    if (c < cols && r < rows) dst[c * ldd + r] = tile[tx][ty + j * kRowGroups];
-  }
-}
-
 __global__ void act_kernel(const float* z, long long ldz, float* out, int m,
                            int n, int act) {
   const long long total = static_cast<long long>(m) * n;
@@ -217,14 +197,9 @@ extern "C" int dense_bwd_db(const float* db_part, float* db, int n,
 extern "C" int dense_bwd_transpose(const float* src, long long lds,
                                    float* dst, long long ldd, int rows,
                                    int cols, void* stream) {
-  if (rows <= 0 || cols <= 0 || lds < cols || ldd < rows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  transpose_kernel<<<dim3((cols + kCols - 1) / kCols,
-                          (rows + kRows - 1) / kRows),
-                     kCols * kRowGroups, 0,
-                     static_cast<cudaStream_t>(stream)>>>(src, lds, dst, ldd,
-                                                          rows, cols);
-  return static_cast<int>(cudaGetLastError());
+  return dense_tile::launch_transpose(src, lds, dst, ldd, nullptr, 0, rows,
+                                      cols,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // out (m, n) contiguous = act(z[:, :n]).

@@ -5,8 +5,8 @@
 // stream and every layer's weights in VMEM and runs all L layers in one
 // program. On Hopper the weights do not fit in shared memory (the paper's
 // large actor holds 21 MB of fp32 weights), so the stack becomes one launch
-// of this kernel per layer, and the Python wrapper (stack.py) lays the
-// layers out so the concat never exists:
+// per layer, and the Python wrapper (stack.py) lays the layers out so the
+// concat never exists:
 //
 //   densenet  layer i reads the stream prefix [x|y0|..|y_{i-1}] of the one
 //             output buffer and writes y_i into its column slot: the buffer
@@ -17,28 +17,407 @@
 //   d2rl      as mlp, with the input given as two segments [h | x] in the
 //             logical weight-row order (rows 0..U-1 multiply h, the rest x).
 //
-// Each launch computes out[:, slot] = act(A @ W + b) in fp32 for A the
-// (M, K1 + K2) input segments, with the tile product of dense_tile.cuh.
-// Blocks tile the output over (rows, columns); a serving slot has only 1-32
-// rows, so the parallelism comes from the columns and from a split of K
-// across gridDim.y. Split partials go to a workspace; the last block of a
-// tile to finish (counted with an atomic) sums them in fixed split order,
-// so the result does not depend on the order in which blocks ran. Bias and
-// activation are fused in the epilogue. When autograd will need it, the
-// epilogue also stores the pre-activation z into the backward's (M, L*U)
-// side buffer (`zout`), so the backward recomputes nothing.
+// Each launch computes out[:, slot] = act(A @ W + b) in fp32, and, when
+// autograd will need it, stores the pre-activation z into the backward's
+// (M, L*U) side buffer (`zout`), so the backward recomputes nothing. Three
+// kernels, by the rows M of the call (stack.py's plan_fwd picks):
 //
-// Bound on the H100: at serving slots (M <= 32) the weight bytes from HBM
-// (the large actor: 21 MB, ~6.3 us at 3.35 TB/s); at M = 256 the fp32
-// operations (2.7 GFLOP, ~40 us at 67 TFLOP/s outside the tensor cores).
-// This first version uses plain fp32 FMAs from shared-memory tiles with a
-// register prefetch of the next tile; wgmma/TMA and TF32/bf16 are later
-// work (TF32 would miss the 1e-4 agreement with the fp32 reference).
+//   M <= 32 (serving slots, the actor pool's collect): stream_kernel. Each
+//     weight meets at most 32 rows, <= 16 FLOP per byte against the card's
+//     fp32 ridge of 20, so the weight bytes bound it (the large actor:
+//     21 MB, ~6.3 us at 3.35 TB/s). A block owns a strip of 128 output
+//     columns and a range of K; A's rows of that range sit in shared
+//     memory, transposed (4-byte cp.async copies, all in flight at once),
+//     read as broadcasts. W's rows of the strip, one
+//     512-byte coalesced run each, stream through a ring of shared stages
+//     of 8 rows filled by cp.async (a 16-byte copy a thread): four stages,
+//     16 KB, in flight per block while one computes, two blocks an SM.
+//     Warps split each stage's rows (and, past 8 rows of M, the rows of
+//     M); their sums meet in shared memory in fixed order. A K split
+//     sums in the strip's last block, 16 float4 loads a thread in flight.
+//   M >= 128 with U >= 128 (densenet: the actor and critic stacks at the
+//     batch of 256): the register tile of dense_tile_rt.cuh (128x64 tiles,
+//     8x4 outputs a thread, 16 FMAs per shared load, a cp.async ring). It
+//     computes A^T @ B with both operands stored along K, and W already
+//     is; the stream is not, so the wrapper keeps a transposed copy of it
+//     (`stream^T`, rows padded to 4 floats): dense_tile.cuh's
+//     transpose_kernel writes x into the stream and x^T into stream^T once
+//     a call, and each layer's epilogue writes y_i into the stream and
+//     y_i^T into stream^T (one 16-byte store per 4 rows), where the next
+//     layer reads it. The fp32 operations bound it (the actor: 2.7 GFLOP,
+//     ~40 us at 67 TFLOP/s).
+//   otherwise (the narrow OFENet stacks, U = 64; mlp and d2rl past 32
+//     rows): the tile product of dense_tile.cuh with a register prefetch.
+//
+// The streaming kernel and dense_tile.cuh's are programmatic dependent
+// launches (dense_tile.cuh's launch_pdl): each may start as the kernel
+// before it finishes its last blocks, and waits for its results before it
+// touches memory, so a layer's launch overlaps its predecessor's tail. The
+// register tile is launched plainly: its grids of two blocks an SM leave a
+// slot free, and blocks launched early into those slots spread the next
+// grid unevenly over the SMs (PERF.md).
+//
+// Every kernel splits K across gridDim.y where the output alone would not
+// fill the card. Split partials go to a workspace; the last block of a tile
+// to finish (counted with an integer atomic) sums them in fixed split order
+// and runs the epilogue, so the result does not depend on the order in
+// which blocks ran, and resets its counter to 0, so the wrapper's counters
+// (one zeroed buffer per device and stream) need no fill per launch. Plain
+// TF32 or bf16 through the tensor cores would miss the 1e-4 agreement with
+// the fp32 reference; split-precision TF32 (3xTF32) would not, and is the
+// route past this SIMT design (ROADMAP.md B).
 
 #include "dense_tile.cuh"
+#include "dense_tile_rt.cuh"
 
-// Returns the CUDA error of the launch (0 on success). `zout` (row stride
-// `ldz`) receives the pre-activation, or is null.
+namespace {
+
+using dense_tile::apply_act;
+using dense_tile::launch_pdl;
+using dense_tile::pdl_trigger;
+using dense_tile::pdl_wait;
+using dense_tile_rt::aligned16;
+
+// ---- M >= 128: the register tile's epilogue --------------------------------
+
+// z = v + bias (to `z` if given); y = act(z) into the stream's column slot
+// and, if given, y^T into rows [gn, gn + 4) of stream^T (columns gm0 ..
+// gm0 + 3: one float4 a column); 16 bytes at a time where a destination
+// allows it, masked at the ragged edge.
+struct FwdEpi {
+  const float* bias;
+  float* z; long long ldz;
+  float* y; long long ldy;
+  float* yt; long long ldt;
+  int m, n, act;
+  bool vz, vy, vt;
+
+  __device__ __forceinline__ void rows(float* dst, long long ld, bool vec,
+                                       int gm0, int gn,
+                                       const float (&v)[4][4]) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int gm = gm0 + r;
+      if (gm >= m) break;
+      float* o = dst + gm * ld + gn;
+      if (vec && gn + 3 < n) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(v[r][0], v[r][1], v[r][2], v[r][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < n) o[j] = v[r][j];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void operator()(int gm0, int gn,
+                                             float (&v)[4][4]) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float b = gn + j < n ? bias[gn + j] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[r][j] += b;
+    }
+    if (z != nullptr) rows(z, ldz, vz, gm0, gn, v);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[r][j] = apply_act(v[r][j], act);
+    rows(y, ldy, vy, gm0, gn, v);
+    if (yt == nullptr) return;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (gn + j >= n) break;
+      float* t = yt + (gn + j) * ldt + gm0;
+      if (vt && gm0 + 3 < m) {
+        *reinterpret_cast<float4*>(t) =
+            make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (gm0 + r < m) t[r] = v[r][j];
+      }
+    }
+  }
+};
+
+// A = stream^T (the wrapper's own, padded: always 16-byte copies), B = W_i
+// (16-byte copies where VB); 128x64 tiles only: the forward's outputs at
+// the batch of 256 are small, and 128x128 tiles lost at each wide product
+// of launch/bwd_sweep.py
+constexpr int kRtM = 128, kRtN = 64;
+
+template <bool VB>
+__global__ void __launch_bounds__(dense_tile_rt::kThreads, 3)
+fwd_tile_kernel(const dense_tile_rt::Args p, const FwdEpi epi) {
+  dense_tile_rt::tile_body<kRtM, kRtN, true, VB>(p, epi);
+}
+
+// ---- M <= 32: the weight-streaming kernel ---------------------------------
+
+namespace streaming {
+
+using dense_tile_rt::cp_async16;
+using dense_tile_rt::cp_async4;
+using dense_tile_rt::cp_async_commit;
+using dense_tile_rt::cp_async_wait;
+
+constexpr int kThreads = 256, kWarps = 8;
+constexpr int kCols = 128;     // a block's strip: a float4 for each lane
+constexpr int kRows = 8;       // W rows of a ring stage: a 16-byte copy a thread
+constexpr int kStages = 5;     // ring stages: four in flight while one computes
+constexpr int kMaxK = 192;     // K rows of A a block holds (stack.py's
+                               // _STREAM_MAX_K)
+
+struct Args {
+  const float* a1; long long lda1; int k1;   // A segment 1 (logical k 0..k1)
+  const float* a2; long long lda2; int k2;   // A segment 2 (k2 may be 0)
+  const float* w; long long ldw;             // (k1 + k2, n) row-major
+  const float* b;                            // (n,)
+  float* out; long long ldo;
+  float* zout; long long ldz;                // pre-activation, or null
+  float* acopy; long long ldac;              // A (segment 1) copied here by
+                                             // the blocks of strip 0, or
+                                             // null: densenet's layer 0
+                                             // writes x into the stream
+  float* ws;                                 // (splits, m, n rounded up to
+                                             // 4), or null
+  int* counters;                             // one per strip, all zero
+  int m, n, act, splits, rows_per_split;
+};
+
+// ROWS: M rounded up to a power of two (1..32). A warp owns MR rows (up to
+// 8) of one of RG row groups and, in each ring stage, the stage's rows kg,
+// kg + KG, .. for its K part kg of KG = 8 / RG. VW: W takes 16-byte copies
+// (n and ldw multiples of 4, w 16-byte aligned).
+template <int ROWS, bool VW>
+__global__ void __launch_bounds__(kThreads, 2) stream_kernel(const Args p) {
+  constexpr int MR = ROWS < 8 ? ROWS : 8;
+  constexpr int RG = ROWS / MR, KG = kWarps / RG;
+  constexpr int LDA = ROWS < 4 ? ROWS : ROWS + 4;   // 16-byte rows of As
+  constexpr int STAGE = kRows * kCols;
+  static_assert(STAGE == 4 * kThreads, "a stage is one float4 a thread");
+  static_assert(ROWS * kCols <= kStages * STAGE, "red fits in the ring");
+  __shared__ __align__(16) float As[kMaxK * LDA];    // As[k][r] = A[r][k]
+  __shared__ __align__(16) float Ws[kStages * STAGE];
+  float* red = Ws;                          // the block's sum, after the ring
+  __shared__ int s_last;
+
+  pdl_wait();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = warp % RG, kg = warp / RG;
+  const int strip = blockIdx.x, split = blockIdx.y;
+  const int n0 = strip * kCols;
+  const int k_total = p.k1 + p.k2;
+  const int k_begin = split * p.rows_per_split;
+  const int kb = min(k_total, k_begin + p.rows_per_split) - k_begin;
+  const int steps = (kb + kRows - 1) / kRows;
+
+  // stage t: rows [t * kRows, (t + 1) * kRows) of the block's K range into
+  // ring buffer t % kStages, zero past kb and n; every call commits a group
+  auto copy_stage = [&](int t) {
+    if (t < steps) {
+      float* dst = Ws + (t % kStages) * STAGE + tid * 4;
+      const int k = t * kRows + tid / 32, gc = n0 + (tid % 32) * 4;
+      const float* src = p.w + (k_begin + k) * p.ldw + gc;
+      if constexpr (VW) {
+        const bool in = k < kb && gc < p.n;
+        cp_async16(dst, in ? src : p.w, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = k < kb && gc + j < p.n;
+          cp_async4(dst + j, in ? src + j : p.w, in ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // A's rows of the range, transposed, zero past m: 4-byte copies, all in
+  // flight at once, that join the first stage's group
+  for (int e = tid; e < ROWS * kb; e += kThreads) {
+    const int r = e / kb, k = e % kb, gk = k_begin + k;
+    const float* src = p.w;
+    if (r < p.m)
+      src = gk < p.k1 ? p.a1 + r * p.lda1 + gk
+                      : p.a2 + r * p.lda2 + gk - p.k1;
+    cp_async4(&As[k * LDA + r], src, r < p.m ? 4 : 0);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) copy_stage(t);
+
+  const int r0 = g * MR;
+  const bool active = r0 < p.m && n0 + lane * 4 < p.n;
+  float acc[MR][4];
+#pragma unroll
+  for (int r = 0; r < MR; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<kStages - 2>();
+    // stage t has landed for every thread (and As, at t = 0), and every
+    // thread is done with stage t - 1, whose buffer the copy below refills
+    __syncthreads();
+    copy_stage(t + kStages - 1);
+    if (!active) continue;
+    const float* wt = Ws + (t % kStages) * STAGE + lane * 4;
+#pragma unroll
+    for (int j = 0; j < kRows / KG; ++j) {
+      const int kk = kg + j * KG, k = t * kRows + kk;
+      if (k >= kb) break;
+      const float4 w = *reinterpret_cast<const float4*>(wt + kk * kCols);
+      float a[MR];
+      if constexpr (MR >= 4) {
+#pragma unroll
+        for (int q = 0; q < MR / 4; ++q) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&As[k * LDA + r0 + 4 * q]);
+          a[4 * q] = v.x; a[4 * q + 1] = v.y;
+          a[4 * q + 2] = v.z; a[4 * q + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < MR; ++r) a[r] = As[k * LDA + r0 + r];
+      }
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        acc[r][0] = fmaf(a[r], w.x, acc[r][0]);
+        acc[r][1] = fmaf(a[r], w.y, acc[r][1]);
+        acc[r][2] = fmaf(a[r], w.z, acc[r][2]);
+        acc[r][3] = fmaf(a[r], w.w, acc[r][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();                       // only empty groups are left
+  pdl_trigger();
+  if (p.acopy != nullptr && strip == 0) {   // segment 1 of A, from As
+    for (int e = tid; e < p.m * kb; e += kThreads) {
+      const int r = e / kb, k = e % kb, gk = k_begin + k;
+      if (gk < p.k1) p.acopy[r * p.ldac + gk] = As[k * LDA + r];
+    }
+  }
+  __syncthreads();                          // the ring is free for `red`
+
+  // the K parts meet in `red` in fixed order: part 0 stores, 1.. add
+  for (int j = 0; j < KG; ++j) {
+    if (kg == j) {
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        float4* q =
+            reinterpret_cast<float4*>(&red[(r0 + r) * kCols + lane * 4]);
+        const float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2],
+                                     acc[r][3]);
+        if (j == 0) {
+          *q = v;
+        } else {
+          const float4 o = *q;
+          *q = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // out[r, gn] = act(z + b) (z to zout)
+  auto emit = [&](int r, int gn, float z) {
+    z += p.b[gn];
+    if (p.zout != nullptr) p.zout[r * p.ldz + gn] = z;
+    p.out[r * p.ldo + gn] = apply_act(z, p.act);
+  };
+  if (p.splits == 1) {
+    for (int e = tid; e < ROWS * kCols; e += kThreads) {
+      const int r = e / kCols, gn = n0 + e % kCols;
+      if (r < p.m && gn < p.n) emit(r, gn, red[e]);
+    }
+    return;
+  }
+  // split: the block's sum to the workspace, 16 bytes at a time (rows of
+  // n rounded up to 4 floats), and the strip's last block adds them up
+  constexpr int E4 = ROWS * kCols / 4;      // float4s of the strip
+  constexpr int PER = (E4 + kThreads - 1) / kThreads;
+  const int ldws = (p.n + 3) & ~3;
+  const long long plane = static_cast<long long>(p.m) * ldws;
+  auto pos = [&](int q, int& r, int& gn) {  // the thread's q-th float4
+    const int e = tid + q * kThreads;
+    r = e < E4 ? e / (kCols / 4) : ROWS;
+    gn = n0 + (e % (kCols / 4)) * 4;
+    return r < p.m && gn < p.n;
+  };
+  float4* part = reinterpret_cast<float4*>(p.ws + split * plane);
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    int r, gn;
+    if (pos(q, r, gn))
+      part[(r * ldws + gn) / 4] = *reinterpret_cast<const float4*>(
+          &red[r * kCols + gn - n0]);
+  }
+  __threadfence();                          // partials visible device-wide
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&p.counters[strip], 1) == p.splits - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last block: the partials summed in split order, SB splits' loads
+  // in flight at once (16 float4s a thread)
+  constexpr int SB = 16 / PER;
+  float4 sum[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) sum[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [](float4& a, const float4& b) {
+    a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+  };
+  auto load = [&](int s, int q) {
+    int r, gn;
+    if (!pos(q, r, gn)) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return __ldcg(reinterpret_cast<const float4*>(p.ws + s * plane) +
+                  (r * ldws + gn) / 4);
+  };
+  int s = 0;
+  for (; s + SB <= p.splits; s += SB) {
+    float4 v[SB][PER];
+#pragma unroll
+    for (int u = 0; u < SB; ++u)
+#pragma unroll
+      for (int q = 0; q < PER; ++q) v[u][q] = load(s + u, q);
+#pragma unroll
+    for (int u = 0; u < SB; ++u)
+#pragma unroll
+      for (int q = 0; q < PER; ++q) add(sum[q], v[u][q]);
+  }
+  for (; s < p.splits; ++s)
+#pragma unroll
+    for (int q = 0; q < PER; ++q) add(sum[q], load(s, q));
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    int r, gn;
+    if (!pos(q, r, gn)) continue;
+    const float v[4] = {sum[q].x, sum[q].y, sum[q].z, sum[q].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (gn + j < p.n) emit(r, gn + j, v[j]);
+  }
+  if (tid == 0) p.counters[strip] = 0;      // leave the counters reusable
+}
+
+template <int ROWS>
+int launch(bool vec_w, const Args& p, cudaStream_t stream) {
+  const dim3 grid((p.n + kCols - 1) / kCols, p.splits);
+  if (vec_w)
+    return launch_pdl(stream_kernel<ROWS, true>, grid, dim3(kThreads),
+                      stream, p);
+  return launch_pdl(stream_kernel<ROWS, false>, grid, dim3(kThreads), stream,
+                    p);
+}
+
+}  // namespace streaming
+
+}  // namespace
+
+// dense_tile.cuh's tile, config 2 (64x64; the forward plans it only past
+// 32 rows): out[:, :n] = act([a1 | a2] @ w + b). Returns the CUDA error of
+// the launch (0 on success). `zout` (row stride `ldz`) receives the
+// pre-activation, or is null.
 extern "C" int dense_layer_fwd(int config, const float* a1, long long lda1,
                                int k1, const float* a2, long long lda2, int k2,
                                const float* w, const float* b, float* out,
@@ -46,10 +425,93 @@ extern "C" int dense_layer_fwd(int config, const float* a1, long long lda1,
                                float* ws, int* counters, int m, int n,
                                int act, int splits, int chunks_per_split,
                                void* stream) {
-  if (b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const dense_tile::TileArgs p{a1, lda1, k1, a2, lda2, k2, w, n, b, out,
                                ldo, zout, ldz, ws, counters, m, n, act,
                                0, splits, chunks_per_split};
-  return dense_tile::launch_config<false, false>(
-      config, p, static_cast<cudaStream_t>(stream));
+  if (config != 2 || b == nullptr || !dense_tile::args_ok(p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dense_tile::launch<64, 64, 16, 4, 4, false, false>(
+      p, static_cast<cudaStream_t>(stream), /*pdl=*/true);
+}
+
+// The register tile (config 4, 128x64): y (m, n) = act(at^T @ w + b) over
+// k rows of at (k, m; 16-byte aligned rows) and w (k, n); zout receives z
+// or is null; yt (n rows of stride ldt, 16-byte aligned rows) receives y^T
+// or is null. `vec_w`: w takes 16-byte copies. ws: (splits, m, n rounded
+// up to 4).
+extern "C" int dense_layer_fwd_rt(int config, int vec_w, const float* at,
+                                  long long ldat, const float* w,
+                                  long long ldw, const float* b, float* y,
+                                  long long ldy, float* zout, long long ldz,
+                                  float* yt, long long ldt, float* ws,
+                                  int* counters, int m, int n, int k,
+                                  int act, int splits, int chunks_per_split,
+                                  void* stream) {
+  const dense_tile_rt::Args p{at, ldat, w, ldw, nullptr, 0, nullptr, 0,
+                              ws, counters, m, n, k, splits,
+                              chunks_per_split};
+  if (config != 4 || !dense_tile_rt::args_ok(p, 1 | (vec_w ? 2 : 0)) ||
+      b == nullptr || y == nullptr || act < dense_tile::kIdentity ||
+      act > dense_tile::kSwish || (yt != nullptr && !aligned16(yt, ldt)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdEpi epi{b, zout, ldz, y, ldy, yt, ldt, m, n, act,
+                   zout != nullptr && aligned16(zout, ldz),
+                   aligned16(y, ldy), yt != nullptr};
+  const dim3 grid(((m + kRtM - 1) / kRtM) * ((n + kRtN - 1) / kRtN), splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec_w != 0)
+    fwd_tile_kernel<true><<<grid, dense_tile_rt::kThreads, 0, st>>>(p, epi);
+  else
+    fwd_tile_kernel<false><<<grid, dense_tile_rt::kThreads, 0, st>>>(p, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight-streaming kernel (config 5), m <= 32: out[:, :n] = act([a1 |
+// a2] @ w + b), K split in parts of rows_per_split <= 192 rows; `vec_w`:
+// w takes 16-byte copies (w 16-byte aligned, n and ldw multiples of 4).
+// acopy (row stride ldac) receives a1's k1 columns, or is null. ws:
+// (splits, m, n rounded up to 4); counters: one per 128-column strip.
+extern "C" int dense_layer_fwd_stream(int vec_w, const float* a1,
+                                      long long lda1, int k1,
+                                      const float* a2, long long lda2,
+                                      int k2, const float* w, long long ldw,
+                                      const float* b, float* out,
+                                      long long ldo, float* zout,
+                                      long long ldz, float* acopy,
+                                      long long ldac, float* ws,
+                                      int* counters, int m, int n, int act,
+                                      int splits, int rows_per_split,
+                                      void* stream) {
+  const int k = k1 + k2;
+  if (m <= 0 || m > 32 || n <= 0 || k1 <= 0 || k2 < 0 || b == nullptr ||
+      splits < 1 || rows_per_split < 1 ||
+      rows_per_split > streaming::kMaxK ||
+      (splits - 1) * rows_per_split >= k || splits * rows_per_split < k ||
+      act < dense_tile::kIdentity || act > dense_tile::kSwish ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+      (vec_w && ((n & 3) != 0 || !aligned16(w, ldw))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const streaming::Args p{a1, lda1, k1, a2, lda2, k2, w, ldw, b, out, ldo,
+                          zout, ldz, acopy, ldac, ws, counters, m, n, act,
+                          splits, rows_per_split};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v = vec_w != 0;
+  if (m <= 1) return streaming::launch<1>(v, p, st);
+  if (m <= 2) return streaming::launch<2>(v, p, st);
+  if (m <= 4) return streaming::launch<4>(v, p, st);
+  if (m <= 8) return streaming::launch<8>(v, p, st);
+  if (m <= 16) return streaming::launch<16>(v, p, st);
+  return streaming::launch<32>(v, p, st);
+}
+
+// dst (rows, cols) = src and dst_t (cols, rows) = src^T: x into the stream
+// and stream^T before the register tile's first layer.
+extern "C" int dense_fwd_stream_init(const float* src, long long lds,
+                                     float* dst, long long ldd, float* dst_t,
+                                     long long ldt, int rows, int cols,
+                                     void* stream) {
+  if (dst == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dense_tile::launch_transpose(src, lds, dst_t, ldt, dst, ldd, rows,
+                                      cols,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -38,6 +38,92 @@ __device__ __forceinline__ float apply_act(float z, int act) {
   }
 }
 
+// Programmatic dependent launch (Hopper): a kernel that `launch_pdl`
+// launches may start while the kernel before it on the stream finishes its
+// last blocks, so its launch and block scheduling overlap that tail. It
+// waits at pdl_wait() until the kernel before it has completed and its
+// writes are visible, before touching memory; pdl_trigger() lets the next
+// kernel launch once every block of this one has passed it, here after
+// the main loop: a block of the next kernel resident and waiting beside a
+// computing one slows it (PERF.md). Both are no-ops in a kernel
+// launched plainly (<<<>>>), as the backward's are.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+int launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
+               cudaStream_t stream, const Args&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  cudaGetLastError();                       // returned here, not kept
+  return static_cast<int>(err);
+}
+
+// dst_t (cols, rows) of row stride ldt = src (rows, cols)^T, through a
+// 32 x 33 shared tile so reads and writes are all whole rows; with COPY,
+// src is also copied into dst (rows, cols) of row stride ldd. The
+// backward's W^T (dense_stack_bwd.cu, COPY = false) and the forward's x
+// into the stream and stream^T (dense_stack_fwd.cu, COPY = true).
+constexpr int kTrTile = 32, kTrRowGroups = 8;
+
+template <bool COPY>
+__global__ void __launch_bounds__(kTrTile * kTrRowGroups)
+transpose_kernel(const float* src, long long lds, float* dst_t,
+                 long long ldt, float* dst, long long ldd, int rows,
+                 int cols) {
+  __shared__ float tile[kTrTile][kTrTile + 1];
+  const int tx = threadIdx.x % kTrTile, ty = threadIdx.x / kTrTile;
+  const int r0 = blockIdx.y * kTrTile, c0 = blockIdx.x * kTrTile;
+#pragma unroll
+  for (int j = 0; j < kTrTile / kTrRowGroups; ++j) {
+    const int r = r0 + ty + j * kTrRowGroups, c = c0 + tx;
+    if (r < rows && c < cols) {
+      const float v = src[r * lds + c];
+      if constexpr (COPY) dst[r * ldd + c] = v;
+      tile[ty + j * kTrRowGroups][tx] = v;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kTrTile / kTrRowGroups; ++j) {
+    const int c = c0 + ty + j * kTrRowGroups, r = r0 + tx;
+    if (c < cols && r < rows)
+      dst_t[c * ldt + r] = tile[tx][ty + j * kTrRowGroups];
+  }
+}
+
+// Launches transpose_kernel (COPY when `dst` is given); returns the CUDA
+// error (0 on success).
+inline int launch_transpose(const float* src, long long lds, float* dst_t,
+                            long long ldt, float* dst, long long ldd,
+                            int rows, int cols, cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0 || lds < cols || ldt < rows ||
+      (dst != nullptr && ldd < cols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((cols + kTrTile - 1) / kTrTile,
+                  (rows + kTrTile - 1) / kTrTile);
+  if (dst != nullptr)
+    transpose_kernel<true><<<grid, kTrTile * kTrRowGroups, 0, stream>>>(
+        src, lds, dst_t, ldt, dst, ldd, rows, cols);
+  else
+    transpose_kernel<false><<<grid, kTrTile * kTrRowGroups, 0, stream>>>(
+        src, lds, dst_t, ldt, dst, ldd, rows, cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
 struct TileArgs {
   const float* a1; long long lda1; int k1;   // A segment 1 (logical k 0..k1)
   const float* a2; long long lda2; int k2;   // A segment 2 (k2 may be 0)
@@ -52,6 +138,7 @@ struct TileArgs {
 
 template <int BM, int BN, int BK, int TM, int TN, bool TA, bool TW>
 __global__ void __launch_bounds__(kThreads) tile_kernel(const TileArgs p) {
+  pdl_wait();
   constexpr int TX = BN / TN;               // threads along the columns
   constexpr int TY = BM / TM;               // threads along the rows
   static_assert(TX * TY == kThreads, "one output micro-tile per thread");
@@ -153,6 +240,7 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(const TileArgs p) {
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
     }
   }
+  pdl_trigger();
 
   auto epilogue = [&](int gm, int gn, float z) {
     if (p.b != nullptr) z += p.b[gn];
@@ -212,25 +300,33 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(const TileArgs p) {
 }
 
 template <int BM, int BN, int BK, int TM, int TN, bool TA, bool TW>
-int launch(const TileArgs& p, cudaStream_t stream) {
+int launch(const TileArgs& p, cudaStream_t stream, bool pdl) {
   const int tiles = ((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN);
+  if (pdl)
+    return launch_pdl(tile_kernel<BM, BN, BK, TM, TN, TA, TW>,
+                      dim3(tiles, p.splits), dim3(kThreads), stream, p);
   tile_kernel<BM, BN, BK, TM, TN, TA, TW>
       <<<dim3(tiles, p.splits), kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+inline bool args_ok(const TileArgs& p) {
+  return p.m > 0 && p.n > 0 && p.k1 > 0 && p.k2 >= 0 && p.splits >= 1 &&
+         p.chunks_per_split >= 1 && p.act >= kIdentity && p.act <= kSwish &&
+         (p.splits == 1 || (p.ws != nullptr && p.counters != nullptr));
+}
+
 // Tile configurations, indexed by `config` (mirrored by stack.py's
-// _CONFIGS): (BM, BN, BK) = (16, 64, 32), (32, 64, 32), (64, 64, 16).
+// _CONFIGS): (BM, BN, BK) = (16, 64, 32), (32, 64, 32), (64, 64, 16). The
+// backward's products; the forward launches config 2 itself
+// (dense_stack_fwd.cu), as a programmatic dependent launch.
 template <bool TA, bool TW>
 int launch_config(int config, const TileArgs& p, cudaStream_t stream) {
-  if (p.m <= 0 || p.n <= 0 || p.k1 <= 0 || p.k2 < 0 || p.splits < 1 ||
-      p.chunks_per_split < 1 || p.act < kIdentity || p.act > kSwish ||
-      (p.splits > 1 && (p.ws == nullptr || p.counters == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!args_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   switch (config) {
-    case 0: return launch<16, 64, 32, 1, 4, TA, TW>(p, stream);
-    case 1: return launch<32, 64, 32, 2, 4, TA, TW>(p, stream);
-    case 2: return launch<64, 64, 16, 4, 4, TA, TW>(p, stream);
+    case 0: return launch<16, 64, 32, 1, 4, TA, TW>(p, stream, false);
+    case 1: return launch<32, 64, 32, 2, 4, TA, TW>(p, stream, false);
+    case 2: return launch<64, 64, 16, 4, 4, TA, TW>(p, stream, false);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,5 @@
-// The register-tiled fp32 tile product of the dense-stack backward's two
-// products (dense_stack_bwd.cu), for Hopper (sm_90a):
+// The register-tiled fp32 tile product of the dense stack's wide products
+// (dense_stack_bwd.cu, dense_stack_fwd.cu), for Hopper (sm_90a):
 //
 //   out (m, n) (+)= A^T @ B   A stored (K, m): a[k * lda + r]; B stored
 //                             (K, n): b[k * ldb + c]; both run along the
@@ -8,9 +8,12 @@
 //   dW_i = inp_i^T @ gz     A = the forward's stream, B = gz, K = the batch
 //   dx_i = gz @ W_i^T       A = gz^T, B = W_i^T, K = U (dense_stack_bwd.cu
 //                           writes both transposes first)
+//   z_i  = stream @ W_i     A = stream^T, B = W_i, K = d0 + i * U (the
+//                           forward keeps a transposed copy of the stream)
 //
 // What bounds it: fp32 FMAs outside the tensor cores (the 1e-4 / 1e-3
-// agreement with the fp32 reference rules out TF32). The product of
+// agreement with the fp32 reference rules out plain TF32; split-precision
+// 3xTF32 would keep it, ROADMAP.md B). The product of
 // dense_tile.cuh reads two scalar shared-memory words for every two FMAs
 // (4x4 outputs a thread, one column of each operand per step), so the
 // shared-memory pipe, not the FMA units, sets its pace (~20% of peak).
@@ -35,16 +38,20 @@
 // memory held an SM to about a third of its FMA rate on the card: a warp's
 // copy then touches a 32-byte piece of each of several rows.)
 //
-// The epilogue writes `out` = the product, or the product + `c`, an addend
+// The epilogue is the caller's: `tile_body` hands it each thread's 4x4
+// blocks of the result (rows gm0 .. gm0 + 3 with gm0 a multiple of 4,
+// columns gn .. gn + 3), and it masks the ragged edge. The backward's
+// (`StoreEpi`) writes `out` = the product, or the product + `c`, an addend
 // that is `out` itself where the product adds into densenet's gradient
 // stream, and the incoming gradient or the stream where the wrapper saves
-// a copy; 16 bytes at a time where `out` and `c` allow it, with the ragged
-// edges masked. A split of K across gridDim.y writes partials to a workspace; the
-// tile's last block to finish (an integer atomic counts them) sums the
-// partials in fixed split order and resets its counter to 0, so results
-// are bitwise the same from run to run and the counters can be reused.
-// That sum loops over the splits outside and the thread's outputs inside,
-// so a thread has all its loads of one split in flight at once.
+// a copy, 16 bytes at a time where `out` and `c` allow it; the forward's
+// adds the bias and applies the activation (dense_stack_fwd.cu). A split
+// of K across gridDim.y writes partials to a workspace; the tile's last
+// block to finish (an integer atomic counts them) sums the partials in
+// fixed split order, runs the epilogue and resets its counter to 0, so
+// results are bitwise the same from run to run and the counters can be
+// reused. That sum loops over the splits outside and the thread's outputs
+// inside, so a thread has all its loads of one split in flight at once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -139,8 +146,55 @@ __device__ __forceinline__ void copy_rows(float (*dst)[X + kPad],
   }
 }
 
-template <int BM, int BN, bool VA, bool VB>
-__device__ __forceinline__ void tile_body(const Args& p) {
+// every Args check of a launch; `vec` bit 0 (1): 16-byte copies of a, bit 1
+// (2) of b
+inline bool args_ok(const Args& p, int vec) {
+  return p.m > 0 && p.n > 0 && p.k > 0 && p.splits >= 1 &&
+         p.chunks_per_split >= 1 && vec >= 0 && vec <= 3 &&
+         (p.splits == 1 || (p.ws != nullptr && p.counters != nullptr)) &&
+         (!(vec & 1) || aligned16(p.a, p.lda)) &&
+         (!(vec & 2) || aligned16(p.b, p.ldb));
+}
+
+// The backward's epilogue: out[gm, gn..gn+3] = v (+ c[gm, gn..gn+3]) for the
+// rows of a 4x4 block, masked at the ragged edge.
+struct StoreEpi {
+  float* out; long long ldo;
+  const float* c; long long ldc;
+  int m, n;
+  bool vec;
+
+  __device__ explicit StoreEpi(const Args& p)
+      : out(p.out), ldo(p.ldo), c(p.c), ldc(p.ldc), m(p.m), n(p.n),
+        vec(aligned16(p.out, p.ldo) &&
+            (p.c == nullptr || aligned16(p.c, p.ldc))) {}
+
+  __device__ __forceinline__ void operator()(int gm0, int gn,
+                                             const float (&v)[4][4]) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int gm = gm0 + r;
+      if (gm >= m) break;
+      float* o = out + gm * ldo + gn;
+      const float* add = c == nullptr ? nullptr : c + gm * ldc + gn;
+      if (vec && gn + 3 < n) {
+        float4 q = make_float4(v[r][0], v[r][1], v[r][2], v[r][3]);
+        if (add != nullptr) {
+          const float4 a = *reinterpret_cast<const float4*>(add);
+          q.x += a.x; q.y += a.y; q.z += a.z; q.w += a.w;
+        }
+        *reinterpret_cast<float4*>(o) = q;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < n) o[j] = add != nullptr ? add[j] + v[r][j] : v[r][j];
+      }
+    }
+  }
+};
+
+template <int BM, int BN, bool VA, bool VB, class Epi>
+__device__ __forceinline__ void tile_body(const Args& p, const Epi& epi) {
   constexpr int MS = BM / 64, NS = BN / 64;   // 4-wide strips a thread owns
   static_assert(BM == 128 && (BN == 128 || BN == 64), "tile shapes");
   constexpr int TM = 4 * MS, TN = 4 * NS;
@@ -213,40 +267,25 @@ __device__ __forceinline__ void tile_body(const Args& p) {
   cp_async_wait<0>();                       // only empty groups are left
 
   // ---- epilogue ---------------------------------------------------------
+  // accumulator row i is output row row_of(i); strip t of the columns
+  // starts at col_of(t)
   auto row_of = [&](int i) { return m0 + (i / 4) * 64 + ty * 4 + i % 4; };
   auto col_of = [&](int t) { return n0 + t * 64 + tx * 4; };
-  const bool vec = aligned16(p.out, p.ldo) &&
-                   (p.c == nullptr || aligned16(p.c, p.ldc));
-  // out[gm, gn..gn+3] = q (+ c[gm, gn..gn+3]), masked at the ragged edge
-  auto emit = [&](int gm, int gn, float4 q) {
-    float* o = p.out + gm * p.ldo + gn;
-    const float* c = p.c == nullptr ? nullptr : p.c + gm * p.ldc + gn;
-    if (vec && gn + 3 < p.n) {
-      if (c != nullptr) {
-        const float4 add = *reinterpret_cast<const float4*>(c);
-        q.x += add.x; q.y += add.y; q.z += add.z; q.w += add.w;
-      }
-      *reinterpret_cast<float4*>(o) = q;
-    } else {
-      const float v[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (gn + j < p.n) o[j] = c != nullptr ? c[j] + v[j] : v[j];
-    }
-  };
-  auto acc4 = [&](int i, int t) {
-    return make_float4(acc[i][4 * t], acc[i][4 * t + 1], acc[i][4 * t + 2],
-                       acc[i][4 * t + 3]);
-  };
   auto emit_all = [&]() {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = row_of(i);
-      if (gm >= p.m) continue;
+    for (int sm = 0; sm < MS; ++sm) {
+      const int gm0 = row_of(4 * sm);
+      if (gm0 >= p.m) continue;
 #pragma unroll
       for (int t = 0; t < NS; ++t) {
         const int gn = col_of(t);
-        if (gn < p.n) emit(gm, gn, acc4(i, t));
+        if (gn >= p.n) continue;
+        float v[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[r][j] = acc[4 * sm + r][4 * t + j];
+        epi(gm0, gn, v);
       }
     }
   };
@@ -268,7 +307,9 @@ __device__ __forceinline__ void tile_body(const Args& p) {
       if (gn >= p.n) continue;
       float* o = part + static_cast<long long>(gm) * ldws + gn;
       if (gn + 3 < p.n) {
-        *reinterpret_cast<float4*>(o) = acc4(i, t);
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[i][4 * t], acc[i][4 * t + 1], acc[i][4 * t + 2],
+                        acc[i][4 * t + 3]);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -321,13 +362,13 @@ __device__ __forceinline__ void tile_body(const Args& p) {
 template <int BM, int BN, bool VA, bool VB>
 __global__ void __launch_bounds__(kThreads, BN == 128 ? 2 : 3)
 dw_tile_kernel(const Args p) {
-  tile_body<BM, BN, VA, VB>(p);
+  tile_body<BM, BN, VA, VB>(p, StoreEpi(p));
 }
 
 template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads, BN == 128 ? 2 : 3)
 dx_tile_kernel(const Args p) {
-  tile_body<BM, BN, true, true>(p);
+  tile_body<BM, BN, true, true>(p, StoreEpi(p));
 }
 
 template <int BM, int BN>
@@ -351,11 +392,7 @@ int launch(bool dx, int vec, const Args& p, cudaStream_t stream) {
 // bit 0 for 16-byte copies of a, bit 1 of b; dx takes only 3.
 inline int launch_config(int config, bool dx, int vec, const Args& p,
                          cudaStream_t stream) {
-  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.splits < 1 ||
-      p.chunks_per_split < 1 || vec < 0 || vec > 3 || (dx && vec != 3) ||
-      (p.splits > 1 && (p.ws == nullptr || p.counters == nullptr)) ||
-      ((vec & 1) && !aligned16(p.a, p.lda)) ||
-      ((vec & 2) && !aligned16(p.b, p.ldb)))
+  if (!args_ok(p, vec) || (dx && vec != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (config) {
     case 3: return launch<128, 128>(dx, vec, p, stream);

@@ -5,10 +5,16 @@
 calls the feature: the whole stream ``[x|y0|...|y_{L-1}]`` for densenet,
 the last hidden layer for mlp and d2rl.
 
-* On a CUDA tensor it launches the hand-written kernel
+* On a CUDA tensor it launches a hand-written kernel of
   ``csrc/dense_stack_fwd.cu`` once per layer on PyTorch's current stream,
   or raises. There is no fallback: a CUDA tensor never takes the plain
-  path. When autograd will differentiate the call, the forward also keeps
+  path. ``plan_fwd`` picks the kernel by the rows M: up to 32 (serving
+  slots) the weight-streaming kernel; from 128, where U is too (densenet:
+  the actor and critic stacks in training), the register tile of
+  ``csrc/dense_tile_rt.cuh`` over a transposed copy of the stream, which
+  one ``dense_fwd_stream_init`` launch per call starts and every layer's
+  epilogue extends; otherwise ``csrc/dense_tile.cuh``. When autograd will
+  differentiate the call, the forward also keeps
   every layer's pre-activation in an ``(M, L*U)`` side buffer, and the
   backward (``_StackKernel.backward``, the port of ``_bwd_kernel``)
   launches ``csrc/dense_stack_bwd.cu`` layer by layer in reverse, W^T, dW
@@ -25,16 +31,17 @@ the last hidden layer for mlp and d2rl.
 Workspaces and scratch are ``torch.empty`` tensors freed after the
 launch: PyTorch's caching allocator hands their memory out again only in
 stream order, after the kernel has run (a tensor one stream makes and the
-other uses is recorded for it). The forward's split counters are
-``torch.zeros`` per launch; the backward's come from one zeroed buffer per
-(device, stream) (``_tile_counters``), which every backward kernel leaves
-at zero.
+other uses is recorded for it). Split counters come from one zeroed
+buffer per (device, stream) (``_tile_counters``), which every forward and
+backward kernel leaves at zero, so no launch fills them.
 
 Buffer layout (logical widths, no lane padding; see the kernel's header):
 densenet writes every layer into its column slot of one ``(M, d0 + L*U)``
-buffer, which is returned; mlp and d2rl alternate between two ``(M, U)``
-buffers, and d2rl hands the kernel its input as the segments ``[h | x]``,
-the order of the weight's logical rows.
+buffer, which is returned (and, on the register tile, layer i's output
+transposed into rows ``[d0 + i*U, d0 + (i+1)*U)`` of the scratch
+``stream^T``, which is not kept for autograd); mlp and d2rl alternate
+between two ``(M, U)`` buffers, and d2rl hands the kernel its input as the
+segments ``[h | x]``, the order of the weight's logical rows.
 """
 from __future__ import annotations
 
@@ -75,18 +82,55 @@ _RT_MIN_CHUNKS_PER_SPLIT = 8
 # written, read back and summed by the tile's last block (fit to the split
 # sweeps of launch/bwd_sweep.py at the four dx products, M=256, H100)
 _RT_SPLIT_CHUNKS = 6.7
+# the forward's register tile: 128x64 tiles only (launch/bwd_sweep.py's
+# forward rows, the actor's and the critic's layers at M=256, H100: 128x128
+# lost at each), and at least this many BK chunks a split
+_RT_FWD_CONFIG = 4
+_RT_FWD_MIN_CHUNKS = 16
 # act_grad_kernel's row blocks: rows of per-block column sums for db
 _ACT_ROW_BLOCKS = 8
+# the forward's weight-streaming kernel (dense_stack_fwd.cu stream_kernel):
+# its config id, the rows it takes, its blocks' 128-column strips, the K
+# rows of A a block holds in shared memory (kMaxK) and the fewest it is
+# given (four for each warp of a K part of eight)
+_STREAM_CONFIG = 5
+_STREAM_MAX_ROWS = 32
+_STREAM_COLS = 128
+_STREAM_MAX_K = 192
+_STREAM_MIN_K = 32
+# forward kernels by the name their launch counts go under
+FWD_KERNELS = ("stream", "rt", "tile")
 
 _count_lock = threading.Lock()
-_launches = 0
+_launches = dict.fromkeys(FWD_KERNELS, 0)
+_transposes = 0
 _bwd_launches = 0
 
 
-def launch_count() -> int:
-    """Forward kernel launches since the last ``reset_launch_count`` (one
-    per layer of every stack forward that ran on the card)."""
-    return _launches
+def launch_count(kernel: Optional[str] = None) -> int:
+    """Forward layer launches since the last ``reset_launch_count``: of
+    every forward kernel (one per layer of every stack forward that ran on
+    the card), or of one of ``FWD_KERNELS``: ``"stream"`` (the
+    weight-streaming kernel, M <= 32), ``"rt"`` (the register tile) or
+    ``"tile"`` (``dense_tile.cuh``)."""
+    if kernel is None:
+        return sum(_launches.values())
+    return _launches[kernel]
+
+
+def fwd_kernel_of(config: int) -> str:
+    """The name in ``FWD_KERNELS`` of the forward kernel that runs a plan's
+    ``config``."""
+    if config == _STREAM_CONFIG:
+        return "stream"
+    return "rt" if config in _RT_CONFIGS else "tile"
+
+
+def transpose_count() -> int:
+    """``dense_fwd_stream_init`` launches since the last
+    ``reset_launch_count``: one per stack forward on the register tile (x
+    into the stream and into ``stream^T``)."""
+    return _transposes
 
 
 def bwd_launch_count() -> int:
@@ -97,19 +141,24 @@ def bwd_launch_count() -> int:
 
 
 def reset_launch_count() -> None:
-    global _launches, _bwd_launches
+    global _transposes, _bwd_launches
     with _count_lock:
-        _launches = 0
+        _launches.update(dict.fromkeys(FWD_KERNELS, 0))
+        _transposes = 0
         _bwd_launches = 0
 
 
-def _count_launch(backward: bool = False) -> None:
-    global _launches, _bwd_launches
+def _count_launch(kind: str) -> None:
+    """One launch of a forward kernel (``FWD_KERNELS``), of
+    ``"transpose"`` or of ``"bwd"``."""
+    global _transposes, _bwd_launches
     with _count_lock:
-        if backward:
+        if kind == "bwd":
             _bwd_launches += 1
+        elif kind == "transpose":
+            _transposes += 1
         else:
-            _launches += 1
+            _launches[kind] += 1
 
 
 def _validate(connectivity: str, activation: str, ws, bs) -> None:
@@ -200,13 +249,21 @@ def dense_stack_grads_ref(x: torch.Tensor, ws: Sequence[torch.Tensor],
 
 def _library() -> ctypes.CDLL:
     from repro_torch.kernels import load_library
-    lib = load_library("dense_stack_fwd", [SOURCE], [HEADER])
-    fn = lib.dense_layer_fwd
-    if fn.argtypes is None:
+    lib = load_library("dense_stack_fwd", [SOURCE], [HEADER, RT_HEADER])
+    if lib.dense_layer_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, ll, i, p, ll, i, p, p, p, ll, p, ll, p, p, i,
-                       i, i, i, i, p]
-        fn.restype = ctypes.c_int
+        lib.dense_layer_fwd.argtypes = [i, p, ll, i, p, ll, i, p, p, p, ll,
+                                        p, ll, p, p, i, i, i, i, i, p]
+        lib.dense_layer_fwd_rt.argtypes = [i, i, p, ll, p, ll, p, p, ll, p,
+                                           ll, p, ll, p, p, i, i, i, i, i,
+                                           i, p]
+        lib.dense_layer_fwd_stream.argtypes = [i, p, ll, i, p, ll, i, p, ll,
+                                               p, p, ll, p, ll, p, ll, p, p,
+                                               i, i, i, i, i, p]
+        lib.dense_fwd_stream_init.argtypes = [p, ll, p, ll, p, ll, i, i, p]
+        for fn in (lib.dense_layer_fwd, lib.dense_layer_fwd_rt,
+                   lib.dense_layer_fwd_stream, lib.dense_fwd_stream_init):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -232,12 +289,15 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def plan(m: int, n: int, k: int, num_sms: int) -> Tuple[int, int, int, int]:
-    """``(config, tiles, splits, chunks_per_split)`` of one tile product
-    with an ``(m, n)`` output and a reduction of length ``k``.
+    """``(config, tiles, splits, chunks_per_split)`` of one
+    ``dense_tile.cuh`` product with an ``(m, n)`` output and a reduction of
+    length ``k``.
 
-    The tile config follows the rows (serving slots of 1-32 rows use thin
-    row tiles); K is split so the grid holds ~``_BLOCKS_PER_SM`` blocks
-    per SM even when the output has few tiles."""
+    The tile config follows the rows: the thin row tiles of configs 0 and 1
+    serve the backward's products of up to 32 rows; the forward takes this
+    plan only past 32 rows (``plan_fwd``), so always config 2. K is split
+    so the grid holds ~``_BLOCKS_PER_SM`` blocks per SM even when the
+    output has few tiles."""
     config = 0 if m <= 16 else 1 if m <= 32 else 2
     bm, bn, bk = _CONFIGS[config]
     tiles = -(-m // bm) * -(-n // bn)
@@ -304,6 +364,47 @@ def plan_bwd(m: int, n: int, k: int, num_sms: int,
     return best[1]
 
 
+def plan_fwd(m: int, n: int, k: int, num_sms: int,
+             transposed: bool = True) -> Tuple[int, int, int, int]:
+    """``(config, tiles, splits, per_split)`` of one forward layer with an
+    ``(m, n)`` output and a reduction of length ``k``:
+
+    * up to ``_STREAM_MAX_ROWS`` rows (the serving slots, the actor pool's
+      collect), the weight-streaming kernel (``_STREAM_CONFIG``). Bytes
+      bind it: its tiles are 128-column strips, and K is split so the grid
+      holds up to ``_BLOCKS_PER_SM`` blocks per SM, one wave (a block past
+      it waits for a whole block's time), in parts of at least
+      ``_STREAM_MIN_K`` and at most ``_STREAM_MAX_K`` rows (``per_split``
+      counts rows here, not chunks).
+    * at least ``_RT_MIN`` rows and columns where the wrapper keeps the
+      stream transposed (``transposed``: densenet), the register tile's
+      128x64 tiles (``_RT_FWD_CONFIG``) with K split into up to
+      ``_BLOCKS_PER_SM`` blocks per SM, each with at least
+      ``_RT_FWD_MIN_CHUNKS`` chunks. The rules follow the card
+      (``launch/bwd_sweep.py``: the actor's and the critic's layers at
+      M=256, H100): a second block per SM hides the first one's loads
+      (the actor's layer 1: 84.4 us at 4 splits, 94.0 at 2), and a short K
+      keeps fewer splits.
+    * otherwise (the narrow OFENet stacks, U = 64; mlp and d2rl past 32
+      rows), ``dense_tile.cuh`` as ``plan`` plans it (config 2)."""
+    if m <= _STREAM_MAX_ROWS:
+        strips = -(-n // _STREAM_COLS)
+        want = max(1, _BLOCKS_PER_SM * num_sms // strips)
+        splits = max(-(-k // _STREAM_MAX_K),
+                     min(want, max(1, k // _STREAM_MIN_K)))
+        per_split = -(-k // splits)
+        return _STREAM_CONFIG, strips, -(-k // per_split), per_split
+    if not (transposed and min(m, n) >= _RT_MIN):
+        return plan(m, n, k, num_sms)
+    bm, bn, bk = _RT_CONFIGS[_RT_FWD_CONFIG]
+    tiles = -(-m // bm) * -(-n // bn)
+    chunks = -(-k // bk)
+    splits = max(1, min(_BLOCKS_PER_SM * num_sms // tiles,
+                        chunks // _RT_FWD_MIN_CHUNKS))
+    per_split = -(-chunks // splits)
+    return _RT_FWD_CONFIG, tiles, -(-chunks // per_split), per_split
+
+
 def vec_aligned(*operands: Tuple[int, int]) -> bool:
     """True when every ``(address, row stride in floats)`` operand takes
     16-byte loads: the address a multiple of 16 bytes, the stride of 4
@@ -352,49 +453,74 @@ def _side_stream(dev: torch.device, main: torch.cuda.Stream
         return side
 
 
-def _split_buffers(m: int, n: int, tiles: int, splits: int,
-                   dev: torch.device):
-    """Workspace and per-tile counters of a split reduction (None, None
-    without one)."""
-    if splits == 1:
-        return None, None
-    return (torch.empty((splits, m, n), device=dev, dtype=torch.float32),
-            torch.zeros((tiles,), device=dev, dtype=torch.int32))
-
-
 def _ptr(t: Optional[torch.Tensor], col: int = 0):
     """Address of column ``col`` of row 0 of a float32 tensor (or None)."""
     return None if t is None else t.data_ptr() + 4 * col
 
 
-def _launch_layer(lib, seg1: Tuple[torch.Tensor, int],
+def _device_info(dev: torch.device) -> Tuple[int, int]:
+    """``(SM count, current stream handle)`` of a CUDA device."""
+    return (torch.cuda.get_device_properties(dev).multi_processor_count,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch_layer(lib, plan, seg1: Tuple[torch.Tensor, int],
                   seg2: Optional[Tuple[torch.Tensor, int]],
                   w: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-                  col: int, act: int, num_sms: int, stream: int,
-                  z: Optional[Tuple[torch.Tensor, int]] = None) -> None:
-    """``out[:, col:col+N] = act([seg1 | seg2] @ w + b)``; a segment is
-    ``(tensor, first column)`` and spans ``w``'s matching rows. ``z``
-    ``(tensor, first column)`` receives the pre-activation when given."""
+                  col: int, act: int, stream: int,
+                  z: Optional[Tuple[torch.Tensor, int]] = None,
+                  at: Optional[torch.Tensor] = None,
+                  yt: Optional[torch.Tensor] = None,
+                  acopy: Optional[torch.Tensor] = None) -> None:
+    """``out[:, col:col+N] = act([seg1 | seg2] @ w + b)`` by the kernel of
+    ``plan`` (``plan_fwd``'s); a segment is ``(tensor, first column)`` and
+    spans ``w``'s matching rows. ``z`` ``(tensor, first column)`` receives
+    the pre-activation when given. The register tile reads the stream from
+    ``at`` (``stream^T``, rows padded to 4 floats) instead of ``seg1`` and
+    writes its output transposed into ``yt`` (rows of ``stream^T``) when
+    given. The streaming kernel also copies ``seg1``'s columns into the
+    first columns of ``acopy`` when given (x into densenet's stream)."""
+    config, tiles, splits, per_split = plan
     a1, c1 = seg1
     m, n = out.shape[0], w.shape[1]
     k2 = 0 if seg2 is None else seg2[0].shape[1] - seg2[1]
     k1 = w.shape[0] - k2
-    config, tiles, splits, per_split = plan(m, n, k1 + k2, num_sms)
-    ws_buf, counters = _split_buffers(m, n, tiles, splits, out.device)
-    a2_ptr, lda2 = None, 0
-    if seg2 is not None:
-        a2_ptr, lda2 = _ptr(*seg2), seg2[0].stride(0)
+    kind = fwd_kernel_of(config)
+    ws_buf = counters = None
+    if splits > 1:
+        ws_buf = torch.empty((splits, m, _pad4(n) if kind != "tile" else n),
+                             device=out.device, dtype=torch.float32)
+        counters = _tile_counters(tiles, out.device, stream)
     z_ptr, ldz = (None, 0) if z is None else (_ptr(*z), z[0].stride(0))
-    err = lib.dense_layer_fwd(
-        config, _ptr(a1, c1), a1.stride(0), k1, a2_ptr, lda2, k2,
-        w.data_ptr(), b.data_ptr(), _ptr(out, col), out.stride(0), z_ptr,
-        ldz, _ptr(ws_buf), _ptr(counters), m, n, act, splits, per_split,
-        stream)
+    vec_w = int(vec_aligned(operand(w)))
+    if kind == "rt":
+        err = lib.dense_layer_fwd_rt(
+            config, vec_w, at.data_ptr(), at.stride(0), w.data_ptr(),
+            w.stride(0), b.data_ptr(), _ptr(out, col), out.stride(0), z_ptr,
+            ldz, _ptr(yt), 0 if yt is None else yt.stride(0), _ptr(ws_buf),
+            _ptr(counters), m, n, k1, act, splits, per_split, stream)
+    else:
+        a2_ptr, lda2 = None, 0
+        if seg2 is not None:
+            a2_ptr, lda2 = _ptr(*seg2), seg2[0].stride(0)
+        if kind == "stream":
+            err = lib.dense_layer_fwd_stream(
+                vec_w, _ptr(a1, c1), a1.stride(0), k1, a2_ptr, lda2, k2,
+                w.data_ptr(), w.stride(0), b.data_ptr(), _ptr(out, col),
+                out.stride(0), z_ptr, ldz, _ptr(acopy),
+                0 if acopy is None else acopy.stride(0), _ptr(ws_buf),
+                _ptr(counters), m, n, act, splits, per_split, stream)
+        else:
+            err = lib.dense_layer_fwd(
+                config, _ptr(a1, c1), a1.stride(0), k1, a2_ptr, lda2, k2,
+                w.data_ptr(), b.data_ptr(), _ptr(out, col), out.stride(0),
+                z_ptr, ldz, _ptr(ws_buf), _ptr(counters), m, n, act, splits,
+                per_split, stream)
     if err != 0:
-        raise RuntimeError(f"dense_layer_fwd launch failed: CUDA error {err} "
-                           f"(m={m}, n={n}, k={k1 + k2}, config={config}, "
-                           f"splits={splits})")
-    _count_launch()
+        raise RuntimeError(f"dense_stack forward ({kind}) launch failed: "
+                           f"CUDA error {err} (m={m}, n={n}, k={k1 + k2}, "
+                           f"config={config}, splits={splits})")
+    _count_launch(kind)
 
 
 def _check_cuda(x: torch.Tensor, ws, bs, connectivity: str) -> None:
@@ -432,18 +558,36 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
     lib = _library()
     act = _ACT_CODE[activation]
     with torch.cuda.device(dev):
-        num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        num_sms, stream = _device_info(dev)
 
         def z_slot(i):
             return None if zs is None else (zs, i * u)
         if connectivity == "densenet":
             out = torch.empty((m, out_w), device=dev, dtype=torch.float32)
-            out[:, :d0].copy_(x)
+            plans = [plan_fwd(m, u, d0 + i * u, num_sms)
+                     for i in range(n_layers)]
+            st = None                   # stream^T: x^T, y_0^T .. y_{L-2}^T
+            if plans[0][0] in _RT_CONFIGS:      # every layer alike: m, u
+                st = torch.empty((d0 + (n_layers - 1) * u, _pad4(m)),
+                                 device=dev, dtype=torch.float32)
+                err = lib.dense_fwd_stream_init(
+                    x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
+                    st.data_ptr(), st.stride(0), m, d0, stream)
+                if err != 0:
+                    raise RuntimeError(f"dense_fwd_stream_init launch failed:"
+                                       f" CUDA error {err} (m={m}, d0={d0})")
+                _count_launch("transpose")
+            elif plans[0][0] != _STREAM_CONFIG:
+                out[:, :d0].copy_(x)
             for i in range(n_layers):
                 d = d0 + i * u
-                _launch_layer(lib, (out, 0), None, ws[i], bs[i], out, d, act,
-                              num_sms, stream, z_slot(i))
+                yt = st[d:d + u] if st is not None and i < n_layers - 1 \
+                    else None
+                # the streaming kernel's layer 0 reads x and copies it in
+                first = i == 0 and plans[0][0] == _STREAM_CONFIG
+                _launch_layer(lib, plans[i], (x, 0) if first else (out, 0),
+                              None, ws[i], bs[i], out, d, act, stream,
+                              z_slot(i), st, yt, out if first else None)
             return out
         bufs = [torch.empty((m, u), device=dev, dtype=torch.float32)
                 for _ in range(min(n_layers, 2))]
@@ -451,8 +595,9 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
         for i in range(n_layers):
             dst = bufs[i % 2]
             seg2 = (x, 0) if connectivity == "d2rl" and i > 0 else None
-            _launch_layer(lib, (h, 0), seg2, ws[i], bs[i], dst, 0, act,
-                          num_sms, stream, z_slot(i))
+            plan_i = plan_fwd(m, u, ws[i].shape[0], num_sms, transposed=False)
+            _launch_layer(lib, plan_i, (h, 0), seg2, ws[i], bs[i], dst, 0,
+                          act, stream, z_slot(i))
             h = dst
         return h
 
@@ -470,9 +615,7 @@ class _Backward:
         self.lib = _bwd_library()
         self.m, self.u, self.dev = m, u, dev
         self.act = _ACT_CODE[activation]
-        self.num_sms = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.num_sms, self.stream = _device_info(dev)
 
     def _empty(self, *shape) -> torch.Tensor:
         return torch.empty(shape, device=self.dev, dtype=torch.float32)
@@ -728,7 +871,7 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                     gh = inputs[0][2]
             dx = gx
         main.wait_stream(side)
-    _count_launch(backward=True)
+    _count_launch("bwd")
     return dx, dws, dbs
 
 

@@ -1,21 +1,29 @@
-"""Tile and split sweep of the stack backward's products, on the card.
+"""Tile and split sweep of the dense stack's products, on the card.
 
     python -m repro_torch.launch.bwd_sweep
 
-For every product of the critic's and the actor's densenet backward at the
-training path's M=256 (dW_i over the batch, dx_i over U), times the
-register tile (``dense_tile_rt.cuh``) at both shapes and every split of K
-the planner may take, and marks the plan ``stack.plan_bwd`` picks: the
-measurements its rules follow. dx is timed as the product alone, on the
-operands ``act_grad`` and the W^T transpose make. Times are CUDA events
-over back-to-back calls after a warm-up, the median of three runs; the
-card must be there (``resolve_device``).
+For every product of the critic's and the actor's densenet stack at the
+training path's M=256 (backward: dW_i over the batch, dx_i over U;
+forward: z_i = stream @ W_i over d0 + i*U), times the register tile
+(``dense_tile_rt.cuh``) at both shapes and every split of K the planner
+may take, and marks the plan ``stack.plan_bwd`` / ``stack.plan_fwd``
+picks: the measurements their rules follow. dx is timed as the product
+alone, on the operands ``act_grad`` and the W^T transpose make; the
+forward as one layer's launch with its epilogue, on stream^T. Then the
+weight-streaming kernel of the forward at the serving slots 1, 8 and 32
+for each of the actor's layers, at every split of K it can take, its
+weights cycled through copies larger than the L2 as a serving tick finds
+them. Times are CUDA events over back-to-back calls after a warm-up,
+enqueued while the card is held busy (so the wrappers' host work is not in
+them), the median of three runs; the card must be there
+(``resolve_device``).
 """
 from __future__ import annotations
 
 import argparse
 import math
 import statistics
+import time
 from typing import List, Tuple
 
 import torch
@@ -25,6 +33,8 @@ from repro_torch.kernels.dense_block import stack
 
 # (name, M, d0, U, L) of the training path's densenet stacks
 NETS = (("critic", 256, 516, 2048, 2), ("actor", 256, 259, 2048, 2))
+# the serving slots the weight-streaming kernel is swept at
+STREAM_SLOTS = (1, 8, 32)
 
 
 def candidates(m: int, n: int, k: int, num_sms: int,
@@ -48,16 +58,44 @@ def candidates(m: int, n: int, k: int, num_sms: int,
     return out
 
 
-def _time_us(fn, reps: int = 20, runs: int = 3) -> float:
-    fn()
+def stream_candidates(m: int, n: int, k: int
+                      ) -> List[Tuple[int, int, int, int]]:
+    """Every plan of the weight-streaming kernel for an (m, n) x k layer:
+    each distinct split from the fewest a block's A rows allow to parts of
+    ``_STREAM_MIN_K`` rows, as ``(config, strips, splits, rows)``."""
+    strips = -(-n // stack._STREAM_COLS)
+    out, seen = [], set()
+    for want in range(-(-k // stack._STREAM_MAX_K),
+                      max(1, k // stack._STREAM_MIN_K) + 1):
+        rows = -(-k // want)
+        splits = -(-k // rows)
+        if splits not in seen:
+            seen.add(splits)
+            out.append((stack._STREAM_CONFIG, strips, splits, rows))
+    return out
+
+
+def _time_us(fn, reps: int = 20, runs: int = 3, copies: int = 1) -> float:
+    """Median over ``runs`` of the CUDA-event time of ``reps`` calls of
+    ``fn(i)``, ``i`` cycling over ``range(copies)``, enqueued while the
+    card is held busy, so the wrapper's host work is not in it."""
+    for i in range(copies):
+        fn(i)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(reps):
+        fn(r % copies)
+    torch.cuda.synchronize()
+    # hold the card ~3x the enqueue time (cycles at ~2 GHz, >= 2 ms)
+    hold = int(2e9 * max(2e-3, 3 * (time.perf_counter() - t0)))
     samples = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold)
         start.record()
-        for _ in range(reps):
-            fn()
+        for r in range(reps):
+            fn(r % copies)
         end.record()
         torch.cuda.synchronize()
         samples.append(1e3 * start.elapsed_time(end) / reps)
@@ -107,24 +145,80 @@ def sweep(seed: int = 0) -> List[dict]:
                     rows.append(dict(net=name, layer=i,
                                      product="dx" if dx else "dW",
                                      shape=(mm, nn, kk), plan=plan,
-                                     picked=plan == pick, us=_time_us(run)))
+                                     picked=plan == pick,
+                                     us=_time_us(lambda _: run())))
+        rows += _forward_rows(name, out, ws, bs, d0, u, num_sms, gen)
+    return rows
+
+
+def _forward_rows(name: str, out: torch.Tensor, ws, bs, d0: int, u: int,
+                  num_sms: int, gen: torch.Generator) -> List[dict]:
+    """The forward's layers of one stack: the register tile at M=256 on
+    stream^T (made from the forward's own output), every split of its
+    128x64 tiles (the forward has no 128x128 case: its best split lost to
+    128x64's by 8-12 us at each of these four products, PERF.md); then the
+    streaming kernel at the serving slots, every split."""
+    lib = stack._library()
+    dev = out.device
+    m = out.shape[0]
+    stream_h = torch.cuda.current_stream(dev).cuda_stream
+    act = stack._ACT_CODE["swish"]
+    rows = []
+    st = torch.empty((out.shape[1], stack._pad4(m)), device=dev)
+    st[:, :m].copy_(out.t())
+    y = torch.empty((m, u), device=dev)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        k = d0 + i * u
+        pick = stack.plan_fwd(m, u, k, num_sms)
+        for plan in candidates(m, u, k, num_sms, True):
+            if plan[0] != stack._RT_FWD_CONFIG:   # the forward's tile only
+                continue
+
+            def run(_, plan=plan):
+                stack._launch_layer(lib, plan, (out, 0), None, w, b, y, 0,
+                                    act, stream_h, at=st)
+            rows.append(dict(net=name, layer=i, product="fwd",
+                             shape=(m, u, k), plan=plan, picked=plan == pick,
+                             us=_time_us(run)))
+    if name != "actor":                 # only the actor is served
+        return rows
+    # serving: the weights cold, as each tick finds them past the L2
+    copies = [[w.clone() for w in ws] for _ in range(
+        max(2, math.ceil(120e6 / (4 * sum(w.numel() for w in ws)))))]
+    for ms in STREAM_SLOTS:
+        x = torch.randn((ms, out.shape[1]), generator=gen, device=dev)
+        y = torch.empty((ms, u), device=dev)
+        for i, b in enumerate(bs):
+            k = d0 + i * u
+            pick = stack.plan_fwd(ms, u, k, num_sms)
+            for plan in stream_candidates(ms, u, k):
+                def run(c, plan=plan, i=i, b=b):
+                    stack._launch_layer(lib, plan, (x, 0), None,
+                                        copies[c][i], b, y, 0, act,
+                                        stream_h)
+                rows.append(dict(net=name, layer=i,
+                                 product=f"fwd-stream M={ms}",
+                                 shape=(ms, u, k), plan=plan,
+                                 picked=plan == pick,
+                                 us=_time_us(run, copies=len(copies))))
     return rows
 
 
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     rows = sweep()
-    print(f"# {torch.cuda.get_device_name(0)}; config 3 = 128x128, "
-          f"4 = 128x64; * = plan_bwd's pick")
+    print(f"# {torch.cuda.get_device_name(0)}; config 3 = 128x128 (the "
+          f"backward only), 4 = 128x64, 5 = the weight-streaming kernel (its "
+          f"last number counts rows); * = plan_bwd's or plan_fwd's pick")
     key = None
     for r in rows:
         if (r["net"], r["layer"], r["product"]) != key:
             key = (r["net"], r["layer"], r["product"])
             print(f"{r['net']} layer {r['layer']} {r['product']} "
                   f"(m, n, k) = {r['shape']}:")
-        config, _, splits, _ = r["plan"]
-        print(f"  config {config} splits {splits:2d}: {r['us']:8.1f} us"
-              f"{'  *' if r['picked'] else ''}")
+        config, _, splits, per = r["plan"]
+        print(f"  config {config} splits {splits:2d} ({per:3d}): "
+              f"{r['us']:8.1f} us{'  *' if r['picked'] else ''}")
 
 
 if __name__ == "__main__":

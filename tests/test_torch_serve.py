@@ -236,3 +236,16 @@ def test_close_without_drain_fails_pending():
     for t in tickets:
         with pytest.raises(ServerClosed):
             t.result(timeout=1.0)
+
+
+def test_probe_serve_load_answers_every_request_per_round():
+    """``launch/probe.py``'s closed-loop load (the serving numbers two
+    checkouts are compared by on the card): each round answers all its
+    requests, in ticks of at most ``max_batch``, and reports its rate and
+    latency percentiles from the clients' clocks."""
+    from repro_torch.launch import probe
+    rows = probe.serve_load(_policy(), rounds=2, requests=24, clients=3)
+    assert len(rows) == 2
+    for r in rows:
+        assert r["req_s"] > 0 and 0 < r["p50_ms"] <= r["p99_ms"]
+        assert 24 // ServeConfig().max_batch <= r["ticks"] <= 24

@@ -105,14 +105,27 @@ def test_stack_rejects_bad_config():
 
 def test_launch_plan_fills_the_card_at_serving_slots():
     """Serving slots of 1-32 rows get their parallelism from the columns
-    and a split of K: the actor's wide layer launches >= 2 blocks per SM."""
-    for m in (1, 32, 256):
-        config, tiles, splits, per_split = tstack.plan(m, 2048, 2307, 132)
-        bm, bn, bk = tstack._CONFIGS[config]
-        assert tiles == -(-m // bm) * (2048 // bn)
-        assert tiles * splits >= 2 * 132
-        assert (splits - 1) * per_split < -(-2307 // bk) <= splits * per_split
+    and a split of K: the actor's wide layer launches one wave of about 2
+    blocks per SM of the weight-streaming kernel (128-column strips, K
+    split by rows), and so does the register tile at the batch of 256;
+    dense_tile.cuh, which mlp and d2rl keep there, >= 2 blocks per SM."""
+    for m in (1, 8, 32):
+        config, tiles, splits, rows = tstack.plan_fwd(m, 2048, 2307, 132)
+        assert config == tstack._STREAM_CONFIG
+        assert tiles == 2048 // tstack._STREAM_COLS
+        assert 2 * 132 - tiles < tiles * splits <= 2 * 132
+        assert (splits - 1) * rows < 2307 <= splits * rows
+    config, tiles, splits, per_split = tstack.plan_fwd(256, 2048, 2307, 132)
+    bm, bn, bk = tstack._RT_CONFIGS[config]
+    assert tiles == (256 // bm) * (2048 // bn)
+    assert 2 * 132 - tiles < tiles * splits <= 2 * 132
+    assert (splits - 1) * per_split < -(-2307 // bk) <= splits * per_split
+    config, tiles, splits, per_split = tstack.plan(256, 2048, 2307, 132)
+    assert tstack.plan_fwd(256, 2048, 2307, 132, transposed=False) \
+        == (config, tiles, splits, per_split)
+    assert tiles * splits >= 2 * 132
     assert tstack.plan(4, 8, 3, 132)[2] == 1          # tiny K: no split
+    assert tstack.plan_fwd(4, 8, 3, 132)[2] == 1
 
 
 @pytest.fixture
@@ -125,15 +138,27 @@ def cuda_device():
 @pytest.mark.parametrize("act", ("swish", "relu", "tanh", "identity"))
 @pytest.mark.parametrize("conn", CONNS)
 def test_cuda_kernel_matches_plain(cuda_device, conn, act):
+    """Every forward kernel against the plain version: the streaming kernel
+    (1, 2, 4, 5, 16 and 32 rows: each of its row-count cases, 1 to 32),
+    dense_tile.cuh (phi_s at 256 rows; mlp and d2rl at every shape of 256
+    and 201 rows), the register tile over stream^T (densenet: the actor at
+    256 rows and a ragged shape of 201 rows); within 1e-4, one launch per
+    layer, and two calls bitwise equal."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    for L, d0, u, m in ((3, 7, 40, 5), (2, 259, 2048, 32), (4, 3, 64, 256)):
+    for L, d0, u, m in ((3, 7, 40, 5), (2, 259, 2048, 1), (2, 259, 2048, 2),
+                        (4, 3, 64, 4), (2, 259, 2048, 16), (2, 259, 2048, 32),
+                        (4, 3, 64, 256), (2, 259, 2048, 256),
+                        (3, 37, 301, 201)):
         x, ws, bs = _make(conn, L=L, d0=d0, u=u, m=m, seed=L)
         want = tstack.dense_stack(*_torch(x, ws, bs), connectivity=conn,
                                   activation=act).numpy()
         before = tstack.launch_count()
-        got = tstack.dense_stack(*_torch(x, ws, bs, cuda_device),
-                                 connectivity=conn, activation=act)
+        inputs = _torch(x, ws, bs, cuda_device)
+        got = tstack.dense_stack(*inputs, connectivity=conn, activation=act)
+        again = tstack.dense_stack(*inputs, connectivity=conn,
+                                   activation=act)
         torch.cuda.synchronize()
-        assert tstack.launch_count() - before == L
+        assert tstack.launch_count() - before == 2 * L
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
                                    atol=1e-4 * np.abs(want).max())
+        assert torch.equal(got, again)

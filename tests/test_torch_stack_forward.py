@@ -1,0 +1,312 @@
+"""The port's stack forward: its planner and launch plan on the CPU, and
+the plain version against the reference's Pallas forward at a ragged shape
+large enough for the register tile.
+
+``plan_fwd`` picks one of three kernels of ``csrc/dense_stack_fwd.cu`` by
+the rows of the call: the weight-streaming kernel up to 32 rows (the
+serving slots), the register tile over ``stream^T`` from 128 rows where U
+is at least 128 too (densenet: the actor and critic stacks at the batch of
+256), and ``dense_tile.cuh`` otherwise (the narrow OFENet stacks). The
+launch sequence of ``_kernel_forward`` is plain Python: it runs here against
+a recording stand-in for the CUDA library, which shows one launch per
+layer by the planned kernel, one stream^T init per register-tiled call,
+and split counters taken from ``_tile_counters`` with no zeroed buffer per
+launch. The kernels themselves are held against the plain version on the
+card (``tests/test_torch_stack.py -k cuda``, ``chip_smoke.py``).
+"""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.dense_block import stack as tstack
+
+# (m, n, k) of the four wide forward products at the training batch: the
+# actor's (d0 = 259) and the critic's (d0 = 516) layers 0 and 1, U = 2048
+WIDE = [(256, 2048, 259), (256, 2048, 2307), (256, 2048, 516),
+        (256, 2048, 2564)]
+# the narrow OFENet products at the batch: phi_s (d0 = 3) and phi_sa
+# (d0 = 260), U = 64, four layers
+NARROW = [(256, 64, 3 + 64 * i) for i in range(4)] \
+    + [(256, 64, 260 + 64 * i) for i in range(4)]
+SLOTS = (1, 2, 4, 8, 16, 32)
+# ragged and large enough for the register tile (cf. the backward's)
+RAGGED_RT = (201, 37, 301, 3)
+
+
+@pytest.mark.parametrize("m,n,k", WIDE)
+def test_plan_fwd_takes_the_register_tile_at_the_wide_products(m, n, k):
+    config, tiles, splits, _ = tstack.plan_fwd(m, n, k, 132)
+    assert config == tstack._RT_FWD_CONFIG
+    assert tstack._RT_CONFIGS[config][:2] == (128, 64)
+    assert tstack.fwd_kernel_of(config) == "rt"
+    # the small (256, 2048) output splits K into up to two blocks per SM
+    assert splits > 1 and tiles * splits <= 2 * 132
+
+
+@pytest.mark.parametrize("transposed", (True, False))
+@pytest.mark.parametrize("m", (1, 2, 5, 16, 32, 33, 64, 127, 128, 201, 256,
+                               1024))
+def test_plan_fwd_takes_only_the_forward_librarys_configs(m, transposed):
+    """``dense_stack_fwd.cu`` has the streaming kernel, the register tile's
+    128x64 case and ``dense_tile.cuh``'s config 2; the thin configs 0 and 1
+    (the backward's products of up to 32 rows) and 128x128 are not in
+    it."""
+    for n, k in [(64, 3), (64, 451), (301, 37), (2048, 259), (2048, 4612)]:
+        config = tstack.plan_fwd(m, n, k, 132, transposed=transposed)[0]
+        assert config in (tstack._STREAM_CONFIG, tstack._RT_FWD_CONFIG, 2)
+        if m > tstack._STREAM_MAX_ROWS:
+            assert config != tstack._STREAM_CONFIG
+
+
+@pytest.mark.parametrize("m", SLOTS)
+@pytest.mark.parametrize("n,k", [(2048, 259), (2048, 2307), (2048, 2564),
+                                 (64, 3), (64, 195), (301, 639)])
+def test_plan_fwd_streams_the_weights_at_serving_slots(m, n, k):
+    config, strips, splits, rows = tstack.plan_fwd(m, n, k, 132)
+    assert config == tstack._STREAM_CONFIG
+    assert tstack.fwd_kernel_of(config) == "stream"
+    assert strips == -(-n // tstack._STREAM_COLS)
+    # a block holds at most _STREAM_MAX_K rows of A; splits cover K
+    assert rows <= tstack._STREAM_MAX_K
+    assert (splits - 1) * rows < k <= splits * rows
+    # connectivity does not matter here: every slot streams
+    assert tstack.plan_fwd(m, n, k, 132, transposed=False)[0] == config
+
+
+@pytest.mark.parametrize("m,n,k", NARROW)
+def test_plan_fwd_keeps_the_old_configs_for_the_narrow_stacks(m, n, k):
+    assert tstack.plan_fwd(m, n, k, 132) == tstack.plan(m, n, k, 132)
+    assert tstack.fwd_kernel_of(tstack.plan_fwd(m, n, k, 132)[0]) == "tile"
+
+
+@pytest.mark.parametrize(
+    "m,n,k", WIDE + NARROW + [(m, 2048, 2307) for m in SLOTS]
+    + [(64, 2048, 2307), (201, 301, 37), (201, 301, 639), (128, 128, 1),
+       (1, 64, 1), (32, 2048, 193)])
+def test_plan_fwd_splits_cover_k_exactly(m, n, k):
+    for transposed in (True, False):
+        config, tiles, splits, per = tstack.plan_fwd(m, n, k, 132,
+                                                     transposed=transposed)
+        if config == tstack._STREAM_CONFIG:
+            bm, bn, bk = 32, tstack._STREAM_COLS, 1     # per counts rows
+        else:
+            bm, bn, bk = {**dict(enumerate(tstack._CONFIGS)),
+                          **tstack._RT_CONFIGS}[config]
+        chunks = -(-k // bk)
+        assert tiles == -(-m // bm) * -(-n // bn)
+        assert splits >= 1 and per >= 1
+        assert (splits - 1) * per < chunks <= splits * per
+
+
+def test_plan_fwd_follows_the_sweep_at_the_wide_products():
+    """The card sweep (``launch/bwd_sweep.py``, H100) put the best plan of
+    each wide product at 128x64 tiles and: the actor's layer 0 (33 chunks)
+    2 splits, the critic's (65) 2 (4 within 1 us), both layers 1 four
+    splits, two blocks per SM."""
+    assert [tstack.plan_fwd(m, n, k, 132)[:3] for m, n, k in WIDE] \
+        == [(4, 64, 2), (4, 64, 4), (4, 64, 4), (4, 64, 4)]
+
+
+def test_plan_fwd_register_tile_needs_the_transposed_stream():
+    """mlp and d2rl keep no stream^T: they take dense_tile.cuh at 256 rows;
+    densenet's wide layers take the register tile whatever their K."""
+    for m, n, k in WIDE + [(201, 301, 37)]:
+        assert tstack.plan_fwd(m, n, k, 132, transposed=False) \
+            == tstack.plan(m, n, k, 132)
+    assert tstack.plan_fwd(201, 301, 37, 132)[0] in tstack._RT_CONFIGS
+    assert tstack.plan_fwd(64, 2048, 2307, 132)[0] == 2
+
+
+@pytest.mark.parametrize("m,n,k", WIDE + [(m, 2048, k) for m in (1, 8, 32)
+                                   for k in (259, 2307)])
+def test_fwd_sweep_candidates_hold_the_plan(m, n, k):
+    """The card sweep (``launch/bwd_sweep.py``) times every plan
+    ``plan_fwd`` may pick at the wide products and the serving slots."""
+    from repro_torch.launch import bwd_sweep
+    pick = tstack.plan_fwd(m, n, k, 132)
+    if pick[0] == tstack._STREAM_CONFIG:
+        cands = bwd_sweep.stream_candidates(m, n, k)
+        assert len(cands) > 1
+        for _, strips, splits, rows in cands:
+            assert rows <= tstack._STREAM_MAX_K
+            assert (splits - 1) * rows < k <= splits * rows
+    else:
+        cands = bwd_sweep.candidates(m, n, k, 132, True)
+    assert pick in cands
+
+
+class _RecordingLib:
+    """Stands in for the forward's CUDA library: records every call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("dense_"):
+            raise AttributeError(name)
+
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+# where each entry point takes its counters, m, n and splits
+_ARGS = {"dense_layer_fwd": dict(counters=14, m=15, n=16, splits=18),
+         "dense_layer_fwd_rt": dict(counters=14, m=15, n=16, splits=19),
+         "dense_layer_fwd_stream": dict(counters=17, m=18, n=19, splits=21)}
+_KIND = {"dense_layer_fwd": "tile", "dense_layer_fwd_rt": "rt",
+         "dense_layer_fwd_stream": "stream"}
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """``_kernel_forward`` on CPU tensors against the recording library,
+    with every counter request and every ``torch.zeros`` recorded."""
+    lib = _RecordingLib()
+    counters = torch.zeros((4096,), dtype=torch.int32)
+    asked, zeros = [], []
+    real_zeros = torch.zeros
+
+    def tile_counters(n, dev, stream):
+        asked.append((n, stream))
+        return counters
+
+    def no_zeros(*args, **kw):
+        zeros.append(args)
+        return real_zeros(*args, **kw)
+    monkeypatch.setattr(tstack, "_library", lambda: lib)
+    monkeypatch.setattr(tstack, "_device_info", lambda dev: (132, 77))
+    monkeypatch.setattr(tstack, "_tile_counters", tile_counters)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "zeros", no_zeros)
+    tstack.reset_launch_count()
+    yield lib, counters, asked, zeros
+    tstack.reset_launch_count()
+
+
+def _stack(conn, m, d0, u, n_layers, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, d0)).astype(np.float32))
+    ws = [torch.from_numpy(rng.standard_normal((k, u)).astype(np.float32))
+          for k in (tstack.in_dim(conn, i, d0, u) for i in range(n_layers))]
+    bs = [torch.from_numpy(rng.standard_normal((u,)).astype(np.float32))
+          for _ in range(n_layers)]
+    return x, ws, bs
+
+
+@pytest.mark.parametrize("conn,m,d0,u,n_layers", [
+    ("densenet", 128, 300, 128, 2),     # register tile, split K
+    ("densenet", 201, 37, 301, 3),      # register tile, ragged
+    ("densenet", 8, 40, 64, 2),         # streaming, split K at layer 1
+    ("densenet", 1, 259, 512, 2),       # streaming, a serving slot
+    ("densenet", 256, 260, 64, 4),      # phi_sa: dense_tile.cuh, split K
+    ("mlp", 128, 130, 128, 2),          # no stream^T: dense_tile.cuh
+    ("d2rl", 8, 40, 64, 3),             # streaming, two segments
+    ("d2rl", 256, 20, 64, 3)])
+def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
+    """One launch per layer by the kernel ``plan_fwd`` gives it, one
+    stream^T init per register-tiled call (x into the stream and stream^T),
+    and every split's counters from ``_tile_counters`` on the launch's
+    stream: no zeroed buffer per launch."""
+    lib, counters, asked, zeros = recorded
+    x, ws, bs = _stack(conn, m, d0, u, n_layers)
+    zs = torch.empty((m, n_layers * u))
+    with torch.no_grad():
+        out = tstack._kernel_forward(x, ws, bs, conn, "swish", zs)
+    assert not zeros
+    layers = [(n, a) for n, a in lib.calls if n in _ARGS]
+    inits = [a for n, a in lib.calls if n == "dense_fwd_stream_init"]
+    assert len(layers) == n_layers
+    kinds = []
+    split_launches = 0
+    for i, (name, args) in enumerate(layers):
+        pos = _ARGS[name]
+        plan = tstack.plan_fwd(m, u, ws[i].shape[0], 132,
+                               transposed=conn == "densenet")
+        kinds.append(_KIND[name])
+        assert _KIND[name] == tstack.fwd_kernel_of(plan[0])
+        assert (args[pos["m"]], args[pos["n"]], args[pos["splits"]]) \
+            == (m, u, plan[2])
+        assert args[-1] == 77                       # the current stream
+        if plan[2] > 1:
+            split_launches += 1
+            assert args[pos["counters"]] == counters.data_ptr()
+        else:
+            assert args[pos["counters"]] is None
+        if name == "dense_layer_fwd_stream":
+            # layer 0 reads x; densenet's also writes it into the stream
+            # (no copy kernel), which its later layers read
+            if i == 0:
+                assert args[1] == x.data_ptr()
+            elif conn == "densenet":
+                assert args[1] == out.data_ptr()
+            assert (args[14] is not None) == (conn == "densenet" and i == 0)
+            if args[14] is not None:
+                assert (args[14], args[15]) == (out.data_ptr(),
+                                                d0 + n_layers * u)
+        if name == "dense_layer_fwd_rt":
+            # stream^T: (d0 + (L-1) U, m rounded up to 4); the last layer's
+            # output is read by no later layer, so it is not transposed
+            ldt = args[3]
+            assert ldt == m + -m % 4
+            assert (args[11] is None) == (i == n_layers - 1)
+    assert asked == [(tstack.plan_fwd(m, u, w.shape[0], 132,
+                                      transposed=conn == "densenet")[1], 77)
+                     for w in ws if tstack.plan_fwd(
+                         m, u, w.shape[0], 132,
+                         transposed=conn == "densenet")[2] > 1]
+    assert len(asked) == split_launches
+    wide = kinds[0] == "rt"
+    assert len(inits) == int(wide)
+    assert set(kinds) == {kinds[0]}                 # one kernel a stack
+    if wide:
+        src, lds, dst, ldd, dst_t, ldt, rows, cols, stream = inits[0]
+        assert (lds, rows, cols, stream) == (d0, m, d0, 77)
+        assert ldd == d0 + n_layers * u and ldt == m + -m % 4
+    assert tstack.launch_count() == n_layers
+    assert tstack.launch_count(kinds[0]) == n_layers
+    assert tstack.transpose_count() == int(wide)
+
+
+def test_forward_takes_every_kernel_on_the_training_shapes():
+    """At the training path's shapes each of the three kernels has work:
+    the actor pool's 32 rows stream, the wide stacks at the batch take the
+    register tile, the OFENet stacks at the batch the old tile."""
+    kinds = {tstack.fwd_kernel_of(tstack.plan_fwd(m, u, k, 132)[0])
+             for m, u, k in [(32, 64, 3), (32, 2048, 259), (256, 64, 3),
+                             (256, 2048, 259), (256, 2048, 516)]}
+    assert kinds == set(tstack.FWD_KERNELS)
+
+
+@pytest.mark.parametrize("conn", ("densenet", "d2rl", "mlp"))
+def test_plain_stack_matches_jax_pallas_at_a_register_tile_shape(conn):
+    """The plain forward (the CPU path and the kernels' reference on the
+    card) against the reference's Pallas forward in interpret mode at a
+    ragged shape the register tile takes on the card (201 rows, U = 301,
+    d0 = 37), within float32 reassociation (rtol = atol = 1e-5, the bar of
+    ``tests/test_dense_stack.py``, with atol scaled by max|want|)."""
+    import jax.numpy as jnp
+    from repro.kernels.dense_block import stack as jstack
+    m, d0, u, n_layers = RAGGED_RT
+    rng = np.random.default_rng(len(conn))
+    x = rng.standard_normal((m, d0)).astype(np.float32)
+    ws = [(rng.standard_normal((k, u)) / np.sqrt(k)).astype(np.float32)
+          for k in (tstack.in_dim(conn, i, d0, u) for i in range(n_layers))]
+    bs = [(rng.standard_normal((u,)) * 0.3).astype(np.float32)
+          for _ in range(n_layers)]
+    got = tstack.dense_stack(torch.from_numpy(x),
+                             [torch.from_numpy(w) for w in ws],
+                             [torch.from_numpy(b) for b in bs],
+                             connectivity=conn).numpy()
+    want = np.asarray(jstack.dense_stack(
+        jnp.asarray(x), tuple(map(jnp.asarray, ws)),
+        tuple(map(jnp.asarray, bs)), connectivity=conn, impl="pallas",
+        interpret=True, block_m=128))
+    assert got.shape == want.shape == (m, tstack.feature_dim(conn, n_layers,
+                                                             d0, u))
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
