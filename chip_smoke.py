@@ -12,15 +12,19 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    fused_dense.cu, flash_attention.cu, ssd_scan.cu).
 3. Kernels against their plain versions (new kernels in float32 within
    1e-4 and bfloat16 within 2e-2, as rtol and atol * max|plain|):
-   - the stack forward (its three kernels: weight-streaming at M <= 32,
+   - the stack forward (its four kernels: the whole-stack kernel for the
+     narrow densenet stacks at every M, weight-streaming at M <= 32,
      register tile over ``stream^T`` at M=256 with U >= 128, the old tile
-     for the narrow OFENet stacks) for every fused connectivity x {swish,
+     for mlp/d2rl past 32 rows) for every fused connectivity x {swish,
      relu, tanh, identity}, at a ragged small shape, at the model's
      shapes (OFENet ``phi_s`` and the actor at every serving slot, 1, 2,
-     4, 8, 16, 32, and at 256; the critic at 1, 8, 32, 256) and at two
-     ragged shapes of the register tile (201/203 rows), with non-zero
-     biases: |kernel - plain| <= 1e-4 * |plain| + 1e-4 * max|plain|, and
-     two calls bitwise equal;
+     4, 8, 16, 32, and at 256; the critic at 1, 8, 32, 256; ``phi_s`` and
+     ``phi_sa`` at 33, 100, 128, 256, 257) and at two ragged shapes of the
+     register tile (201/203 rows), with non-zero biases: |kernel - plain|
+     <= 1e-4 * |plain| + 1e-4 * max|plain|, and two calls bitwise equal;
+     the whole-stack kernel's pre-activations (``zs``, autograd's) within
+     1e-4 of the plain ones, its output bitwise the same with and without
+     them;
    - the stack backward (dx, dW, db) for the same 12 cases at the ragged
      shape, at the four nets the training path differentiates at M=256
      (actor, critic, ``phi_s``, ``phi_sa``) and at two ragged shapes of the
@@ -30,9 +34,11 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    - the sum-tree sample (B=256, edge targets 0 and total) and write
      (n=32, 256 with duplicates and siblings, 9,984) at capacity 100,000:
      bitwise equal to the plain versions;
-   - fused dense (``dense_concat_matmul``, one launch): 1, 2 and 3
-     segments, with and without bias, every activation, ragged (M=33,
-     N=70) and full (the Ant DenseNet layer 3, M=256 K=4207 N=2048);
+   - fused dense (``dense_concat_matmul``, one launch, 3xTF32 on the
+     tensor cores): 1, 2 and 3 segments, with and without bias, every
+     activation, ragged (M=33, N=70) and full (the Ant DenseNet layer 3,
+     M=256 K=4207 N=2048); the Ant layer's product alone also against a
+     float64 product;
    - flash attention: causal and not, window 32, softcap 50, Sq != Skv,
      rows with no valid key (the mean of v), GQA G=4 up to the full
      B=2 S=2048 H=16 KV=4 hd=64;
@@ -45,9 +51,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    checkpoint code, served through ``Policy.from_checkpoint`` +
    ``PolicyServer`` to 8 client threads (256 requests), checked against
    the plain path on the CPU, then hot-swapped to a second init. Every tick
-   must launch the stack kernel once per layer it runs, all of them the
-   weight-streaming kernel. One tick at the most used slot is timed and
-   traced with ``torch.profiler``.
+   must launch the stack kernels as ``plan_fwd`` plans them: ``phi_s``
+   whole (one launch), the actor's layers on the weight-streaming kernel.
+   One tick at the most used slot is timed and traced with
+   ``torch.profiler``.
 5. Training main path: the same agent with the device replay and its
    kernels (``replay_backend="device"``, ``replay_kernel="pallas"``)
    through ``Experiment.from_spec(spec).run``: the warm-up (9,984
@@ -58,7 +65,7 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    finite losses, a consistent replay count and tree total, and
    ``Policy.from_experiment`` checked against the plain path. Wall time
    per superstep and a ``torch.profiler`` breakdown (the forward's wide,
-   narrow, streaming and transpose classes; the int32 fills of the whole
+   whole, narrow, streaming and transpose classes; the int32 fills of the whole
    superstep, read, not asserted). ``phase_fwd_fills`` then asserts that
    the stack forward itself issues no int32 fill.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
@@ -68,8 +75,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
 6. Times at the main paths' shapes, each beside its plain version, a
    library yardstick the port never calls, and the least time the card
    could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
-   H100 SXM data sheet): the stack forward of the actor and ``phi_s`` at
-   slots 1, 8, 32, 256 and of the critic at 256 (weights read cold); the
+   H100 SXM data sheet; 3xTF32 operations at 495 TFLOP/s for fused dense,
+   its fp32 SIMT bound beside it): the stack forward of the actor and
+   ``phi_s`` at slots 1, 8, 32, 256 and of the critic and ``phi_sa`` at
+   256 (weights read cold); the
    full stack backward of each net at M=256, and
    the critic's and the actor's product by product (``bwd_breakdown``:
    act_grad, db, dW, W^T, dx, each beside ``torch.mm`` of its shape and
@@ -96,6 +105,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM, TF32 on the tensor cores
 # the paper budget of benchmarks/common.py (PAPER) + Fig. 10's large width
 PAPER_BUDGET = dict(total_steps=1_000_000, warmup_steps=10_000,
                     eval_every=10_000, eval_episodes=10,
@@ -156,6 +166,13 @@ def phase_parity(gen):
         shapes += [("phi_s", m, 3, 64, 4), ("actor", m, 259, 2048, 2)]
     shapes += [("critic", m, 516, 2048, 2) for m in SLOTS]
     shapes += list(RAGGED_RT)
+    # the OFENet stacks past 32 rows (the whole-stack kernel for densenet)
+    # at full and ragged blocks of its 4 rows
+    shapes += [(name, m, d0, 64, 4) for m in WHOLE_ROWS
+               for name, d0 in (("phi_s", 3), ("phi_sa", 260))]
+    # its other cases: U not a multiple of 4 (4-byte copies of W), U past
+    # 64 (128 columns a ring row)
+    shapes += [("ragged_whole", 37, 5, 61, 3), ("wide_whole", 7, 9, 100, 2)]
     worst = 0.0
     before = {k: stack.launch_count(k) for k in stack.FWD_KERNELS}
     for conn in stack.FUSED_CONNECTIVITIES:
@@ -180,9 +197,56 @@ def phase_parity(gen):
     ran = {k: stack.launch_count(k) - before[k] for k in stack.FWD_KERNELS}
     if not all(ran.values()):
         raise AssertionError(f"a forward kernel was not held: launches {ran}")
+    worst_z = phase_whole_zs(gen)
     log(f"[parity] dense_stack kernel == plain: 3 connectivities x 4 "
         f"activations x {len(shapes)} shapes, max abs err {worst:.3e}; two "
-        f"calls bitwise equal; launches by kernel {ran}")
+        f"calls bitwise equal; launches by kernel {ran}; the whole-stack "
+        f"kernel's pre-activations (zs) == plain, max abs err "
+        f"{worst_z:.3e}")
+    return worst
+
+
+# rows of the whole-stack kernel's parity: full and ragged 4-row blocks
+WHOLE_ROWS = (33, 100, 128, 256, 257)
+
+
+def phase_whole_zs(gen):
+    """The whole-stack kernel with autograd's ``zs`` (phi_s and phi_sa at
+    ``WHOLE_ROWS``, every activation): one launch a call, its output
+    bitwise the one without ``zs``, two calls bitwise equal, and ``zs``
+    within 1e-4 of the plain pre-activations ``stream[:, :d0+i*U] @ W_i +
+    b_i``."""
+    import torch
+    from repro_torch.kernels.dense_block import stack
+    worst = 0.0
+    for name, d0 in (("phi_s", 3), ("phi_sa", 260)):
+        for m in WHOLE_ROWS:
+            for act in ("swish", "relu", "tanh", "identity"):
+                x, ws, bs = stack_inputs("densenet", 4, d0, 64, m, gen)
+                zs = torch.empty((m, 4 * 64), device="cuda")
+                zs2 = torch.empty_like(zs)
+                before = stack.launch_count("whole")
+                got = stack._kernel_forward(x, ws, bs, "densenet", act, zs)
+                again = stack._kernel_forward(x, ws, bs, "densenet", act,
+                                              zs2)
+                plain_out = stack._kernel_forward(x, ws, bs, "densenet", act)
+                if stack.launch_count("whole") - before != 3:
+                    raise AssertionError(f"{name} M={m}: not one launch of "
+                                         f"the whole-stack kernel a call")
+                want = stack.dense_stack_ref(x, ws, bs, activation=act)
+                zw = torch.cat([want[:, :d0 + i * 64] @ ws[i] + bs[i]
+                                for i in range(4)], 1)
+                ok, err = close_enough(zs, zw)
+                ok2, err2 = close_enough(got, want)
+                worst = max(worst, err)
+                if not (ok and ok2):
+                    raise AssertionError(
+                        f"whole-stack kernel != plain: {name} M={m} {act}: "
+                        f"zs {err:.3e}, output {err2:.3e}")
+                if not (torch.equal(got, again) and torch.equal(zs, zs2)
+                        and torch.equal(got, plain_out)):
+                    raise AssertionError(f"whole-stack kernel not bitwise "
+                                         f"repeatable: {name} M={m} {act}")
     return worst
 
 
@@ -349,8 +413,17 @@ def phase_main_path(spec, acfg):
     for a, b in zip(_leaves(params), _leaves(pol.params)):
         if not torch.equal(a, b):
             raise AssertionError("checkpoint round trip changed a leaf")
-    per_tick = (acfg.ofenet.num_layers if acfg.ofenet else 0) \
-        + acfg.num_layers
+    # launches a tick by kernel: phi_s whole (one launch), the actor's
+    # layers on the streaming kernel (every slot is at most 32 rows)
+    tick_kinds = {}
+    for blk in ([acfg.ofenet.state_block] if acfg.ofenet else []) \
+            + [acfg.actor_block()]:
+        kind = stack.fwd_kernel_of(stack.plan_fwd(
+            32, blk.num_units, blk.in_dim, num_sms(),
+            stack=(blk.in_dim, blk.num_layers))[0])
+        tick_kinds[kind] = tick_kinds.get(kind, 0) + (
+            1 if kind == "whole" else blk.num_layers)
+    per_tick = sum(tick_kinds.values())
 
     deltas = []
 
@@ -420,11 +493,11 @@ def phase_main_path(spec, acfg):
         raise AssertionError(f"stack launches per tick {sorted(set(deltas))}"
                              f" (want {per_tick}), total {launches} over "
                              f"{ticks} ticks")
-    # every slot is at most 32 rows: the weight-streaming kernel, alone
-    if stack.launch_count("stream") != launches or stack.transpose_count():
-        raise AssertionError(f"serving launched "
-                             f"{stack.launch_count('stream')} of {launches} "
-                             f"layers on the streaming kernel, "
+    by_kind = {k: stack.launch_count(k) for k in stack.FWD_KERNELS}
+    if any(by_kind[k] != n * ticks for k, n in tick_kinds.items()) \
+            or sum(by_kind.values()) != launches or stack.transpose_count():
+        raise AssertionError(f"serving launched {by_kind} over {ticks} ticks"
+                             f" (want {tick_kinds} a tick), "
                              f"{stack.transpose_count()} transposes")
     err_a = check(out_a, obs_a, params, 0, "generation 0")
     hist = dict(sorted(server.stats["batch_hist"].items()))
@@ -432,8 +505,8 @@ def phase_main_path(spec, acfg):
     log(f"[main] 256 requests / 8 clients in {wall:.3f}s "
         f"({256 / wall:.0f} req/s), p50 {np.percentile(lat, 50):.2f} ms, "
         f"p99 {np.percentile(lat, 99):.2f} ms; {ticks} ticks, batch_hist "
-        f"{hist}; stack launches {launches} = {per_tick}/tick, all on the "
-        f"streaming kernel; max abs err vs plain {err_a:.2e}")
+        f"{hist}; stack launches {launches} = {per_tick}/tick ({tick_kinds} "
+        f"by kernel); max abs err vs plain {err_a:.2e}")
 
     params_b = init(1)
     server.push_params(params_b)
@@ -590,7 +663,8 @@ def time_stack(name, ws, bs, m, gen):
     r = dict(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=t_l,
              bound_ms=bound_ms, max_abs_err=err, host_ms=h_k,
              bound_by=bound_by)
-    kind = stack.fwd_kernel_of(stack.plan_fwd(m, u, d0, num_sms())[0])
+    kind = stack.fwd_kernel_of(stack.plan_fwd(m, u, d0, num_sms(),
+                                              stack=(d0, L))[0])
     log(f"[time] {name} stack M={m:3d} d0={d0} U={u} L={L} ({kind}): "
         f"kernel {r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
         f"{t_k2 * 1e3:.1f}), plain {t_p * 1e3:8.1f} us, library "
@@ -608,8 +682,9 @@ def time_stack(name, ws, bs, m, gen):
 
 def phase_times(params, gen):
     """The stack forward's times: the served actor (its weights) and the
-    OFENet ``phi_s`` stack at every slot, the critic stack at the training
-    batch (random weights from the seed). Keys ``(stack, M)``."""
+    OFENet ``phi_s`` stack at every slot, the critic and ``phi_sa`` stacks
+    at the training batch (random weights from the seed). Keys ``(stack,
+    M)``."""
     actor = ([l["dense"]["w"] for l in params["actor"]["layers"]],
              [l["dense"]["b"] for l in params["actor"]["layers"]])
     rows = {}
@@ -620,48 +695,61 @@ def phase_times(params, gen):
     for m in SLOTS:
         _, ws, bs = stack_inputs("densenet", 4, 3, 64, m, gen)
         rows[("phi_s", m)] = time_stack("phi_s", ws, bs, m, gen)
+    _, ws, bs = stack_inputs("densenet", 4, 260, 64, 256, gen)
+    rows[("phi_sa", 256)] = time_stack("phi_sa", ws, bs, 256, gen)
     return rows
 
 
 def expected_launches(tr):
     """Kernel launches of one training superstep, read off the code.
 
-    Stack forwards (one launch per layer): collect's ``sample_action``
-    (phi_s + actor) at the actor pool's rows; ``sac_update``, at the
-    batch's: the aux loss (phi_s + phi_sa), the target's ``sample_action``
-    (phi_s + actor) and ``q_values`` (phi_s + phi_sa + q1 + q2), the critic
-    loss's, the actor loss's and the priorities' ``q_values`` (4 nets each)
-    and the actor loss's ``sample_action``: 24 calls, 13*Lo + 11*L layers,
-    of which 12*Lo + 10*L at the batch: ``fwd_<kernel>`` counts them by the
-    kernel ``plan_fwd`` gives each (phi_s and phi_sa at U=64 take the old
-    tile, the actor and the critics the register tile at 256 rows, every
-    stack the streaming kernel at 32), and ``fwd_t`` the register tile's
-    stream^T inits, one per wide stack call (2 actor + 8 critic calls).
-    Stack backwards: aux (phi_sa, phi_s), critic loss (q1, q2), actor loss
-    (q1, q2, phi_sa for dx, the actor for dW): 8. Tree: one sample, two
-    writes (the add, the priority refresh)."""
+    Stack forwards: collect's ``sample_action`` (phi_s + actor) at the
+    actor pool's rows; ``sac_update``, at the batch's: the aux loss (phi_s
+    + phi_sa), the target's ``sample_action`` (phi_s + actor) and
+    ``q_values`` (phi_s + phi_sa + q1 + q2), the critic loss's, the actor
+    loss's and the priorities' ``q_values`` (4 nets each) and the actor
+    loss's ``sample_action``: 24 calls, 13*Lo + 11*L layers, of which
+    12*Lo + 10*L at the batch (7 phi_s calls, 5 phi_sa, 2 actor, 8
+    critic). ``fwd_<kernel>`` counts launches by the kernel ``plan_fwd``
+    gives each call: one a layer, but one a stack on the whole-stack
+    kernel (phi_s and phi_sa at the batch); the actor and the critics take
+    the register tile at 256 rows, every stack the streaming kernel at 32;
+    ``fwd_t`` counts the register tile's stream^T inits, one per wide
+    stack call (2 actor + 8 critic calls). Stack backwards: aux (phi_sa,
+    phi_s), critic loss (q1, q2), actor loss (q1, q2, phi_sa for dx, the
+    actor for dW): 8. Tree: one sample, two writes (the add, the priority
+    refresh)."""
     from repro_torch.kernels.dense_block import stack
     acfg = tr.acfg
-    lo = acfg.ofenet.num_layers if acfg.ofenet else 0
     want = {f"fwd_{k}": 0 for k in stack.FWD_KERNELS}
     want["fwd_t"] = 0
+    layers = 0
 
-    def calls(n, m, u, layers, conn):
+    def calls(n, m, blk):
+        nonlocal layers
+        dense = blk.connectivity == "densenet"
         kind = stack.fwd_kernel_of(stack.plan_fwd(
-            m, u, 1, num_sms(), transposed=conn == "densenet")[0])
-        want[f"fwd_{kind}"] += n * layers
+            m, blk.num_units, blk.in_dim, num_sms(), transposed=dense,
+            stack=(blk.in_dim, blk.num_layers) if dense else None)[0])
+        want[f"fwd_{kind}"] += n * (1 if kind == "whole"
+                                    else blk.num_layers)
+        layers += n * blk.num_layers
         if kind == "rt":
             want["fwd_t"] += n
-    u_o, c_o = (acfg.ofenet.num_units, acfg.ofenet.connectivity) \
-        if acfg.ofenet else (0, "")
-    for n, m in ((1, tr.n_actors), (12, tr.batch_size)):
-        calls(n, m, u_o, lo, c_o)
-    for n, m in ((1, tr.n_actors), (10, tr.batch_size)):
-        calls(n, m, acfg.num_units, acfg.num_layers, acfg.connectivity)
-    want["fwd"] = 13 * lo + 11 * acfg.num_layers
-    if sum(want[f"fwd_{k}"] for k in stack.FWD_KERNELS) != want["fwd"]:
-        raise AssertionError(f"expected forward launches do not add up: "
-                             f"{want}")
+    lo = acfg.ofenet.num_layers if acfg.ofenet else 0
+    if acfg.ofenet:
+        phi_s, phi_sa = acfg.ofenet.state_block, acfg.ofenet.sa_block
+        for n, m, blk in ((1, tr.n_actors, phi_s), (7, tr.batch_size, phi_s),
+                          (5, tr.batch_size, phi_sa)):
+            calls(n, m, blk)
+    for n, m, blk in ((1, tr.n_actors, acfg.actor_block()),
+                      (2, tr.batch_size, acfg.actor_block()),
+                      (8, tr.batch_size, acfg.critic_block())):
+        calls(n, m, blk)
+    if layers != 13 * lo + 11 * acfg.num_layers:
+        raise AssertionError(f"expected forward layers do not add up: "
+                             f"{layers}, {want}")
+    want["fwd"] = sum(want[f"fwd_{k}"] for k in stack.FWD_KERNELS)
     want.update(bwd=8 if lo else 5, sample=1, set=2)
     return want
 
@@ -812,7 +900,7 @@ def phase_train(spec, steps=50, warm=10):
     launches = _counts()
     bad = [c for c in per_step if c != want]
     if bad or any(launches[k] != want[k] * (steps - warm) for k in want) \
-            or not all(launches.values()):
+            or not all(launches[k] for k in want if want[k]):
         raise AssertionError(f"launches per superstep {bad[:2]} (want "
                              f"{want}), totals {launches}")
     vals = torch.stack(scal).cpu()
@@ -870,13 +958,15 @@ def bwd_product_class(key):
 
 def fwd_class(key):
     """The forward kernel class of a profiler kernel name, or None:
-    'wide' (the register tile over stream^T), 'narrow' (dense_tile.cuh's
-    forward: its layout template arguments are (false, false)), 'stream'
-    (the weight-streaming kernel) or 'transpose' (the stream^T init, the
-    copying case of dense_tile.cuh's transpose; the backward's W^T is the
-    other)."""
+    'wide' (the register tile over stream^T), 'whole' (the whole-stack
+    kernel), 'narrow' (dense_tile.cuh's forward: its layout template
+    arguments are (false, false)), 'stream' (the weight-streaming kernel)
+    or 'transpose' (the stream^T init, the copying case of dense_tile.cuh's
+    transpose; the backward's W^T is the other)."""
     if "transpose_kernel<true>" in key:
         return "transpose"
+    if "whole_stack_kernel<" in key:
+        return "whole"
     if "stream_kernel<" in key:
         return "stream"
     if "fwd_tile_kernel" in key:
@@ -917,7 +1007,8 @@ def phase_train_profile(exp, steps=10):
         log("[train-prof] the profiler saw no device time: busy share not "
             "measured")
     classes = {c: [0.0, 0.0] for c in ("dW", "dx", "act_grad")}
-    fwd = {c: [0.0, 0.0] for c in ("wide", "narrow", "stream", "transpose")}
+    fwd = {c: [0.0, 0.0] for c in ("wide", "whole", "narrow", "stream",
+                                   "transpose")}
     fills = 0.0
     for e in events:
         for table, c in ((classes, bwd_product_class(e.key)),
@@ -954,6 +1045,8 @@ def phase_fwd_fills(gen):
     for name, m, d0, u, L in cases:
         x, ws, bs = stack_inputs("densenet", L, d0, u, m, gen)
         inputs.append([t.requires_grad_(True) for t in (x, *ws, *bs)])
+    planned = {stack.fwd_kernel_of(stack.plan_fwd(
+        m, u, d0, num_sms(), stack=(d0, L))[0]) for _, m, d0, u, L in cases}
     torch.cuda.synchronize()
     before = {k: stack.launch_count(k) for k in stack.FWD_KERNELS}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -964,7 +1057,7 @@ def phase_fwd_fills(gen):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     fills = sum(e.count for e in events if "FillFunctor<int>" in e.key)
-    if not events or fills or not all(ran.values()):
+    if not events or fills or not all(ran[k] for k in planned):
         raise AssertionError(f"stack forward: {fills} int32 fills over "
                              f"{len(cases)} calls (launches {ran}); the "
                              f"profiler saw {len(events)} device kernels")
@@ -1300,11 +1393,25 @@ def phase_dense_parity(gen):
                             f"fused_dense kernel != plain: {dname} parts "
                             f"{widths} M={mm} N={nn} bias={bias} {act}: max "
                             f"abs err {err:.3e}")
+    # 3xTF32's agreement at the Ant layer (identity, no bias: the product
+    # alone) with the fp32 plain version and with a float64 product
+    parts, w, _ = _rand_segments(gen, DENSE_FULL["widths"], m, n,
+                                 torch.float32, bias=False)
+    got = ops.dense_concat_matmul(parts, w, activation="identity")
+    want = ref.dense_concat_matmul_ref(parts, w, None, "identity")
+    exact = torch.cat(parts, 1).double() @ w.double()
+    _, err_plain = close_enough(got, want)
+    err64 = float((got.double() - exact).abs().max())
+    plain64 = float((want.double() - exact).abs().max())
     log(f"[parity] fused_dense == plain: 1/2/3 segments x bias/none x "
         f"{len(dense_block.ACT_CODE)} activations x {len(shapes)} shapes "
         f"(ragged M=33 N=70; K=4207 as 1 and 3 parts at M=256 N=2048; "
-        f"[111|2048] at M=64 N=256), max abs err f32 "
-        f"{worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e}")
+        f"[111|2048] at M=64 N=256), max abs err f32 (3xTF32) "
+        f"{worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e}; Ant layer "
+        f"product alone: 3xTF32 vs fp32 plain {err_plain:.2e}, vs float64 "
+        f"{err64:.2e} (fp32 plain vs float64 {plain64:.2e}, max|product| "
+        f"{float(exact.abs().max()):.2f})")
+    worst["ant_vs_fp64"] = err64
     return worst
 
 
@@ -1466,12 +1573,16 @@ def phase_micro():
     return counts
 
 
-def _time_row(name, kernel, plain, library, copies, nbytes, flops, err):
+def _time_row(name, kernel, plain, library, copies, nbytes, flops, err,
+              peak=FP32_FLOPS_PER_S):
+    """Kernel, plain and library times beside the bound: ``nbytes`` at
+    3.35 TB/s or ``flops`` at ``peak`` (fp32 outside the tensor cores
+    unless the kernel's operations are of another type)."""
     t_k, h_k = time_ms(kernel, copies)
     t_p, _ = time_ms(plain, copies)
     t_l = None if library is None else time_ms(library, copies)[0]
     t_k2, _ = time_ms(kernel, copies)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     r = dict(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=t_l,
@@ -1481,8 +1592,9 @@ def _time_row(name, kernel, plain, library, copies, nbytes, flops, err):
     log(f"[time] {name}: kernel {r['ms'] * 1e3:.1f} us (runs "
         f"{t_k * 1e3:.1f}/{t_k2 * 1e3:.1f}), plain {t_p * 1e3:.1f} us, "
         f"library {lib}, bound {bound_ms * 1e3:.1f} us ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-        f"{100 * bound_ms / r['ms']:.0f}% of bound, max abs err {err:.2e}")
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
+        f"{peak / 1e12:.0f} TFLOP/s), {100 * bound_ms / r['ms']:.0f}% of "
+        f"bound, max abs err {err:.2e}")
     return r
 
 
@@ -1514,12 +1626,24 @@ def phase_new_times(gen):
     xcat = torch.cat(parts, 1)
     got = dops.dense_concat_matmul(parts, w, b)
     _, err = close_enough(got, dref.dense_concat_matmul_ref(parts, w, b))
-    rows["fused_dense"] = _time_row(
-        f"fused_dense M={m} parts {list(widths)} N={n} (swish, bias)",
+    # the kernel does three TF32 tensor-core products for each fp32 one
+    # (3xTF32): its bound is theirs; an fp32 SIMT product's beside it
+    flops = 2 * m * k * n
+    nbytes = 4 * (m * k + k * n + n + m * n)
+    rows["fused_dense"] = r = _time_row(
+        f"fused_dense M={m} parts {list(widths)} N={n} (swish, bias; "
+        f"3xTF32)",
         lambda c: dops.dense_concat_matmul(parts, c[0], c[1]),
         lambda c: dref.dense_concat_matmul_ref(parts, c[0], c[1]),
         lambda c: F.silu(torch.addmm(c[1], xcat, c[0])), copies,
-        4 * (m * k + k * n + n + m * n), 2 * m * k * n, err)
+        nbytes, 3 * flops, err, peak=TF32_FLOPS_PER_S)
+    r["bound_fp32_simt_ms"] = _bound(nbytes, flops)[0]
+    log(f"[time]   fused_dense bounds: 3xTF32 tensor {r['bound_ms'] * 1e3:.1f}"
+        f" us (3 x {flops / 1e9:.2f} GFLOP at 495 TFLOP/s), fp32 SIMT "
+        f"{r['bound_fp32_simt_ms'] * 1e3:.1f} us ({flops / 1e9:.2f} GFLOP at "
+        f"67 TFLOP/s); kernel {r['ms'] * 1e3:.1f} us, silu(addmm) "
+        f"{r['library_ms'] * 1e3:.1f} us ("
+        f"{'faster' if r['ms'] <= r['library_ms'] else 'SLOWER'} than it)")
 
     f = FLASH_FULL
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -1606,6 +1730,7 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA card; none is visible")
+    from repro_torch.kernels.dense_block import stack
     from repro_torch.rl import presets
     from repro_torch.rl.envs import make_env
     from repro_torch.rl.policy import algo_config
@@ -1660,7 +1785,7 @@ def main() -> int:
         launches_by_path={"serve": serve_launches,
                           "train": train_launches["fwd"]},
         launches_by_kernel={k: train_launches[f"fwd_{k}"]
-                            for k in ("stream", "rt", "tile")},
+                            for k in stack.FWD_KERNELS},
         stream_t_inits=train_launches["fwd_t"],
         by_shape={f"{name} M={m}": {k: v[k] for k in keys}
                   for (name, m), v in rows.items()},
@@ -1690,7 +1815,9 @@ def main() -> int:
                micro_launches["fused_dense"], new["fused_dense"],
                f"M={DENSE_FULL['m']}, parts {list(DENSE_FULL['widths'])}, "
                f"N={DENSE_FULL['n']}, swish + bias (Ant DenseNet layer 3); "
-               f"launches from kernels_micro.run()"),
+               f"launches from kernels_micro.run(); 3xTF32 on the tensor "
+               f"cores, bound_ms theirs",
+               bound_fp32_simt_ms=new["fused_dense"]["bound_fp32_simt_ms"]),
         record("flash_attention",
                "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",

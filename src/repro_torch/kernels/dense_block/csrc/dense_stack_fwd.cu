@@ -1,12 +1,13 @@
-// One layer of the fused MLP-DenseNet stack forward, for Hopper (sm_90a).
+// The fused MLP-DenseNet stack forward, for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/dense_block/stack.py::_fwd_kernel (launched by
 // _pallas_forward). The TPU kernel keeps a whole row tile of the concat
 // stream and every layer's weights in VMEM and runs all L layers in one
-// program. On Hopper the weights do not fit in shared memory (the paper's
-// large actor holds 21 MB of fp32 weights), so the stack becomes one launch
-// per layer, and the Python wrapper (stack.py) lays the layers out so the
-// concat never exists:
+// program. On Hopper that holds for the narrow OFENet stacks (U = 64: 0.1-
+// 0.4 MB of weights), whose whole stack runs in one launch (whole_stack_
+// kernel, below), but not for the wide ones (the paper's large actor holds
+// 21 MB of fp32 weights), whose stack becomes one launch per layer; the
+// Python wrapper (stack.py) lays the layers out so the concat never exists:
 //
 //   densenet  layer i reads the stream prefix [x|y0|..|y_{i-1}] of the one
 //             output buffer and writes y_i into its column slot: the buffer
@@ -19,8 +20,9 @@
 //
 // Each launch computes out[:, slot] = act(A @ W + b) in fp32, and, when
 // autograd will need it, stores the pre-activation z into the backward's
-// (M, L*U) side buffer (`zout`), so the backward recomputes nothing. Three
-// kernels, by the rows M of the call (stack.py's plan_fwd picks):
+// (M, L*U) side buffer (`zout`), so the backward recomputes nothing. Four
+// kernels, by the rows M and the width U of the call (stack.py's plan_fwd
+// picks):
 //
 //   M <= 32 (serving slots, the actor pool's collect): stream_kernel. Each
 //     weight meets at most 32 rows, <= 16 FLOP per byte against the card's
@@ -46,26 +48,45 @@
 //     y_i^T into stream^T (one 16-byte store per 4 rows), where the next
 //     layer reads it. The fp32 operations bound it (the actor: 2.7 GFLOP,
 //     ~40 us at 67 TFLOP/s).
-//   otherwise (the narrow OFENet stacks, U = 64; mlp and d2rl past 32
-//     rows): the tile product of dense_tile.cuh with a register prefetch.
+//   M > 32, densenet with U < 128 (the OFENet stacks phi_s and phi_sa at
+//     the batch of 256: 0.01-0.05 GFLOP, 0.1-0.4 MB of weights): the whole
+//     stack in ONE launch, whole_stack_kernel. Latency binds it, not work:
+//     one launch a layer put 16-32 blocks on the 132 SMs for ~15 us a
+//     layer. A block owns R rows (4, 8 or 16) and sweeps the L layers. It
+//     keeps its rows of the stream [x | y_0 | ..] in shared memory,
+//     transposed (read as float4 broadcasts), and streams every layer's W,
+//     layer after layer, through one cp.async ring of 32-row stages (the
+//     weights do not depend on the activations, so the next layer's rows
+//     are in flight while a layer finishes). A thread owns one column and
+//     a K group of each stage's rows; the K groups' sums meet in shared
+//     memory in fixed order, then z + b, act, and y_i go to shared memory
+//     (for the next layer), the output's column slot and zs. One barrier
+//     between layers; no split, no atomics, no counters: bitwise the same
+//     from call to call. What bounds it: each block streams every weight
+//     from L2 (phi_sa: 364 KB), at an SM's share of the L2 rate.
+//   otherwise (mlp and d2rl past 32 rows; a densenet stack too wide for
+//     whole_stack_kernel's shared memory): the tile product of
+//     dense_tile.cuh with a register prefetch.
 //
-// The streaming kernel and dense_tile.cuh's are programmatic dependent
-// launches (dense_tile.cuh's launch_pdl): each may start as the kernel
-// before it finishes its last blocks, and waits for its results before it
-// touches memory, so a layer's launch overlaps its predecessor's tail. The
-// register tile is launched plainly: its grids of two blocks an SM leave a
-// slot free, and blocks launched early into those slots spread the next
-// grid unevenly over the SMs (PERF.md).
+// The streaming kernel, the whole-stack kernel and dense_tile.cuh's are
+// programmatic dependent launches (dense_tile.cuh's launch_pdl; the whole-
+// stack kernel's own copy of it passes its dynamic shared memory): each
+// may start as the kernel before it finishes its last blocks, and waits
+// for its results before it touches memory, so a launch overlaps its
+// predecessor's tail. The register tile is launched plainly: its grids of
+// two blocks an SM leave a slot free, and blocks launched early into those
+// slots spread the next grid unevenly over the SMs (PERF.md).
 //
-// Every kernel splits K across gridDim.y where the output alone would not
-// fill the card. Split partials go to a workspace; the last block of a tile
-// to finish (counted with an integer atomic) sums them in fixed split order
-// and runs the epilogue, so the result does not depend on the order in
-// which blocks ran, and resets its counter to 0, so the wrapper's counters
-// (one zeroed buffer per device and stream) need no fill per launch. Plain
+// Every per-layer kernel splits K across gridDim.y where the output alone
+// would not fill the card. Split partials go to a workspace; the last
+// block of a tile to finish (counted with an integer atomic) sums them in
+// fixed split order and runs the epilogue, so the result does not depend
+// on the order in which blocks ran, and resets its counter to 0, so the
+// wrapper's counters (one zeroed buffer per device and stream) need no
+// fill per launch. Plain
 // TF32 or bf16 through the tensor cores would miss the 1e-4 agreement with
-// the fp32 reference; split-precision TF32 (3xTF32) would not, and is the
-// route past this SIMT design (ROADMAP.md B).
+// the fp32 reference; split-precision TF32 (3xTF32, fused_dense.cu) would
+// not, and is the route past this SIMT design (ROADMAP.md B).
 
 #include "dense_tile.cuh"
 #include "dense_tile_rt.cuh"
@@ -412,6 +433,215 @@ int launch(bool vec_w, const Args& p, cudaStream_t stream) {
 
 }  // namespace streaming
 
+// ---- M > 32, narrow densenet (U < 128): the whole stack in one launch -----
+
+namespace whole {
+
+using dense_tile_rt::cp_async16;
+using dense_tile_rt::cp_async4;
+using dense_tile_rt::cp_async_commit;
+using dense_tile_rt::cp_async_wait;
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 32;        // W rows of a ring stage
+constexpr int kStages = 6;        // ring stages: five in flight, one computing
+constexpr int kMaxLayers = 16;    // stack.py's _WHOLE_MAX_LAYERS
+constexpr int kMaxSmem = 232448;  // 227 KB, a block's dynamic shared memory
+
+struct Args {
+  const float* x; long long ldx;             // (m, d0)
+  const float* w[kMaxLayers];                // layer i: (d0 + i*u, u), dense
+  const float* b[kMaxLayers];                // (u,)
+  float* out; long long ldo;                 // (m, d0 + layers*u): the stream
+  float* zs; long long ldz;                  // (m, layers*u), or null
+  int m, d0, u, layers, act;
+};
+
+// bytes of dynamic shared memory at R rows a block and UC columns a ring
+// row: the stream's rows transposed (the last layer's output is read by no
+// layer: not kept), the ring, the K groups' sums (stack.py's whole_smem)
+__host__ __device__ inline int smem_bytes(int rows, int uc, int d0, int u,
+                                          int layers) {
+  return 4 * ((d0 + (layers - 1) * u) * rows + kStages * kChunk * uc +
+              kThreads * rows);
+}
+
+// R rows a block (a multiple of 4); UC: U rounded up to 64 or 128, one
+// column a thread, kThreads / UC K groups; VW: W takes 16-byte copies.
+template <int R, int UC, bool VW>
+__global__ void __launch_bounds__(kThreads)
+whole_stack_kernel(const __grid_constant__ Args p) {
+  constexpr int KG = kThreads / UC;
+  constexpr int STAGE = kChunk * UC;
+  static_assert(R % 4 == 0 && STAGE % (4 * kThreads) == 0, "float4 tiles");
+  extern __shared__ __align__(16) float smem[];
+  const int width = p.d0 + (p.layers - 1) * p.u;
+  float* const S = smem;                    // S[k * R + r] = stream[row0+r][k]
+  float* const ring = S + width * R;        // ring[slot][kk * UC + c]
+  float* const red = ring + kStages * STAGE;  // red[(kg * R + r) * UC + c]
+
+  pdl_wait();
+  const int tid = threadIdx.x, c = tid % UC, kg = tid / UC;
+  const int row0 = blockIdx.x * R;
+  const int rows = min(R, p.m - row0);
+
+  // the rows of every layer's W, layer after layer, in chunks of kChunk
+  // rows that never straddle a layer: the copy cursor is layer cl from row
+  // ck, into ring stage cs; every call commits one group (empty at the end)
+  int cl = 0, ck = 0, cs = 0;
+  auto copy_next = [&]() {
+    if (cl < p.layers) {
+      const int k_l = p.d0 + cl * p.u;
+      const int kb = min(kChunk, k_l - ck);
+      const float* w = p.w[cl] + static_cast<long long>(ck) * p.u;
+      float* dst = ring + cs * STAGE;
+      if constexpr (VW) {
+#pragma unroll
+        for (int j = 0; j < STAGE / 4 / kThreads; ++j) {
+          const int e = tid + j * kThreads;
+          const int kk = e / (UC / 4), col = (e % (UC / 4)) * 4;
+          const bool in = kk < kb && col < p.u;
+          cp_async16(dst + kk * UC + col, in ? w + kk * p.u + col : p.x,
+                     in ? 16 : 0);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < STAGE / kThreads; ++j) {
+          const int e = tid + j * kThreads;
+          const int kk = e / UC, col = e % UC;
+          const bool in = kk < kb && col < p.u;
+          cp_async4(dst + kk * UC + col, in ? w + kk * p.u + col : p.x,
+                    in ? 4 : 0);
+        }
+      }
+      ck += kChunk;
+      if (ck >= k_l) {
+        ck = 0;
+        ++cl;
+      }
+    }
+    cp_async_commit();
+    cs = cs + 1 == kStages ? 0 : cs + 1;
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) copy_next();
+
+  // x: into the stream tile (zero past the last row) and the output's
+  // first columns, while the first chunks are in flight
+  for (int e = tid; e < R * p.d0; e += kThreads) {
+    const int r = e / p.d0, k = e % p.d0;
+    float v = 0.f;
+    if (r < rows) {
+      v = p.x[(row0 + r) * p.ldx + k];
+      p.out[(row0 + r) * p.ldo + k] = v;
+    }
+    S[k * R + r] = v;
+  }
+
+  int slot = 0;                             // the ring stage computed next
+  for (int i = 0; i < p.layers; ++i) {
+    const int k_i = p.d0 + i * p.u;
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int k0 = 0; k0 < k_i; k0 += kChunk) {
+      cp_async_wait<kStages - 2>();
+      // this chunk has landed for every thread, every thread is done with
+      // the last one (whose stage the copy below refills), and at a layer's
+      // first chunk the stream tile holds the layer before's output
+      __syncthreads();
+      copy_next();
+      const float* wt = ring + slot * STAGE + c;
+      const float* st = S + k0 * R;
+      slot = slot + 1 == kStages ? 0 : slot + 1;
+      // rows kk = kg + j * KG of the chunk: all loads first, then the FMAs
+      // (a whole chunk unrolled; a layer's last, partial one row by row)
+      auto row = [&](int kk, float wv) {
+        const float4* a = reinterpret_cast<const float4*>(st + kk * R);
+#pragma unroll
+        for (int q = 0; q < R / 4; ++q) {
+          const float4 v = a[q];            // a broadcast: one k a warp
+          acc[4 * q] = fmaf(v.x, wv, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(v.y, wv, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(v.z, wv, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(v.w, wv, acc[4 * q + 3]);
+        }
+      };
+      const int kb = min(kChunk, k_i - k0);
+      if (kb == kChunk) {
+        float wv[kChunk / KG];
+#pragma unroll
+        for (int j = 0; j < kChunk / KG; ++j) wv[j] = wt[(kg + j * KG) * UC];
+#pragma unroll
+        for (int j = 0; j < kChunk / KG; ++j) row(kg + j * KG, wv[j]);
+      } else {
+        for (int kk = kg; kk < kb; kk += KG) row(kk, wt[kk * UC]);
+      }
+    }
+    if (i + 1 == p.layers) pdl_trigger();
+    // the K groups' sums meet in fixed order; z = sum + b, y = act(z) into
+    // the stream tile (layers below the last), the output and zs
+#pragma unroll
+    for (int r = 0; r < R; ++r) red[(kg * R + r) * UC + c] = acc[r];
+    __syncthreads();
+    const float* bias = p.b[i];
+    for (int e = tid; e < R * UC; e += kThreads) {
+      const int r = e / UC, cc = e % UC;
+      if (cc >= p.u) continue;
+      float z = red[r * UC + cc];
+#pragma unroll
+      for (int q = 1; q < KG; ++q) z += red[(q * R + r) * UC + cc];
+      z += bias[cc];
+      const float y = apply_act(z, p.act);
+      if (i + 1 < p.layers) S[(k_i + cc) * R + r] = y;
+      if (r < rows) {
+        if (p.zs != nullptr) p.zs[(row0 + r) * p.ldz + i * p.u + cc] = z;
+        p.out[(row0 + r) * p.ldo + k_i + cc] = y;
+      }
+    }
+    // no barrier here: the next layer's first chunk begins with one, and
+    // `red` is written next after it
+  }
+  cp_async_wait<0>();                       // only empty groups are left
+}
+
+// a programmatic dependent launch, as dense_tile.cuh's launch_pdl, with
+// dynamic shared memory
+template <int R, int UC, bool VW>
+int launch(const Args& p, int smem, cudaStream_t stream) {
+  // once per instantiation (thread-safe static initialisation)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      whole_stack_kernel<R, UC, VW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.m + R - 1) / R);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, whole_stack_kernel<R, UC, VW>, p);
+  cudaGetLastError();                       // returned here, not kept
+  return static_cast<int>(err);
+}
+
+template <int R>
+int launch_rows(bool vw, int uc, const Args& p, int smem,
+                cudaStream_t stream) {
+  if (uc == 64)
+    return vw ? launch<R, 64, true>(p, smem, stream)
+              : launch<R, 64, false>(p, smem, stream);
+  return vw ? launch<R, 128, true>(p, smem, stream)
+            : launch<R, 128, false>(p, smem, stream);
+}
+
+}  // namespace whole
+
 }  // namespace
 
 // dense_tile.cuh's tile, config 2 (64x64; the forward plans it only past
@@ -514,4 +744,55 @@ extern "C" int dense_fwd_stream_init(const float* src, long long lds,
   return dense_tile::launch_transpose(src, lds, dst_t, ldt, dst, ldd, rows,
                                       cols,
                                       static_cast<cudaStream_t>(stream));
+}
+
+// The whole narrow densenet stack (U <= 128, up to 16 layers) in one
+// launch of `rows` (4, 8 or 16) rows a block: out (m, d0 + layers*u) =
+// [x | y_0 | ...], y_i = act(z_i), z_i = out[:, :d0 + i*u] @ w_i + b_i, z_i
+// into zs[:, i*u:(i+1)*u] when zs is given. w_ptrs, b_ptrs: host arrays of
+// `layers` device pointers, each w_i dense (d0 + i*u, u); `vec_w`: every w_i
+// takes 16-byte copies (16-byte aligned, u a multiple of 4).
+extern "C" int dense_stack_fwd_whole(int rows, int vec_w, const float* x,
+                                     long long ldx, int layers,
+                                     const long long* w_ptrs,
+                                     const long long* b_ptrs, int d0, int u,
+                                     float* out, long long ldo, float* zs,
+                                     long long ldz, int m, int act,
+                                     void* stream) {
+  if (m <= 0 || d0 <= 0 || u <= 0 || u > 128 || layers < 1 ||
+      layers > whole::kMaxLayers || x == nullptr || out == nullptr ||
+      ldx < d0 || ldo < d0 + layers * u ||
+      (zs != nullptr && ldz < layers * u) || act < dense_tile::kIdentity ||
+      act > dense_tile::kSwish || (vec_w && (u & 3) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int uc = u <= 64 ? 64 : 128;
+  const int smem = whole::smem_bytes(rows, uc, d0, u, layers);
+  if (smem > whole::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  whole::Args p{};
+  p.x = x;
+  p.ldx = ldx;
+  for (int i = 0; i < layers; ++i) {
+    p.w[i] = reinterpret_cast<const float*>(w_ptrs[i]);
+    p.b[i] = reinterpret_cast<const float*>(b_ptrs[i]);
+    if (p.w[i] == nullptr || p.b[i] == nullptr ||
+        (vec_w && !aligned16(p.w[i], u)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.out = out;
+  p.ldo = ldo;
+  p.zs = zs;
+  p.ldz = ldz;
+  p.m = m;
+  p.d0 = d0;
+  p.u = u;
+  p.layers = layers;
+  p.act = act;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v = vec_w != 0;
+  switch (rows) {
+    case 4: return whole::launch_rows<4>(v, uc, p, smem, st);
+    case 8: return whole::launch_rows<8>(v, uc, p, smem, st);
+    case 16: return whole::launch_rows<16>(v, uc, p, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

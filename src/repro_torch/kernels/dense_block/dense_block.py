@@ -7,20 +7,25 @@ on CUDA tensors, or raise: there is no fallback. On CPU tensors they run
 the plain versions of ``ref.py``. Each launch adds one to
 ``launch_count()``.
 
-The TPU kernel's block sizes ``bm/bn/bk`` and its ``interpret`` flag do not
-carry over: the CUDA kernel picks its own tiles, masks ragged M, K and N
-edges (so nobody pads), and there is no interpreter; the port's signatures
-drop them. Inputs are float32 or bfloat16; parts, ``w`` and ``b`` share one
-dtype, and the output has it. Split-K workspaces and counters are
-``torch.empty``/``torch.zeros`` tensors freed after the launch: PyTorch's
-caching allocator hands their memory out again only in stream order.
+The kernel runs on the tensor cores in split-precision TF32 ("3xTF32": each
+fp32 operand as a TF32 high part plus its TF32 residual, three products
+summed in fp32; a bfloat16 operand is exact in TF32 and takes one), held
+to the fp32 plain version at the same 1e-4 bar as an fp32 product. The TPU
+kernel's block sizes ``bm/bn/bk`` and its ``interpret`` flag do not carry
+over: ``plan`` picks the tiles and splits, the kernel masks ragged M, K and
+N edges (so nobody pads), and there is no interpreter; the port's
+signatures drop them. Inputs are float32 or bfloat16; parts, ``w`` and
+``b`` share one dtype, and the output has it. Split-K workspaces and
+counters are ``torch.empty``/``torch.zeros`` tensors freed after the
+launch: PyTorch's caching allocator hands their memory out again only in
+stream order.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,12 +35,17 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_dense.cu"
 ACT_CODE = {"identity": 0, "relu": 1, "tanh": 2, "swish": 3, "silu": 3,
             "gelu": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE = (64, 64, 16)          # (BM, BN, BK) of csrc/fused_dense.cu
+# (BM, BN) of the block tile by config id (csrc/fused_dense.cu's
+# launch_config: 8 warps of 32x16 outputs, 16 of 32x32), and the K of a
+# chunk (BK)
+TILES = ((64, 64), (128, 128))
+BK = 32
 MAX_PARTS = 128              # kMaxSegs of csrc/fused_dense.cu
-# split K until the grid holds about this many blocks per SM ...
-_BLOCKS_PER_SM = 2
+# split K until the grid holds up to this many blocks per SM (the 64x64
+# tile's ring of four stages takes 74 KB of shared memory: three an SM) ...
+_BLOCKS_PER_SM = 3
 # ... but give each split at least this many BK chunks
-_MIN_CHUNKS_PER_SPLIT = 4
+_MIN_CHUNKS_PER_SPLIT = 8
 
 _count_lock = threading.Lock()
 _launches = 0
@@ -64,23 +74,37 @@ def _library() -> ctypes.CDLL:
     fn = lib.fused_dense_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, i, p, p, p, p, ll, p, p, ll, p, p, i, i, i, i, i,
-                       p]
+        fn.argtypes = [i, i, i, p, p, p, p, ll, p, p, ll, p, p, i, i, i, i,
+                       i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def plan(m: int, n: int, chunks: int, num_sms: int) -> Tuple[int, int, int]:
-    """``(tiles, splits, chunks_per_split)`` of one launch with an
+def chunks_of(widths: Sequence[int]) -> List[Tuple[int, int, int]]:
+    """The kernel's walk over K: ``(part, first column, columns)`` of every
+    BK-chunk, part by part; a chunk never straddles two parts."""
+    return [(i, k0, min(BK, k - k0)) for i, k in enumerate(widths)
+            for k0 in range(0, k, BK)]
+
+
+def plan(m: int, n: int, chunks: int, num_sms: int
+         ) -> Tuple[int, int, int, int]:
+    """``(config, tiles, splits, chunks_per_split)`` of one launch with an
     ``(m, n)`` output and ``chunks`` BK-chunks of K (summed over the
-    segments): K is split until the grid holds ~``_BLOCKS_PER_SM`` blocks
-    per SM, each split keeping at least ``_MIN_CHUNKS_PER_SPLIT`` chunks."""
-    bm, bn, _ = TILE
+    segments): 64x64 tiles, and K split until the grid holds up to
+    ``_BLOCKS_PER_SM`` blocks per SM, each split keeping at least
+    ``_MIN_CHUNKS_PER_SPLIT`` chunks. Split s takes chunks ``[s * per, (s +
+    1) * per)`` of ``chunks_of``'s walk. The rule follows the card
+    (``launch/bwd_sweep.py``, H100): at the Ant layer 3 (M=256, N=2048, K
+    =4207) the 64x64 tile at 3 splits was the best of every tile and split
+    (the 128x128 tile's best: 4 splits, 22% slower), and at the
+    kernels_micro row (M=64, N=256, K=2159) at 8 splits."""
+    bm, bn = TILES[0]
     tiles = -(-m // bm) * -(-n // bn)
-    want = -(-_BLOCKS_PER_SM * num_sms // tiles)
+    want = max(1, _BLOCKS_PER_SM * num_sms // tiles)
     splits = max(1, min(want, chunks // _MIN_CHUNKS_PER_SPLIT))
     per_split = max(1, -(-chunks // splits))
-    return tiles, max(1, -(-chunks // per_split)), per_split
+    return 0, tiles, max(1, -(-chunks // per_split)), per_split
 
 
 def _check_cuda(parts: Sequence[torch.Tensor], w: torch.Tensor,
@@ -108,9 +132,12 @@ def _check_cuda(parts: Sequence[torch.Tensor], w: torch.Tensor,
 
 
 def _launch(parts: Sequence[torch.Tensor], w: torch.Tensor,
-            b: Optional[torch.Tensor], activation: str) -> torch.Tensor:
+            b: Optional[torch.Tensor], activation: str,
+            forced: Optional[Tuple[int, int, int, int]] = None
+            ) -> torch.Tensor:
     """One launch of ``csrc/fused_dense.cu`` over the column segments
-    ``parts`` (shapes already checked)."""
+    ``parts`` (shapes already checked), as ``plan`` plans it or as
+    ``forced`` (a plan of the same shape: the card sweep's candidates)."""
     parts = [t for t in parts if t.shape[1] > 0]
     _check_cuda(parts, w, b)
     if len(parts) > MAX_PARTS:
@@ -121,19 +148,19 @@ def _launch(parts: Sequence[torch.Tensor], w: torch.Tensor,
     out = torch.empty((m, n), device=dev, dtype=dtype)
     if m == 0 or n == 0:
         return out
-    bk = TILE[2]
-    chunks = sum(-(-t.shape[1] // bk) for t in parts)
+    chunks = len(chunks_of([t.shape[1] for t in parts]))
     lib = _library()
     with torch.cuda.device(dev):
         num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tiles, splits, per_split = plan(m, n, chunks, num_sms)
+        config, tiles, splits, per_split = forced or plan(m, n, chunks,
+                                                          num_sms)
         ws = counters = None
         if splits > 1:
             ws = torch.empty((splits, m, n), device=dev, dtype=torch.float32)
             counters = torch.zeros((tiles,), device=dev, dtype=torch.int32)
         k = len(parts)
         err = lib.fused_dense_fwd(
-            _DTYPE_CODE[dtype], k,
+            config, _DTYPE_CODE[dtype], k,
             (ctypes.c_longlong * k)(*(t.data_ptr() for t in parts)),
             (ctypes.c_int * k)(*(t.stride(0) for t in parts)),
             (ctypes.c_int * k)(*(t.shape[1] for t in parts)),
@@ -145,7 +172,8 @@ def _launch(parts: Sequence[torch.Tensor], w: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_dense_fwd launch failed: CUDA error {err} "
-                           f"(m={m}, n={n}, parts={k}, splits={splits})")
+                           f"(m={m}, n={n}, parts={k}, config={config}, "
+                           f"splits={splits})")
     _count_launch()
     return out
 

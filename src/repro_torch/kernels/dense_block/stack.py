@@ -5,22 +5,26 @@
 calls the feature: the whole stream ``[x|y0|...|y_{L-1}]`` for densenet,
 the last hidden layer for mlp and d2rl.
 
-* On a CUDA tensor it launches a hand-written kernel of
-  ``csrc/dense_stack_fwd.cu`` once per layer on PyTorch's current stream,
-  or raises. There is no fallback: a CUDA tensor never takes the plain
-  path. ``plan_fwd`` picks the kernel by the rows M: up to 32 (serving
-  slots) the weight-streaming kernel; from 128, where U is too (densenet:
-  the actor and critic stacks in training), the register tile of
-  ``csrc/dense_tile_rt.cuh`` over a transposed copy of the stream, which
-  one ``dense_fwd_stream_init`` launch per call starts and every layer's
-  epilogue extends; otherwise ``csrc/dense_tile.cuh``. When autograd will
-  differentiate the call, the forward also keeps
-  every layer's pre-activation in an ``(M, L*U)`` side buffer, and the
-  backward (``_StackKernel.backward``, the port of ``_bwd_kernel``)
-  launches ``csrc/dense_stack_bwd.cu`` layer by layer in reverse, W^T, dW
-  and db on a side stream beside the act_grad -> dx chain; products of at
-  least 128 x 128 x 128 (every one of the actor and the critic) take the
-  register tile of ``csrc/dense_tile_rt.cuh`` as ``plan_bwd`` plans them.
+* On a CUDA tensor it launches hand-written kernels of
+  ``csrc/dense_stack_fwd.cu`` on PyTorch's current stream, or raises.
+  There is no fallback: a CUDA tensor never takes the plain path.
+  ``plan_fwd`` picks the kernel by the width U and the rows M: a
+  densenet stack with U < 128 (the OFENet stacks) runs whole in ONE
+  launch of the whole-stack kernel where its shared memory fits
+  (``whole_smem``); otherwise, up to 32 rows (serving slots) the
+  weight-streaming kernel, once per layer; from 128 rows, where U is too
+  (densenet: the actor and critic stacks in training), the register tile
+  of ``csrc/dense_tile_rt.cuh`` over a transposed copy of the stream,
+  which one ``dense_fwd_stream_init`` launch per call starts and every
+  layer's epilogue extends; otherwise ``csrc/dense_tile.cuh``, once per
+  layer.
+  When autograd will differentiate the call, the forward also keeps every
+  layer's pre-activation in an ``(M, L*U)`` side buffer, and the backward
+  (``_StackKernel.backward``, the port of ``_bwd_kernel``) launches
+  ``csrc/dense_stack_bwd.cu`` layer by layer in reverse, W^T, dW and db on
+  a side stream beside the act_grad -> dx chain; products of at least 128
+  x 128 x 128 (every one of the actor and the critic) take the register
+  tile of ``csrc/dense_tile_rt.cuh`` as ``plan_bwd`` plans them.
   It computes only the gradients autograd asks for, and it is bitwise the
   same from run to run (no floating-point atomics).
 * On a CPU tensor it runs ``dense_stack_ref``, the plain PyTorch concat
@@ -98,8 +102,21 @@ _STREAM_MAX_ROWS = 32
 _STREAM_COLS = 128
 _STREAM_MAX_K = 192
 _STREAM_MIN_K = 32
+# the forward's whole-stack kernel (dense_stack_fwd.cu whole_stack_kernel):
+# narrow densenet stacks (U < _RT_MIN) at any M in one launch; its config
+# id, the rows of a block and the row tiles it has, and its shared-memory
+# layout (the W ring's stages of _WHOLE_CHUNK rows, the threads whose
+# K-group sums it keeps) within the card's 227 KB a block
+_WHOLE_CONFIG = 6
+_WHOLE_ROWS = 4
+_WHOLE_ROW_TILES = (4, 8, 16)
+_WHOLE_MAX_LAYERS = 16
+_WHOLE_CHUNK = 32
+_WHOLE_STAGES = 6
+_WHOLE_THREADS = 256
+_SMEM_MAX = 232448
 # forward kernels by the name their launch counts go under
-FWD_KERNELS = ("stream", "rt", "tile")
+FWD_KERNELS = ("stream", "rt", "tile", "whole")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(FWD_KERNELS, 0)
@@ -108,11 +125,12 @@ _bwd_launches = 0
 
 
 def launch_count(kernel: Optional[str] = None) -> int:
-    """Forward layer launches since the last ``reset_launch_count``: of
+    """Forward kernel launches since the last ``reset_launch_count``: of
     every forward kernel (one per layer of every stack forward that ran on
-    the card), or of one of ``FWD_KERNELS``: ``"stream"`` (the
-    weight-streaming kernel, M <= 32), ``"rt"`` (the register tile) or
-    ``"tile"`` (``dense_tile.cuh``)."""
+    the card, or one per stack on the whole-stack kernel), or of one of
+    ``FWD_KERNELS``: ``"stream"`` (the weight-streaming kernel, M <= 32),
+    ``"rt"`` (the register tile), ``"tile"`` (``dense_tile.cuh``) or
+    ``"whole"`` (the whole narrow densenet stack in one launch)."""
     if kernel is None:
         return sum(_launches.values())
     return _launches[kernel]
@@ -123,6 +141,8 @@ def fwd_kernel_of(config: int) -> str:
     ``config``."""
     if config == _STREAM_CONFIG:
         return "stream"
+    if config == _WHOLE_CONFIG:
+        return "whole"
     return "rt" if config in _RT_CONFIGS else "tile"
 
 
@@ -261,8 +281,11 @@ def _library() -> ctypes.CDLL:
                                                p, p, ll, p, ll, p, ll, p, p,
                                                i, i, i, i, i, p]
         lib.dense_fwd_stream_init.argtypes = [p, ll, p, ll, p, ll, i, i, p]
+        lib.dense_stack_fwd_whole.argtypes = [i, i, p, ll, i, p, p, i, i, p,
+                                              ll, p, ll, i, i, p]
         for fn in (lib.dense_layer_fwd, lib.dense_layer_fwd_rt,
-                   lib.dense_layer_fwd_stream, lib.dense_fwd_stream_init):
+                   lib.dense_layer_fwd_stream, lib.dense_fwd_stream_init,
+                   lib.dense_stack_fwd_whole):
             fn.restype = ctypes.c_int
     return lib
 
@@ -364,11 +387,42 @@ def plan_bwd(m: int, n: int, k: int, num_sms: int,
     return best[1]
 
 
-def plan_fwd(m: int, n: int, k: int, num_sms: int,
-             transposed: bool = True) -> Tuple[int, int, int, int]:
-    """``(config, tiles, splits, per_split)`` of one forward layer with an
-    ``(m, n)`` output and a reduction of length ``k``:
+def whole_smem(d0: int, u: int, n_layers: int,
+               rows: int = _WHOLE_ROWS) -> Optional[int]:
+    """Bytes of dynamic shared memory the whole-stack kernel takes for a
+    densenet stack (input width ``d0``, ``n_layers`` layers of ``u``) at
+    ``rows`` rows a block, or None where it does not take the stack (U of
+    ``_RT_MIN`` or more, more than ``_WHOLE_MAX_LAYERS`` layers, or more
+    than the 227 KB a block may have): the block's rows of the stream
+    below the last layer, transposed; the W ring (``_WHOLE_STAGES`` stages
+    of ``_WHOLE_CHUNK`` rows of U rounded up to 64 or 128 columns); one
+    sum per row for each thread (dense_stack_fwd.cu ``whole::smem_bytes``).
+    """
+    if u >= _RT_MIN or not 1 <= n_layers <= _WHOLE_MAX_LAYERS:
+        return None
+    cols = 64 if u <= 64 else 128
+    size = 4 * ((d0 + (n_layers - 1) * u) * rows
+                + _WHOLE_STAGES * _WHOLE_CHUNK * cols + _WHOLE_THREADS * rows)
+    return size if size <= _SMEM_MAX else None
 
+
+def plan_fwd(m: int, n: int, k: int, num_sms: int,
+             transposed: bool = True,
+             stack: Optional[Tuple[int, int]] = None
+             ) -> Tuple[int, int, int, int]:
+    """``(config, tiles, splits, per_split)`` of one forward layer with an
+    ``(m, n)`` output and a reduction of length ``k``; ``stack`` is the
+    layer's densenet stack ``(d0, layers)`` where the caller can run it
+    whole:
+
+    * a narrow densenet stack (U < ``_RT_MIN``; ``stack`` given, with
+      ``transposed``) whose ``whole_smem`` fits, at any M: the whole-stack
+      kernel (``_WHOLE_CONFIG``), one launch for every layer, blocks of
+      ``_WHOLE_ROWS`` rows (``tiles`` counts them, ``per_split`` is the
+      rows; no split). The OFENet stacks in training and serving: the card
+      sweep (``launch/bwd_sweep.py``, H100) found it faster than the
+      per-layer kernels at every row count it timed (1, 8, 32, 256) and 4
+      rows a block the best of 4, 8 and 16.
     * up to ``_STREAM_MAX_ROWS`` rows (the serving slots, the actor pool's
       collect), the weight-streaming kernel (``_STREAM_CONFIG``). Bytes
       bind it: its tiles are 128-column strips, and K is split so the grid
@@ -385,8 +439,12 @@ def plan_fwd(m: int, n: int, k: int, num_sms: int,
       M=256, H100): a second block per SM hides the first one's loads
       (the actor's layer 1: 84.4 us at 4 splits, 94.0 at 2), and a short K
       keeps fewer splits.
-    * otherwise (the narrow OFENet stacks, U = 64; mlp and d2rl past 32
-      rows), ``dense_tile.cuh`` as ``plan`` plans it (config 2)."""
+    * otherwise (mlp and d2rl past 32 rows, a densenet stack too wide for
+      the whole-stack kernel), ``dense_tile.cuh`` as ``plan`` plans it
+      (config 2)."""
+    if transposed and stack is not None and whole_smem(
+            stack[0], n, stack[1]) is not None:
+        return _WHOLE_CONFIG, -(-m // _WHOLE_ROWS), 1, _WHOLE_ROWS
     if m <= _STREAM_MAX_ROWS:
         strips = -(-n // _STREAM_COLS)
         want = max(1, _BLOCKS_PER_SM * num_sms // strips)
@@ -523,6 +581,27 @@ def _launch_layer(lib, plan, seg1: Tuple[torch.Tensor, int],
     _count_launch(kind)
 
 
+def _launch_whole(lib, x: torch.Tensor, ws, bs, out: torch.Tensor,
+                  zs: Optional[torch.Tensor], act: int, rows: int,
+                  stream: int) -> None:
+    """A whole densenet stack in one launch of the whole-stack kernel at
+    ``rows`` rows a block: x into ``out``'s first columns, y_i into its
+    slots, z_i into ``zs``'s when given."""
+    (m, d0), n_layers, u = x.shape, len(ws), ws[0].shape[1]
+    vec_w = int(vec_aligned(*(operand(w) for w in ws)))
+    err = lib.dense_stack_fwd_whole(
+        rows, vec_w, x.data_ptr(), x.stride(0), n_layers,
+        (ctypes.c_longlong * n_layers)(*(w.data_ptr() for w in ws)),
+        (ctypes.c_longlong * n_layers)(*(b.data_ptr() for b in bs)),
+        d0, u, out.data_ptr(), out.stride(0), _ptr(zs),
+        0 if zs is None else zs.stride(0), m, act, stream)
+    if err != 0:
+        raise RuntimeError(f"dense_stack forward (whole) launch failed: CUDA "
+                           f"error {err} (m={m}, d0={d0}, u={u}, layers="
+                           f"{n_layers}, rows={rows})")
+    _count_launch("whole")
+
+
 def _check_cuda(x: torch.Tensor, ws, bs, connectivity: str) -> None:
     d0, u = x.shape[1], ws[0].shape[1]
     for name, t in [("x", x)] + [(f"ws[{i}]", w) for i, w in enumerate(ws)] \
@@ -544,10 +623,12 @@ def _check_cuda(x: torch.Tensor, ws, bs, connectivity: str) -> None:
 
 
 def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
-                    activation: str, zs: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    activation: str, zs: Optional[torch.Tensor] = None,
+                    whole: bool = True) -> torch.Tensor:
     """The stack's feature; with ``zs`` (``(M, L*U)``), layer i also stores
-    its pre-activation into columns ``[i*U, (i+1)*U)``."""
+    its pre-activation into columns ``[i*U, (i+1)*U)``. ``whole=False``
+    keeps a narrow densenet stack on the per-layer kernels (what the card
+    sweep compares the whole-stack kernel with)."""
     _check_cuda(x, ws, bs, connectivity)
     m, d0 = x.shape
     n_layers, u = len(ws), ws[0].shape[1]
@@ -564,8 +645,13 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
             return None if zs is None else (zs, i * u)
         if connectivity == "densenet":
             out = torch.empty((m, out_w), device=dev, dtype=torch.float32)
-            plans = [plan_fwd(m, u, d0 + i * u, num_sms)
+            plans = [plan_fwd(m, u, d0 + i * u, num_sms,
+                              stack=(d0, n_layers) if whole else None)
                      for i in range(n_layers)]
+            if plans[0][0] == _WHOLE_CONFIG:    # every layer alike: m, u
+                _launch_whole(lib, x, ws, bs, out, zs, act, plans[0][3],
+                              stream)
+                return out
             st = None                   # stream^T: x^T, y_0^T .. y_{L-2}^T
             if plans[0][0] in _RT_CONFIGS:      # every layer alike: m, u
                 st = torch.empty((d0 + (n_layers - 1) * u, _pad4(m)),

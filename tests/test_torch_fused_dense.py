@@ -137,16 +137,83 @@ def test_fused_dense_rejects_bad_shapes_and_activations():
 
 
 def test_plan_fills_the_card_and_covers_every_chunk():
-    bm, bn, bk = tdb.TILE
     for m, n, k in ((64, 256, 2159), (256, 2048, 4207), (5, 40, 37)):
-        chunks = -(-k // bk)
-        tiles, splits, per = tdb.plan(m, n, chunks, 132)
+        chunks = -(-k // tdb.BK)
+        config, tiles, splits, per = tdb.plan(m, n, chunks, 132)
+        bm, bn = tdb.TILES[config]
         assert tiles == -(-m // bm) * -(-n // bn)
         assert (splits - 1) * per < chunks <= splits * per
         # split until the grid fills the card or the splits get short
-        assert splits == 1 or tiles * splits >= 132 \
+        assert splits == 1 or tiles * splits >= 132 - tiles \
             or per < 2 * tdb._MIN_CHUNKS_PER_SPLIT
-    assert tdb.plan(256, 2048, 263, 132)[1] == 3      # the Ant layer 3
+    # the Ant layer 3: 128 tiles of 64x64, three splits of 44 chunks
+    assert tdb.plan(256, 2048, 132, 132) == (0, 128, 3, 44)
+
+
+@pytest.mark.parametrize("widths", [(111, 2048, 2048), (111, 2048), (13,),
+                                    (7, 30), (5, 11, 21), (32, 1, 64, 33),
+                                    (4207,)])
+@pytest.mark.parametrize("m,n", [(256, 2048), (64, 256), (33, 70)])
+def test_plan_splits_cover_every_segments_chunks_once(widths, m, n):
+    """The kernel walks K in BK-chunks part by part (``chunks_of``): each
+    chunk lies inside one part, the chunks tile every part exactly, and
+    the plan's splits (contiguous runs of ``per`` chunks) take each chunk
+    once."""
+    walk = tdb.chunks_of(widths)
+    for part, k0, cols in walk:
+        assert 0 < cols <= tdb.BK and k0 % tdb.BK == 0
+        assert k0 + cols <= widths[part]
+    for part, k in enumerate(widths):
+        cover = sorted((k0, cols) for p, k0, cols in walk if p == part)
+        assert sum(cols for _, cols in cover) == k
+        assert [k0 for k0, _ in cover] == list(range(0, k, tdb.BK))
+    config, tiles, splits, per = tdb.plan(m, n, len(walk), 132)
+    taken = [c for s in range(splits)
+             for c in range(s * per, min(len(walk), (s + 1) * per))]
+    assert taken == list(range(len(walk)))
+    assert tiles * splits <= tdb._BLOCKS_PER_SM * 132 or splits == 1
+
+
+def _tf32(x: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """x in TF32 (10 mantissa bits): rounded to nearest with ties away from
+    zero (cvt.rna.tf32.f32), or truncated toward zero, as the tensor core
+    reads an fp32 register."""
+    bits = x.view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def test_3xtf32_emulation_meets_the_fp32_bar():
+    """Split-precision TF32 as the kernel computes it, emulated on the CPU:
+    each fp32 operand as hi = tf32(x) (to nearest, ties away) plus its
+    residual x - hi (exact in fp32), which the MMA truncates to TF32, and
+    the products lo.hi + hi.lo + hi.hi summed in fp32 (lo.lo dropped), at
+    M=64, K=4207 as the three parts [111 | 2048 | 2048], N=256, against
+    the float64 product. It sits inside the card's 1e-4 bar (rtol, and
+    atol 1e-4 * max|exact|), and its error is at least 10x smaller than one
+    TF32 product's: what the kernel's agreement on the card should be
+    (the card's fp32 accumulation adds its own rounding, PERF.md)."""
+    rng = np.random.default_rng(17)
+    widths, m, n = (111, 2048, 2048), 64, 256
+    k = sum(widths)
+    parts = [rng.standard_normal((m, w)).astype(np.float32) for w in widths]
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate(parts, 1))
+    wt = torch.from_numpy(w)
+    exact = x.double() @ wt.double()
+    xh, wh = _tf32(x), _tf32(wt)
+    xl, wl = _tf32(x - xh, nearest=False), _tf32(wt - wh, nearest=False)
+    # each piece is a TF32 value: 11 significant bits or fewer
+    for t in (xh, wh, xl, wl):
+        assert torch.equal(t, _tf32(t, nearest=False))
+    three = (xl @ wh + xh @ wl) + xh @ wh
+    one = xh @ wh
+    err3 = (three.double() - exact).abs()
+    err1 = (one.double() - exact).abs()
+    bar = 1e-4 * exact.abs() + 1e-4 * exact.abs().max()
+    assert bool(torch.all(err3 <= bar))
+    assert float(err3.max()) * 10 <= float(err1.max())
 
 
 # ------------------------------------------------------------ on the card

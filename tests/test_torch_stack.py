@@ -139,16 +139,19 @@ def cuda_device():
 @pytest.mark.parametrize("conn", CONNS)
 def test_cuda_kernel_matches_plain(cuda_device, conn, act):
     """Every forward kernel against the plain version: the streaming kernel
-    (1, 2, 4, 5, 16 and 32 rows: each of its row-count cases, 1 to 32),
-    dense_tile.cuh (phi_s at 256 rows; mlp and d2rl at every shape of 256
-    and 201 rows), the register tile over stream^T (densenet: the actor at
-    256 rows and a ragged shape of 201 rows); within 1e-4, one launch per
-    layer, and two calls bitwise equal."""
+    (1, 2, 4, 5, 16 and 32 rows: each of its row-count cases, 1 to 32;
+    densenet at U >= 128 only), the whole-stack kernel (densenet at U < 128:
+    5, 4 and 256 rows, U = 61 at 37 rows (4-byte W copies) and U = 100 at
+    7 (128-column ring rows); one launch a stack), dense_tile.cuh (mlp and
+    d2rl at every shape of 37 rows or more), the register tile over
+    stream^T (densenet: the actor at 256 rows and a ragged shape of 201
+    rows); within 1e-4, one launch per layer (per stack on the whole-stack
+    kernel), and two calls bitwise equal."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for L, d0, u, m in ((3, 7, 40, 5), (2, 259, 2048, 1), (2, 259, 2048, 2),
                         (4, 3, 64, 4), (2, 259, 2048, 16), (2, 259, 2048, 32),
                         (4, 3, 64, 256), (2, 259, 2048, 256),
-                        (3, 37, 301, 201)):
+                        (3, 37, 301, 201), (3, 5, 61, 37), (2, 9, 100, 7)):
         x, ws, bs = _make(conn, L=L, d0=d0, u=u, m=m, seed=L)
         want = tstack.dense_stack(*_torch(x, ws, bs), connectivity=conn,
                                   activation=act).numpy()
@@ -158,7 +161,10 @@ def test_cuda_kernel_matches_plain(cuda_device, conn, act):
         again = tstack.dense_stack(*inputs, connectivity=conn,
                                    activation=act)
         torch.cuda.synchronize()
-        assert tstack.launch_count() - before == 2 * L
+        plan = tstack.plan_fwd(m, u, d0, 132, transposed=conn == "densenet",
+                               stack=(d0, L) if conn == "densenet" else None)
+        whole = tstack.fwd_kernel_of(plan[0]) == "whole"
+        assert tstack.launch_count() - before == 2 * (1 if whole else L)
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
                                    atol=1e-4 * np.abs(want).max())
         assert torch.equal(got, again)

@@ -2,17 +2,20 @@
 the plain version against the reference's Pallas forward at a ragged shape
 large enough for the register tile.
 
-``plan_fwd`` picks one of three kernels of ``csrc/dense_stack_fwd.cu`` by
-the rows of the call: the weight-streaming kernel up to 32 rows (the
-serving slots), the register tile over ``stream^T`` from 128 rows where U
-is at least 128 too (densenet: the actor and critic stacks at the batch of
-256), and ``dense_tile.cuh`` otherwise (the narrow OFENet stacks). The
-launch sequence of ``_kernel_forward`` is plain Python: it runs here against
-a recording stand-in for the CUDA library, which shows one launch per
-layer by the planned kernel, one stream^T init per register-tiled call,
-and split counters taken from ``_tile_counters`` with no zeroed buffer per
-launch. The kernels themselves are held against the plain version on the
-card (``tests/test_torch_stack.py -k cuda``, ``chip_smoke.py``).
+``plan_fwd`` picks one of four kernels of ``csrc/dense_stack_fwd.cu`` by
+the width and the rows of the call: the whole-stack kernel for a densenet
+stack with U < 128 whose shared memory fits (the narrow OFENet stacks, at
+every row count: one launch a stack), the weight-streaming kernel up to 32
+rows (the serving slots), the register tile over ``stream^T`` from 128
+rows where U is at least 128 too (densenet: the actor and critic stacks at
+the batch of 256), and ``dense_tile.cuh`` otherwise (mlp and d2rl past 32
+rows). The launch sequence of ``_kernel_forward`` is plain Python: it runs
+here against a recording stand-in for the CUDA library, which shows one
+launch per layer by the planned kernel (one per stack on the whole-stack
+kernel), one stream^T init per register-tiled call, and split counters
+taken from ``_tile_counters`` with no zeroed buffer per launch. The
+kernels themselves are held against the plain version on the card
+(``tests/test_torch_stack.py -k cuda``, ``chip_smoke.py``).
 """
 import contextlib
 
@@ -30,6 +33,8 @@ WIDE = [(256, 2048, 259), (256, 2048, 2307), (256, 2048, 516),
 # (d0 = 260), U = 64, four layers
 NARROW = [(256, 64, 3 + 64 * i) for i in range(4)] \
     + [(256, 64, 260 + 64 * i) for i in range(4)]
+# the OFENet stacks (d0, U, L)
+OFENET = {"phi_s": (3, 64, 4), "phi_sa": (260, 64, 4)}
 SLOTS = (1, 2, 4, 8, 16, 32)
 # ragged and large enough for the register tile (cf. the backward's)
 RAGGED_RT = (201, 37, 301, 3)
@@ -77,8 +82,65 @@ def test_plan_fwd_streams_the_weights_at_serving_slots(m, n, k):
 
 @pytest.mark.parametrize("m,n,k", NARROW)
 def test_plan_fwd_keeps_the_old_configs_for_the_narrow_stacks(m, n, k):
+    """A narrow OFENet layer at the batch runs whole with its stack (one
+    launch of the whole-stack kernel, blocks of ``_WHOLE_ROWS`` rows, no
+    split); asked about the layer alone (no ``stack``: the mlp/d2rl case
+    and a stack the kernel refuses), the plan stays ``dense_tile.cuh``'s."""
+    d0 = 3 if k < 260 else 260
+    whole = tstack.plan_fwd(m, n, k, 132, stack=(d0, 4))
+    assert whole == (tstack._WHOLE_CONFIG, -(-m // tstack._WHOLE_ROWS), 1,
+                     tstack._WHOLE_ROWS)
+    assert tstack.fwd_kernel_of(whole[0]) == "whole"
     assert tstack.plan_fwd(m, n, k, 132) == tstack.plan(m, n, k, 132)
     assert tstack.fwd_kernel_of(tstack.plan_fwd(m, n, k, 132)[0]) == "tile"
+
+
+@pytest.mark.parametrize("name", sorted(OFENET))
+@pytest.mark.parametrize("rows", (4, 8, 16))
+def test_whole_smem_takes_the_ofenet_stacks(name, rows):
+    """The whole-stack kernel's shared memory at phi_s and phi_sa: the
+    stream below the last layer (rows x (d0 + 3 U) floats), the W ring (6
+    stages of 32 rows of 64 floats) and one sum per row for each of the 256
+    threads, within the card's 227 KB a block."""
+    d0, u, n_layers = OFENET[name]
+    want = 4 * ((d0 + (n_layers - 1) * u) * rows + 6 * 32 * 64 + 256 * rows)
+    assert tstack.whole_smem(d0, u, n_layers, rows) == want
+    assert want <= tstack._SMEM_MAX
+
+
+@pytest.mark.parametrize("d0,u,n_layers,fits", [
+    (3, 64, 4, True), (260, 64, 4, True), (3, 127, 16, True),
+    (10000, 64, 4, True), (12000, 64, 4, False), (3, 64, 17, False),
+    (3, 128, 4, False), (40, 100, 200, False)])
+def test_whole_smem_refuses_what_does_not_fit(d0, u, n_layers, fits):
+    """A densenet stack too wide for 227 KB of shared memory, one of more
+    than 16 layers, or one of U >= 128 (the register tile's) is refused,
+    and ``plan_fwd`` keeps it on the per-layer kernels."""
+    assert (tstack.whole_smem(d0, u, n_layers) is not None) == fits
+    plan = tstack.plan_fwd(256, u, d0, 132, stack=(d0, n_layers))
+    assert (tstack.fwd_kernel_of(plan[0]) == "whole") == fits
+
+
+@pytest.mark.parametrize("m", (1, 8, 32, 33, 100, 128, 256, 257, 1024))
+@pytest.mark.parametrize("name", sorted(OFENET))
+def test_plan_fwd_runs_the_narrow_densenet_stacks_whole(m, name):
+    """A narrow densenet stack runs whole at every row count, the serving
+    slots too (one launch, blocks of ``_WHOLE_ROWS`` rows: the card sweep
+    found it faster than the streaming kernel at 1, 8 and 32 rows); mlp
+    and d2rl (no ``transposed`` stream) never run whole, and stream at the
+    slots."""
+    d0, u, n_layers = OFENET[name]
+    for i in range(n_layers):
+        k = d0 + i * u
+        plan = tstack.plan_fwd(m, u, k, 132, stack=(d0, n_layers))
+        assert tstack.fwd_kernel_of(plan[0]) == "whole"
+        assert plan[1:] == (-(-m // tstack._WHOLE_ROWS), 1,
+                            tstack._WHOLE_ROWS)
+        other = tstack.fwd_kernel_of(tstack.plan_fwd(
+            m, u, k, 132, transposed=False, stack=(d0, n_layers))[0])
+        assert other == ("stream" if m <= tstack._STREAM_MAX_ROWS
+                         else "tile")
+    assert tstack._WHOLE_ROWS in tstack._WHOLE_ROW_TILES
 
 
 @pytest.mark.parametrize(
@@ -158,7 +220,8 @@ _ARGS = {"dense_layer_fwd": dict(counters=14, m=15, n=16, splits=18),
          "dense_layer_fwd_rt": dict(counters=14, m=15, n=16, splits=19),
          "dense_layer_fwd_stream": dict(counters=17, m=18, n=19, splits=21)}
 _KIND = {"dense_layer_fwd": "tile", "dense_layer_fwd_rt": "rt",
-         "dense_layer_fwd_stream": "stream"}
+         "dense_layer_fwd_stream": "stream",
+         "dense_stack_fwd_whole": "whole"}
 
 
 @pytest.fixture
@@ -201,23 +264,30 @@ def _stack(conn, m, d0, u, n_layers, seed=0):
 @pytest.mark.parametrize("conn,m,d0,u,n_layers", [
     ("densenet", 128, 300, 128, 2),     # register tile, split K
     ("densenet", 201, 37, 301, 3),      # register tile, ragged
-    ("densenet", 8, 40, 64, 2),         # streaming, split K at layer 1
+    ("densenet", 8, 40, 64, 2),         # narrow: the whole-stack kernel
+    ("densenet", 8, 40, 128, 2),        # streaming, split K at layer 1
     ("densenet", 1, 259, 512, 2),       # streaming, a serving slot
-    ("densenet", 256, 260, 64, 4),      # phi_sa: dense_tile.cuh, split K
+    ("densenet", 256, 260, 64, 4),      # phi_sa: the whole-stack kernel
     ("mlp", 128, 130, 128, 2),          # no stream^T: dense_tile.cuh
     ("d2rl", 8, 40, 64, 3),             # streaming, two segments
     ("d2rl", 256, 20, 64, 3)])
 def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
-    """One launch per layer by the kernel ``plan_fwd`` gives it, one
-    stream^T init per register-tiled call (x into the stream and stream^T),
-    and every split's counters from ``_tile_counters`` on the launch's
-    stream: no zeroed buffer per launch."""
+    """One launch per layer by the kernel ``plan_fwd`` gives it (one per
+    stack on the whole-stack kernel), one stream^T init per register-tiled
+    call (x into the stream and stream^T), and every split's counters from
+    ``_tile_counters`` on the launch's stream: no zeroed buffer per
+    launch."""
     lib, counters, asked, zeros = recorded
     x, ws, bs = _stack(conn, m, d0, u, n_layers)
     zs = torch.empty((m, n_layers * u))
     with torch.no_grad():
         out = tstack._kernel_forward(x, ws, bs, conn, "swish", zs)
     assert not zeros
+    stack = (d0, n_layers) if conn == "densenet" else None
+    if tstack.fwd_kernel_of(tstack.plan_fwd(m, u, d0, 132,
+                                            stack=stack)[0]) == "whole":
+        _check_whole_launch(lib, asked, x, ws, bs, out, zs)
+        return
     layers = [(n, a) for n, a in lib.calls if n in _ARGS]
     inits = [a for n, a in lib.calls if n == "dense_fwd_stream_init"]
     assert len(layers) == n_layers
@@ -272,14 +342,60 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
     assert tstack.transpose_count() == int(wide)
 
 
+def _check_whole_launch(lib, asked, x, ws, bs, out, zs):
+    """The whole-stack kernel's one launch: x, every layer's W and b, the
+    output stream and ``zs`` passed through, ``_WHOLE_ROWS`` rows a block,
+    16-byte W copies (U = 64), no counters."""
+    (m, d0), n_layers, u = x.shape, len(ws), ws[0].shape[1]
+    assert [n for n, _ in lib.calls] == ["dense_stack_fwd_whole"]
+    (rows, vec_w, x_ptr, ldx, layers, w_ptrs, b_ptrs, d0_, u_, out_ptr, ldo,
+     z_ptr, ldz, m_, act, stream) = lib.calls[0][1]
+    assert (rows, vec_w, x_ptr, ldx, layers) == (
+        tstack._WHOLE_ROWS, 1, x.data_ptr(), d0, n_layers)
+    assert list(w_ptrs) == [w.data_ptr() for w in ws]
+    assert list(b_ptrs) == [b.data_ptr() for b in bs]
+    assert (d0_, u_, out_ptr, ldo, m_) == (d0, u, out.data_ptr(),
+                                           d0 + n_layers * u, m)
+    assert zs is None or (z_ptr, ldz) == (zs.data_ptr(), n_layers * u)
+    assert zs is not None or (z_ptr, ldz) == (None, 0)
+    assert (act, stream) == (tstack._ACT_CODE["swish"], 77)
+    assert not asked
+    assert tstack.launch_count() == tstack.launch_count("whole") == 1
+    assert tstack.transpose_count() == 0
+
+
+@pytest.mark.parametrize("with_zs", (True, False))
+@pytest.mark.parametrize("m", (1, 8, 32, 33, 100, 256, 257))
+@pytest.mark.parametrize("name", sorted(OFENET))
+def test_whole_stack_launch_plan(recorded, name, m, with_zs):
+    """phi_s and phi_sa at the serving slots and past them, with autograd's
+    ``zs`` and without:
+    one launch of the whole-stack kernel a stack call, ``zs`` passed
+    through, no counters asked for and no ``torch.zeros``."""
+    lib, counters, asked, zeros = recorded
+    d0, u, n_layers = OFENET[name]
+    x, ws, bs = _stack("densenet", m, d0, u, n_layers)
+    zs = torch.empty((m, n_layers * u)) if with_zs else None
+    with torch.no_grad():
+        out = tstack._kernel_forward(x, ws, bs, "densenet", "swish", zs)
+    assert out.shape == (m, d0 + n_layers * u)
+    assert not zeros
+    _check_whole_launch(lib, asked, x, ws, bs, out, zs)
+
+
 def test_forward_takes_every_kernel_on_the_training_shapes():
-    """At the training path's shapes each of the three kernels has work:
-    the actor pool's 32 rows stream, the wide stacks at the batch take the
-    register tile, the OFENet stacks at the batch the old tile."""
-    kinds = {tstack.fwd_kernel_of(tstack.plan_fwd(m, u, k, 132)[0])
-             for m, u, k in [(32, 64, 3), (32, 2048, 259), (256, 64, 3),
-                             (256, 2048, 259), (256, 2048, 516)]}
-    assert kinds == set(tstack.FWD_KERNELS)
+    """At the training path's shapes the wide stacks stream at the actor
+    pool's 32 rows and take the register tile at the batch, the OFENet
+    stacks take the whole-stack kernel at both; ``dense_tile.cuh`` is left
+    to mlp and d2rl past 32 rows."""
+    kinds = {tstack.fwd_kernel_of(tstack.plan_fwd(m, u, d0, 132,
+                                                  stack=(d0, n))[0])
+             for m, d0, u, n in [(32, 3, 64, 4), (32, 259, 2048, 2),
+                                 (256, 3, 64, 4), (256, 260, 64, 4),
+                                 (256, 259, 2048, 2), (256, 516, 2048, 2)]}
+    assert kinds == set(tstack.FWD_KERNELS) - {"tile"}
+    assert tstack.fwd_kernel_of(tstack.plan_fwd(
+        256, 64, 3, 132, transposed=False)[0]) == "tile"
 
 
 @pytest.mark.parametrize("conn", ("densenet", "d2rl", "mlp"))
