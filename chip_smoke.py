@@ -7,9 +7,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
 
 1. Card and settings: the ``nvidia-smi`` name and power limit; TF32 off
    for matmul and cuDNN (the reference is fp32).
-2. Build: compile the six CUDA sources from the checkout, one nvcc each,
-   all at once (dense_stack_fwd.cu, dense_stack_bwd.cu, replay_tree.cu,
-   fused_dense.cu, flash_attention.cu, ssd_scan.cu).
+2. Build: compile the six CUDA sources from the checkout and the latency
+   probe, one nvcc each, all at once (dense_stack_fwd.cu,
+   dense_stack_bwd.cu, replay_tree.cu, fused_dense.cu, flash_attention.cu,
+   ssd_scan.cu, launch/csrc/latency_probe.cu).
 3. Kernels against their plain versions (new kernels in float32 within
    1e-4 and bfloat16 within 2e-2, as rtol and atol * max|plain|):
    - the stack forward (its four kernels: the whole-stack kernel for the
@@ -32,8 +33,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
      slope at the kernel forward's pre-activations), and two calls bitwise
      equal;
    - the sum-tree sample (B=256, edge targets 0 and total) and write
-     (n=32, 256 with duplicates and siblings, 9,984) at capacity 100,000:
-     bitwise equal to the plain versions;
+     (n=32, 256 with duplicates and siblings, 9,984, and 100,000 with
+     repeats: many of the write's 1,024-entry passes) at capacity
+     100,000: bitwise equal to the plain versions; a write with indices
+     outside the leaves skips and counts exactly those;
    - fused dense (``dense_concat_matmul``, one launch, 3xTF32 on the
      tensor cores): 1, 2 and 3 segments, with and without bias, every
      activation, ragged (M=33, N=70) and full (the Ant DenseNet layer 3,
@@ -65,8 +68,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    finite losses, a consistent replay count and tree total, and
    ``Policy.from_experiment`` checked against the plain path. Wall time
    per superstep and a ``torch.profiler`` breakdown (the forward's wide,
-   whole, narrow, streaming and transpose classes; the int32 fills of the whole
-   superstep, read, not asserted). ``phase_fwd_fills`` then asserts that
+   whole, narrow, streaming and transpose classes; the sum-tree kernels'
+   device time per superstep as the main path finds the tree,
+   ``[tree-prof]``; the int32 fills of the whole superstep, read, not
+   asserted). ``phase_fwd_fills`` then asserts that
    the stack forward itself issues no int32 fill.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
    (the fused dense, flash and SSD kernels, which no training or serving
@@ -84,8 +89,11 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    act_grad, db, dW, W^T, dx, each beside ``torch.mm`` of its shape and
    its bound) with the training profile's per-superstep time of the
    backward's product classes; the tree sample at B=256 and write at
-   n=32/256/9,984; fused dense, flash attention and the SSD chunk at
-   their full shapes (``phase_new_times``).
+   n=32/256/9,984, hot (the tree in L2) and cold (the L2 flushed before
+   each call), beside a latency floor (an empty kernel plus the plan's
+   dependent rounds times one load's latency, from L2 or device memory:
+   ``bwd_sweep.latency_floor``); fused dense, flash attention and the SSD
+   chunk at their full shapes (``phase_new_times``).
 7. One JSON line of seven kernel records, then the device line, last.
 """
 from __future__ import annotations
@@ -323,7 +331,11 @@ def tree_case(gen, capacity=100_000):
 def phase_tree_parity(gen, capacity=100_000):
     """Sample and write kernels against the plain versions at capacity
     100,000: sample at B=256 with the edge targets 0 and total; write at
-    n=32, n=256 with duplicates and siblings, n=9,984 (bitwise)."""
+    n=32, n=256 with duplicates and siblings, n=9,984 and n=100,000 with
+    repeats (98 of the kernel's 1,024-entry passes, in order), bitwise;
+    then a write with indices outside the leaves, which the card skips
+    and counts (``ops.skipped_writes``): the count must rise by exactly
+    their number and the tree be the plain write of the rest."""
     import torch
     from repro_torch.kernels.replay_tree import ops, ref
     tree = tree_case(gen, capacity)
@@ -348,6 +360,8 @@ def phase_tree_parity(gen, capacity=100_000):
                                                device="cuda")]
     idx[200:] = idx[:56]                    # repeated indices
     cases.append(("n=256 dup+siblings", idx.clamp(max=capacity - 1)))
+    cases.append(("n=100,000 with repeats", torch.randint(
+        0, capacity, (100_000,), generator=gen, device="cuda")))
     worst = 0.0
     for name, idx in cases:
         val = torch.rand(idx.shape, generator=gen, device="cuda") * 2
@@ -362,9 +376,26 @@ def phase_tree_parity(gen, capacity=100_000):
         if not torch.equal(got, want):
             raise AssertionError(f"tree_set {name}: not bitwise the plain "
                                  f"version (max abs err {err:.3e})")
+    half = tree.shape[0] // 2
+    idx = torch.randint(0, capacity, (300,), generator=gen, device="cuda")
+    idx[::50] = torch.tensor([-1, half, half + 7, -half, 1 << 30, -5],
+                             device="cuda")
+    valid = (idx >= 0) & (idx < half)
+    val = torch.rand(idx.shape, generator=gen, device="cuda") * 2
+    before = ops.skipped_writes("cuda")
+    got = ops.sumtree_set(tree.clone(), idx, val)
+    skipped = ops.skipped_writes("cuda") - before
+    same = torch.equal(got, ref.tree_set_ref(tree.clone(), idx[valid],
+                                             val[valid]))
+    if skipped != int((~valid).sum()) or not same:
+        raise AssertionError(f"tree_set with {int((~valid).sum())} indices "
+                             f"outside the leaves: {skipped} skipped; the "
+                             f"rest bitwise the plain write: {same}")
     log(f"[parity] tree_sample == plain (B=256, edge targets 0 and total);"
-        f" tree_set == plain bitwise for unique n in (32, 256, 9984) and "
-        f"at n=256 with duplicates+siblings (keep-last)")
+        f" tree_set == plain bitwise for unique n in (32, 256, 9984), at "
+        f"n=256 with duplicates+siblings and at n=100,000 with repeats "
+        f"(keep-last); {skipped} indices outside the leaves skipped and "
+        f"counted")
     return worst
 
 
@@ -857,6 +888,8 @@ def phase_train(spec, steps=50, warm=10):
     import torch
     from repro_torch.rl.experiment import Experiment
     from repro_torch.rl.policy import Policy
+    from repro_torch.kernels.replay_tree import ops
+    skipped = ops.skipped_writes("cuda")    # phase_tree_parity's
     exp = Experiment.from_spec(spec)
     tr = exp.trainer
     want = expected_launches(tr)
@@ -906,10 +939,10 @@ def phase_train(spec, steps=50, warm=10):
     vals = torch.stack(scal).cpu()
     if not torch.all(torch.isfinite(vals)):
         raise AssertionError("training produced a non-finite loss")
-    from repro_torch.kernels.replay_tree import ops
-    if ops.skipped_writes("cuda"):
-        raise AssertionError(f"tree_set skipped {ops.skipped_writes('cuda')}"
-                             f" entries with an index outside the leaves")
+    skipped = ops.skipped_writes("cuda") - skipped
+    if skipped:
+        raise AssertionError(f"tree_set skipped {skipped} entries with an "
+                             f"index outside the leaves")
     rep = exp._ls.replay
     count = int(rep["store"]["count"])
     leaves = rep["tree"][rep["tree"].shape[0] // 2:]
@@ -977,12 +1010,21 @@ def fwd_class(key):
     return None
 
 
+def tree_class(key):
+    """'sample' or 'set' for the sum-tree kernels' profiler names."""
+    for c in ("sample", "set"):
+        if f"tree_{c}_kernel" in key:
+            return c
+    return None
+
+
 def phase_train_profile(exp, steps=10):
     """Where a superstep's time goes: wall clock against the device time
     torch.profiler sees, and the kernels that take it. Returns the
     backward's product classes per superstep, ``{class: (ms, launches)}``,
     the int32 fills per superstep (``torch.zeros`` of int32: split
-    counters were made so before) and the forward's classes."""
+    counters were made so before), the forward's classes and the tree's
+    (sample, set)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1010,14 +1052,21 @@ def phase_train_profile(exp, steps=10):
     fwd = {c: [0.0, 0.0] for c in ("wide", "whole", "narrow", "stream",
                                    "transpose")}
     fills = 0.0
+    tree = {"sample": [0.0, 0.0], "set": [0.0, 0.0]}
     for e in events:
         for table, c in ((classes, bwd_product_class(e.key)),
-                         (fwd, fwd_class(e.key))):
+                         (fwd, fwd_class(e.key)),
+                         (tree, tree_class(e.key))):
             if c is not None:
                 table[c][0] += e.self_device_time_total / 1e3 / steps
                 table[c][1] += e.count / steps
         if "FillFunctor<int>" in e.key:
             fills += e.count / steps
+    log("[tree-prof] training superstep, sum-tree device time per "
+        "superstep as the main path finds the tree (after the update "
+        "streamed the weights): "
+        + ", ".join(f"{c} {1e3 * ms:.2f} us over {n:.1f} launches"
+                    for c, (ms, n) in tree.items()))
     log("[fwd-prof] training superstep, forward device time per superstep:"
         f" {sum(ms for ms, _ in fwd.values()):.3f} ms = "
         + ", ".join(f"{c} {ms:.3f} ms over {n:.1f} launches"
@@ -1025,7 +1074,8 @@ def phase_train_profile(exp, steps=10):
         + f"; int32 fills (torch.zeros of int32, any op) {fills:.1f} per "
         f"superstep")
     return {c: tuple(v) for c, v in classes.items()}, fills, \
-        {c: tuple(v) for c, v in fwd.items()}
+        {c: tuple(v) for c, v in fwd.items()}, \
+        {c: tuple(v) for c, v in tree.items()}
 
 
 def phase_fwd_fills(gen):
@@ -1229,7 +1279,7 @@ def phase_bwd_times(gen, profile_classes=None):
         if name in ("critic", "actor"):
             r["products"] = bwd_breakdown(name, x, ws, out, zs, g)
     if profile_classes is not None:
-        classes, fills, _ = profile_classes
+        classes, fills = profile_classes[:2]
         log("[bwd-prof] training superstep, device time per superstep: "
             + ", ".join(f"{c} {ms:.3f} ms over {n:.1f} launches"
                         for c, (ms, n) in classes.items())
@@ -1251,16 +1301,61 @@ def _tree_nodes(tree, leaves):
     return n
 
 
+def _sample_rounds(depth, k, top):
+    """Dependent global rounds of one sample at this plan: the staged top
+    (one coalesced load, beside the targets'), then k levels a round."""
+    staged = min(top, depth)
+    return -(-(depth - max(staged, 1)) // k) + (staged > 0)
+
+
+def _write_rounds(n, depth, tile=1024):
+    """Dependent global rounds of one write (a model of the kernel's
+    schedule, for the floor in the log): for each pass of ``tile``
+    entries, their load, then a round a level above the leaves."""
+    return -(-n // tile) * depth
+
+
 def phase_tree_times(gen, capacity=100_000, b=256):
     """The sample at B=256 and the write at n=32/256/9,984 on a full tree
     of the replay's capacity: kernel, plain version, and for the sample
     the library yardstick ``searchsorted(cumsum(leaves), targets,
     right=True)`` (the same function up to rounding); the write has no
-    one-call library counterpart. Bounds: bytes (the nodes this data
-    touches, read or written once) at 3.35 TB/s; both kernels are bound by
-    the latency of the descent's dependent loads instead."""
+    one-call library counterpart. Each kernel hot (``time_ms``, back to
+    back, the tree in L2; and per call, between its own events) and cold
+    (per call, right after a 128 MB write evicted the L2). Bounds: bytes
+    (the nodes this data touches, read or written once) at 3.35 TB/s;
+    both kernels are bound by the latency of their dependent memory
+    rounds instead, so beside it the floor: an empty kernel plus the
+    plan's dependent rounds times one load's latency (L2 hot, device
+    memory cold; ``bwd_sweep.latency_floor``)."""
     import torch
     from repro_torch.kernels.replay_tree import ops, ref
+    from repro_torch.launch.bwd_sweep import (l2_flusher, latency_floor,
+                                              time_per_call_us)
+    lat = latency_floor()
+    flush = l2_flusher("cuda")
+    log(f"[time] latency floor: empty kernel {lat['empty_us']:.2f} us "
+        f"(back to back, time_ms), one dependent load {lat['l2_ns']:.0f} ns "
+        f"from L2, {lat['hbm_ns']:.0f} ns from device memory (1 MB "
+        f"pointer chase)")
+
+    def timed(kernel, rounds):
+        t_k, h_k = time_ms(kernel, [0])
+        return dict(ms=t_k, host_ms=h_k,
+                    hot_call_ms=time_per_call_us(lambda: kernel(0)) / 1e3,
+                    cold_ms=time_per_call_us(lambda: kernel(0), flush) / 1e3,
+                    rounds=rounds,
+                    floor_ms=(lat["empty_us"] + rounds * lat["l2_ns"] / 1e3)
+                    / 1e3,
+                    floor_cold_ms=(lat["empty_us"]
+                                   + rounds * lat["hbm_ns"] / 1e3) / 1e3)
+
+    def say(r):
+        return (f"hot {r['ms'] * 1e3:.2f} us (per call "
+                f"{r['hot_call_ms'] * 1e3:.2f}), cold "
+                f"{r['cold_ms'] * 1e3:.2f} us; floor {r['rounds']} rounds: "
+                f"{r['floor_ms'] * 1e3:.2f} us hot, "
+                f"{r['floor_cold_ms'] * 1e3:.2f} cold")
     tree = tree_case(gen, capacity)
     half = tree.shape[0] // 2
     t = torch.rand((b,), generator=gen, device="cuda") * tree[1]
@@ -1286,21 +1381,21 @@ def phase_tree_times(gen, capacity=100_000, b=256):
                                                0), t, right=True)
     lib_leaf = torch.clamp(library(0), max=capacity - 1)
     agree = float((lib_leaf == leaf_k.long()).float().mean())
-    t_k, h_k = time_ms(kernel, [0])
+    k, lanes, top = ops.SAMPLE_PLAN
+    r = timed(kernel, _sample_rounds(depth, k, top))
     t_p, _ = time_ms(plain, [0])
     t_l, _ = time_ms(library, [0])
     nbytes = 4 * b * (depth - 1) + 4 * b + 8 * b
     rows = {"sample": dict(
-        ms=t_k, plain_ms=t_p, library_ms=t_l,
+        r, plain_ms=t_p, library_ms=t_l,
         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
-        max_abs_err=err_s, host_ms=h_k)}
-    log(f"[time] tree_sample B={b}, capacity {capacity}: max abs err vs "
-        f"plain {err_s:.3e} (leaf and priority); kernel "
-        f"{t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, library "
+        max_abs_err=err_s)}
+    log(f"[time] tree_sample B={b}, capacity {capacity}, plan "
+        f"{ops.SAMPLE_PLAN}: max abs err vs plain {err_s:.3e} (leaf and "
+        f"priority); kernel {say(r)}; plain {t_p * 1e3:.1f} us, library "
         f"(searchsorted over cumsum) {t_l * 1e3:.1f} us (same leaf for "
         f"{100 * agree:.1f}% of targets; float sums round differently), "
-        f"bytes bound {1e9 * nbytes / HBM_BYTES_PER_S:.2f} ns "
-        f"({nbytes} B); bound in practice by {depth - 1} dependent loads")
+        f"bytes bound {1e9 * nbytes / HBM_BYTES_PER_S:.2f} ns ({nbytes} B)")
     for n in (256, 32, 9984):
         if n == 256:       # the priority refresh: sampled leaves, repeats
             idx = ops.sumtree_sample(tree, torch.rand(
@@ -1323,20 +1418,18 @@ def phase_tree_times(gen, capacity=100_000, b=256):
 
         def wplain(_):
             return ref.tree_set_ref(work, idx, val)
-        t_k, h_k = time_ms(wkernel, [0])
+        r = timed(wkernel, _write_rounds(n, depth))
         t_p, _ = time_ms(wplain, [0])
         touched = _tree_nodes(tree, idx)
         nbytes = 8 * n + 4 * touched
-        log(f"[time] tree_set n={n}: max abs err vs plain {err_w:.3e} "
-            f"({len(torch.unique(idx))} distinct leaves); kernel "
-            f"{t_k * 1e3:.1f} us, plain "
-            f"{t_p * 1e3:.1f} us, library none, bytes bound "
-            f"{1e9 * nbytes / HBM_BYTES_PER_S:.2f} ns ({touched} nodes "
-            f"touched); bound in practice by {depth} dependent levels")
-        rows[f"set{n}"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+        log(f"[time] tree_set n={n}, pdl {ops.PDL}: max abs err vs "
+            f"plain {err_w:.3e} ({len(torch.unique(idx))} distinct leaves);"
+            f" kernel {say(r)}; plain {t_p * 1e3:.1f} us, library none, "
+            f"bytes bound {1e9 * nbytes / HBM_BYTES_PER_S:.2f} ns "
+            f"({touched} nodes touched)")
+        rows[f"set{n}"] = dict(r, plain_ms=t_p, library_ms=None,
                                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
-                               bound_by="bytes", max_abs_err=err_w,
-                               host_ms=h_k)
+                               bound_by="bytes", max_abs_err=err_w)
     return rows
 
 
@@ -1685,18 +1778,21 @@ def phase_new_times(gen):
 
 
 def build_all():
-    """Build the six kernel libraries, one nvcc each, all at once."""
+    """Build the six kernel libraries and the latency probe, one nvcc
+    each, all at once."""
     from repro_torch.kernels import build_seconds
     from repro_torch.kernels.dense_block import dense_block, stack
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.replay_tree import ops
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import bwd_sweep
     builders = {"dense_stack_fwd": stack._library,
                 "dense_stack_bwd": stack._bwd_library,
-                "replay_tree": ops._library,
+                "replay_tree": ops.library,
                 "fused_dense": dense_block._library,
                 "flash_attention": flash_attention._library,
-                "ssd_scan": ssd_scan._library}
+                "ssd_scan": ssd_scan._library,
+                "latency_probe": bwd_sweep._latency_library}
     errors = []
 
     def run(fn):
@@ -1716,6 +1812,11 @@ def build_all():
     log(f"[build] " + ", ".join(f"{n} {build_seconds(n):.1f}s"
                                 for n in builders)
         + f" (in parallel: {time.perf_counter() - t0:.1f}s)")
+
+
+# the tree records' measured times beside the contract's: hot per call and
+# cold (the modelled rounds and the floor stay in the [time] lines)
+TREE_KEYS = ("hot_call_ms", "cold_ms")
 
 
 def record(name, source, replaces, launches, r, shape, **extra):
@@ -1801,14 +1902,20 @@ def main() -> int:
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
                "src/repro/kernels/replay_tree/replay_tree.py:36",
                train_launches["sample"], tree["sample"],
-               "tree 2^18 nodes (capacity 100,000), B=256"),
+               "tree 2^18 nodes (capacity 100,000), B=256",
+               **{k: tree["sample"][k] for k in TREE_KEYS},
+               profile_ms=profile_classes[3]["sample"][0]),
         record("tree_set",
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
                "src/repro/kernels/replay_tree/replay_tree.py:87",
                train_launches["set"], tree["set256"],
                "tree 2^18 nodes, n=256 (the priority refresh)",
                also_replaces="src/repro/kernels/replay_tree/"
-                             "replay_tree.py:127"),
+                             "replay_tree.py:127",
+               **{k: tree["set256"][k] for k in TREE_KEYS},
+               by_n={n: {k: tree[f"set{n}"][k] for k in ("ms", *TREE_KEYS)}
+                     for n in (32, 9984)},
+               profile_ms=profile_classes[3]["set"][0]),
         record("fused_dense",
                "src/repro_torch/kernels/dense_block/csrc/fused_dense.cu",
                "src/repro/kernels/dense_block/dense_block.py:36",

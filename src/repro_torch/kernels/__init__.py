@@ -4,7 +4,9 @@ Each kernel package keeps its sources under ``csrc/`` with a plain C
 interface. ``load_library`` compiles them with ``nvcc`` for ``sm_90a`` into
 one shared library under ``<repo>/build/kernels/``, named by a hash of the
 sources and flags (a changed source builds anew, an unchanged one loads the
-cached library), and opens it with ``ctypes``. Importing this module builds
+cached library), and opens it with ``ctypes``. A kernel whose launch shape
+is fixed at build time takes it as ``-D`` flags (``defines``), so a sweep
+builds its candidates from the same source. Importing this module builds
 and loads nothing; the first kernel launch does.
 
 Wrappers pass pointers from ``tensor.data_ptr()`` and PyTorch's current
@@ -45,10 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str, sources: Sequence[Path],
-                 headers: Sequence[Path] = ()) -> Path:
-    """Where the library of ``sources`` (and the ``headers`` they include)
-    lives once built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+                 headers: Sequence[Path] = (),
+                 defines: Sequence[str] = ()) -> Path:
+    """Where the library of ``sources`` (and the ``headers`` they include),
+    built with the ``-D`` flags ``defines``, lives once built."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -61,20 +64,22 @@ def build_seconds(name: str) -> float:
 
 
 def load_library(name: str, sources: Sequence[Path],
-                 headers: Sequence[Path] = ()) -> ctypes.CDLL:
-    """Build (once per hash of sources and headers) and load ``sources`` as
-    one library. Different libraries build concurrently from threads."""
+                 headers: Sequence[Path] = (),
+                 defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (once per hash of sources, headers and ``defines``, the ``-D``
+    flags) and load ``sources`` as one library. Different libraries build
+    concurrently from threads."""
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name in _LOADED:
             return _LOADED[name][0]
-        out = library_path(name, sources, headers)
+        out = library_path(name, sources, headers, defines)
         seconds = 0.0
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
                    *(str(s) for s in sources)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)

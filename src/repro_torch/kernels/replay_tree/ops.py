@@ -10,9 +10,12 @@ rule of the reference's ``tree_set_onehot`` and host ``SumTree``). An
 index outside the tree's leaves (the replay never produces one) raises on
 CPU tensors; on the card, where checking it would cost a host sync per
 write, the kernel skips it and counts it, and ``skipped_writes`` reads the
-count off the hot path. Temporaries freed after a launch
-go back to PyTorch's caching allocator, which reuses them only in stream
-order, after the kernel.
+count off the hot path. The write needs no scratch (its keep-last lives
+in shared memory); the sample allocates its two outputs, which go back to
+PyTorch's caching allocator when freed and are reused only in stream
+order, after the kernel. ``SAMPLE_PLAN`` and ``PDL`` are the launch shape
+the card sweep picked (``launch/bwd_sweep.py``); the library is built
+with them as constants.
 """
 from __future__ import annotations
 
@@ -30,6 +33,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "replay_tree.cu"
 _count_lock = threading.Lock()
 _launches = {"sample": 0, "set": 0}
 _skipped: Dict[torch.device, torch.Tensor] = {}   # int32 (1,) per card
+
+# (levels a round, lanes a target, levels staged in shared memory) of the
+# sample, and programmatic dependent launch for both kernels: the picks of
+# the card sweep (PERF.md)
+SAMPLE_PLAN = (5, 32, 8)
+PDL = True
 
 
 def launch_count(which: str) -> int:
@@ -59,13 +68,22 @@ def skipped_writes(device) -> int:
     return 0 if t is None else int(t.item())
 
 
-def _library() -> ctypes.CDLL:
+def build_defines(sample=SAMPLE_PLAN, pdl: bool = PDL) -> Tuple[str, ...]:
+    """The ``-D`` flags that fix ``replay_tree.cu``'s launch shapes."""
+    k, lanes, top = sample
+    return (f"-DSAMPLE_K={k}", f"-DSAMPLE_LANES={lanes}",
+            f"-DSAMPLE_TOP={top}", f"-DTREE_PDL={int(pdl)}")
+
+
+def library(name: str = "replay_tree", defines=None) -> ctypes.CDLL:
+    """The library built with ``defines`` (``build_defines()``'s, the
+    picked shapes, when None), its entry points declared."""
     from repro_torch.kernels import load_library
-    lib = load_library("replay_tree", [SOURCE])
+    lib = load_library(name, [SOURCE], defines=defines or build_defines())
     if lib.tree_sample.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tree_sample.argtypes = [p, i, i, p, i, p, p, p]
-        lib.tree_set.argtypes = [p, i, p, p, i, p, p, p]
+        lib.tree_set.argtypes = [p, i, p, p, i, p, p]
         lib.tree_sample.restype = lib.tree_set.restype = ctypes.c_int
     return lib
 
@@ -128,16 +146,14 @@ def sumtree_set(tree: torch.Tensor, idx: torch.Tensor,
     if idx.shape != value.shape:
         raise ValueError(f"sumtree_set: idx {tuple(idx.shape)} and value "
                          f"{tuple(value.shape)} differ")
-    owner = torch.empty((tree.shape[0] // 2,), dtype=torch.int32,
-                        device=tree.device)
     skipped = _skipped.get(tree.device)
     if skipped is None:
         skipped = _skipped.setdefault(tree.device, torch.zeros(
             (1,), dtype=torch.int32, device=tree.device))
     with torch.cuda.device(tree.device):
-        err = _library().tree_set(
+        err = library().tree_set(
             tree.data_ptr(), depth, idx.data_ptr(), value.data_ptr(),
-            idx.shape[0], owner.data_ptr(), skipped.data_ptr(),
+            idx.shape[0], skipped.data_ptr(),
             torch.cuda.current_stream(tree.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tree_set launch failed: CUDA error {err} "
@@ -163,7 +179,7 @@ def sumtree_sample(tree: torch.Tensor, targets: torch.Tensor, *,
     leaf = torch.empty((b,), dtype=torch.int32, device=tree.device)
     pri = torch.empty((b,), dtype=torch.float32, device=tree.device)
     with torch.cuda.device(tree.device):
-        err = _library().tree_sample(
+        err = library().tree_sample(
             tree.data_ptr(), depth, capacity, targets.data_ptr(), b,
             leaf.data_ptr(), pri.data_ptr(),
             torch.cuda.current_stream(tree.device).cuda_stream)

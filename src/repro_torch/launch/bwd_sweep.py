@@ -21,10 +21,21 @@ kernels those stacks took before it (streaming up to 32 rows,
 (``fused_dense.cu``, 3xTF32) at the paper's Ant DenseNet layer 3 and the
 ``kernels_micro`` row, every tile config and split, beside
 ``silu(addmm)``; and the card's TF32 ``mma.sync`` rate
-(``csrc/mma_peak.cu``), the ceiling of fused dense's 3xTF32. Times are CUDA events over back-to-back calls after a warm-up,
-enqueued while the card is held busy (so the wrappers' host work is not in
-them), the median of three runs; the card must be there
-(``resolve_device``).
+(``csrc/mma_peak.cu``), the ceiling of fused dense's 3xTF32. Then the
+sum-tree kernels (``replay_tree.cu``, built once for each candidate
+launch shape with ``-D`` flags) at the replay's capacity 100,000: the
+sample at B=256 for every (levels a round, lanes a target, staged top
+levels, PDL) and the write at n = 32, 256 and 9,984 with PDL and
+without, beside the port's first tree kernels (``csrc/tree_first.cu``),
+each checked bitwise against the plain version and timed hot and cold
+(the L2 flushed before every call); and the two latencies that floor
+them (``csrc/latency_probe.cu``: an empty kernel, one dependent load
+from L2 and from device memory). Times are CUDA events over back-to-back
+calls after a warm-up, enqueued while the card is held busy (so the
+wrappers' host work is not in them), the median of three runs; the card
+must be there (``resolve_device``).
+
+    python -m repro_torch.launch.bwd_sweep --only tree   # the tree rows
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.dense_block import dense_block, stack
+from repro_torch.kernels.replay_tree import ops as tree_ops, ref as tree_ref
 
 # (name, M, d0, U, L) of the training path's densenet stacks
 NETS = (("critic", 256, 516, 2048, 2), ("actor", 256, 259, 2048, 2))
@@ -52,6 +64,14 @@ WHOLE_M = (1, 8, 32, 256)
 # layer 3 and the kernels_micro row
 DENSE = (("ant_layer3", 256, (111, 2048, 2048), 2048),
          ("micro", 64, (111, 2048), 256))
+# the replay's tree, the sample's batch and the writes of the training
+# path (add, priority refresh, warm-up); the sample's launch shapes the
+# sweep builds (ops.build_defines; levels a round, lanes a target, staged
+# levels), each with PDL on and off
+TREE_CAPACITY, TREE_BATCH, TREE_WRITES = 100_000, 256, (32, 256, 9984)
+SAMPLE_SHAPES = tuple((k, lanes, top) for k, lanes in
+                      ((3, 8), (4, 16), (5, 16), (5, 32), (6, 32))
+                      for top in (0, 8, 11))
 
 
 def candidates(m: int, n: int, k: int, num_sms: int,
@@ -138,6 +158,212 @@ def _time_us(fn, reps: int = 20, runs: int = 3, copies: int = 1) -> float:
         torch.cuda.synchronize()
         samples.append(1e3 * start.elapsed_time(end) / reps)
     return statistics.median(samples)
+
+
+def l2_flusher(dev, nbytes: int = 128 << 20):
+    """A call that evicts the card's 50 MB L2 (writes ``nbytes``)."""
+    buf = torch.empty((nbytes // 4,), device=dev)
+    return buf.zero_
+
+
+def time_per_call_us(fn, flush=None, reps: int = 30) -> float:
+    """Device time of one call of ``fn()``, each bracketed by its own CUDA
+    events, after ``flush()`` where one is given (cold: the L2 evicted),
+    all enqueued while the card is held busy; the mean of the middle half
+    of ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(2e6 * max(5.0, 0.2 * reps)))
+    for start, end in events:
+        if flush is not None:
+            flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    us = sorted(1e3 * a.elapsed_time(b) for a, b in events)
+    mid = us[reps // 4:reps - reps // 4]
+    return sum(mid) / len(mid)
+
+
+LATENCY_SOURCE = Path(__file__).resolve().parent / "csrc" / \
+    "latency_probe.cu"
+FIRST_TREE_SOURCE = Path(__file__).resolve().parent / "csrc" / \
+    "tree_first.cu"
+
+
+def _latency_library():
+    import ctypes
+
+    from repro_torch.kernels import load_library
+    lib = load_library("latency_probe", [LATENCY_SOURCE])
+    if lib.chase_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.empty_launch.argtypes = [p]
+        lib.chase_launch.argtypes = [p, i, i, p, p]
+        lib.empty_launch.restype = lib.chase_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(what, err):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def latency_floor(dev=None, nbytes: int = 1 << 20) -> dict:
+    """``{"empty_us", "l2_ns", "hbm_ns"}``: an empty kernel's time as
+    ``_time_us`` takes it (back-to-back launches), and one dependent load's
+    latency from a one-thread pointer chase over ``nbytes`` (the tree's 1
+    MB) of 128-byte lines in a random cycle, each line once: hot (the
+    buffer in L2) and cold (the L2 flushed just before)."""
+    dev = resolve_device(dev)
+    lib = _latency_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    empty_us = _time_us(lambda _: _check("empty", lib.empty_launch(stream)))
+    lines = nbytes // 128
+    order = torch.randperm(lines, generator=torch.Generator().manual_seed(0))
+    nxt = torch.zeros((lines * 32,), dtype=torch.int32)
+    nxt[order * 32] = (torch.roll(order, -1) * 32).to(torch.int32)
+    nxt, out = nxt.to(dev), torch.empty((1,), dtype=torch.int32, device=dev)
+    start = int(order[0]) * 32
+
+    def chase():
+        _check("chase", lib.chase_launch(nxt.data_ptr(), lines, start,
+                                         out.data_ptr(), stream))
+    flush = l2_flusher(dev)
+    hot = time_per_call_us(chase, reps=8)
+    cold = time_per_call_us(chase, flush, reps=8)
+    return {"empty_us": empty_us, "l2_ns": 1e3 * hot / lines,
+            "hbm_ns": 1e3 * cold / lines}
+
+
+def tree_libraries(sample_shapes=SAMPLE_SHAPES):
+    """``{(shape, pdl): library}``: ``replay_tree.cu`` built for each
+    sample shape, PDL on and off, one nvcc each, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    plans = [(shape, pdl) for shape in sample_shapes
+             for pdl in (False, True)]
+
+    def build(plan):
+        defines = tree_ops.build_defines(*plan)
+        name = "replay_tree_" + "_".join(d.split("=")[1] for d in defines)
+        return plan, tree_ops.library(name, defines)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return dict(pool.map(build, plans))
+
+
+def _first_tree_library():
+    import ctypes
+
+    from repro_torch.kernels import load_library
+    lib = load_library("tree_first", [FIRST_TREE_SOURCE])
+    if lib.first_set.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.first_sample.argtypes = [p, i, i, p, i, p, p, p]
+        lib.first_set.argtypes = [p, i, p, p, i, p, p, p]
+        lib.first_sample.restype = lib.first_set.restype = ctypes.c_int
+    return lib
+
+
+def _tree_case(dev, gen):
+    """A full tree of the replay's capacity and the sample's targets."""
+    tree = tree_ops.sumtree_init(TREE_CAPACITY, dev)
+    tree_ref.tree_set_ref(tree, torch.arange(TREE_CAPACITY, device=dev),
+                          torch.rand((TREE_CAPACITY,), generator=gen,
+                                     device=dev) * 2 + 1e-3)
+    t = torch.rand((TREE_BATCH,), generator=gen, device=dev) * tree[1]
+    return tree, t
+
+
+def tree_rows(seed: int = 0) -> List[dict]:
+    """The sum-tree kernels at every launch shape of ``tree_libraries``
+    (the write has one, with PDL on and off) beside the port's first
+    kernels (``csrc/tree_first.cu``), each bitwise against the plain
+    version, hot (back to back, the tree in L2) and cold (one call right
+    after the L2 was evicted); ``*`` marks ``SAMPLE_PLAN`` with ``PDL``.
+    Then the latency floor."""
+    dev = resolve_device(None)
+    libs, first = tree_libraries(), _first_tree_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree, t = _tree_case(dev, gen)
+    depth = tree.shape[0].bit_length() - 1
+    want = tree_ref.tree_sample_ref(tree, t, capacity=TREE_CAPACITY)
+    want_pri = tree_ref.tree_get_ref(tree, want)
+    leaf = torch.empty((TREE_BATCH,), dtype=torch.int32, device=dev)
+    pri = torch.empty((TREE_BATCH,), device=dev)
+    skipped = torch.zeros((1,), dtype=torch.int32, device=dev)
+    owner = torch.empty((tree.shape[0] // 2,), dtype=torch.int32,
+                        device=dev)
+    flush = l2_flusher(dev)
+    picked = (tree_ops.SAMPLE_PLAN, tree_ops.PDL)
+    rows = []
+
+    def row(product, plan, run, is_pick=False):
+        rows.append(dict(net="tree", layer="-", product=product,
+                         shape=f"{tree.shape[0]} nodes",
+                         plan=f"{plan}, cold "
+                              f"{time_per_call_us(run, flush):6.2f} us",
+                         picked=is_pick, us=_time_us(lambda _: run())))
+
+    def sample_run(entry):
+        def run():
+            _check("tree sample", entry(
+                tree.data_ptr(), depth, TREE_CAPACITY, t.data_ptr(),
+                TREE_BATCH, leaf.data_ptr(), pri.data_ptr(), stream))
+        run()
+        if not (torch.equal(leaf, want) and torch.equal(pri, want_pri)):
+            raise AssertionError(f"{entry.__name__} != plain")
+        return run
+    row(f"sample B={TREE_BATCH}", "first design (a thread a target)",
+        sample_run(first.first_sample))
+    for (shape, pdl), lib in libs.items():
+        row(f"sample B={TREE_BATCH}", f"k={shape[0]} lanes={shape[1]:2d} "
+            f"top={shape[2]:2d} pdl={int(pdl)}", sample_run(lib.tree_sample),
+            (shape, pdl) == picked)
+    for n in TREE_WRITES:
+        if n == TREE_BATCH:      # the priority refresh: sampled leaves
+            idx = tree_ref.tree_sample_ref(tree, torch.rand(
+                (n,), generator=gen, device=dev) * tree[1],
+                capacity=TREE_CAPACITY)
+        else:
+            idx = torch.randperm(TREE_CAPACITY, generator=gen,
+                                 device=dev)[:n].to(torch.int32)
+        val = torch.rand((n,), generator=gen, device=dev) + 0.5
+        want_tree = tree_ref.tree_set_ref(tree.clone(), idx, val)
+        work = tree.clone()
+
+        def set_run(call, what):
+            def run(target=work):
+                _check(what, call(target))
+            check = tree.clone()
+            run(check)
+            if not torch.equal(check, want_tree):
+                raise AssertionError(f"{what} n={n} != plain")
+            return run
+        row(f"set n={n}", "first design (owner scratch)", set_run(
+            lambda w: first.first_set(
+                w.data_ptr(), depth, idx.data_ptr(), val.data_ptr(), n,
+                owner.data_ptr(), skipped.data_ptr(), stream), "first_set"))
+        for pdl in (False, True):
+            entry = libs[tree_ops.SAMPLE_PLAN, pdl].tree_set
+            row(f"set n={n}", f"pdl={int(pdl)}", set_run(
+                lambda w, entry=entry: entry(
+                    w.data_ptr(), depth, idx.data_ptr(), val.data_ptr(), n,
+                    skipped.data_ptr(), stream), "tree_set"),
+                pdl == tree_ops.PDL)
+    if int(skipped):
+        raise AssertionError(f"{int(skipped)} writes skipped")
+    floor = latency_floor(dev)
+    rows.append(dict(net="tree", layer="-", product="latency floor",
+                     shape="1 MB chase", plan=f"empty kernel "
+                     f"{floor['empty_us']:.2f} us, L2 load "
+                     f"{floor['l2_ns']:.0f} ns, HBM load "
+                     f"{floor['hbm_ns']:.0f} ns", picked=False,
+                     us=floor["empty_us"]))
+    return rows
 
 
 def sweep(seed: int = 0) -> List[dict]:
@@ -359,13 +585,18 @@ def mma_peak_rows(iters: int = 4096) -> List[dict]:
 
 
 def main() -> None:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
-    rows = sweep() + whole_rows() + dense_rows() + mma_peak_rows()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=("all", "tree"), default="all")
+    only = parser.parse_args().only
+    rows = tree_rows()
+    if only == "all":
+        rows = sweep() + whole_rows() + dense_rows() + mma_peak_rows() + rows
     print(f"# {torch.cuda.get_device_name(0)}; config 3 = 128x128 (the "
           f"backward only), 4 = 128x64, 5 = the weight-streaming kernel (its "
           f"last number counts rows); fused dense configs by (BM, BN): "
           f"{dict(enumerate(dense_block.TILES))}; * = plan_bwd's, "
-          f"plan_fwd's or dense_block.plan's pick")
+          f"plan_fwd's, dense_block.plan's or the tree's SAMPLE_PLAN and "
+          f"PDL pick")
     key = None
     for r in rows:
         if (r["net"], r["layer"], r["product"]) != key:
@@ -377,7 +608,7 @@ def main() -> None:
         else:
             config, _, splits, per = r["plan"]
             what = f"config {config} splits {splits:2d} ({per:3d})"
-        print(f"  {what}: {r['us']:8.1f} us{'  *' if r['picked'] else ''}")
+        print(f"  {what}: {r['us']:8.2f} us{'  *' if r['picked'] else ''}")
 
 
 if __name__ == "__main__":

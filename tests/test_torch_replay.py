@@ -241,7 +241,7 @@ def test_cuda_sumtree_kernels_match_plain(cuda_device):
     assert tops.launch_count("sample") - before == 1
     assert torch.equal(leaf.cpu(), want_leaf)
     assert torch.equal(pri.cpu(), want_pri)
-    for n in (32, 256, 9984):
+    for n in (32, 256, 9984, 100_000):      # the last: many write passes
         idx = rng.integers(0, capacity, n).astype(np.int32)
         val = rng.uniform(0, 2, n).astype(np.float32)
         want = tops.sumtree_set(tree.clone(), torch.from_numpy(idx),
@@ -249,6 +249,61 @@ def test_cuda_sumtree_kernels_match_plain(cuda_device):
         got = tops.sumtree_set(dtree.clone(), torch.from_numpy(idx).to(
             cuda_device), torch.from_numpy(val).to(cuda_device))
         assert torch.equal(got.cpu(), want), n
+
+
+def test_cuda_sumtree_every_launch_shape_matches_plain(cuda_device):
+    """Each launch shape the card sweep builds (``bwd_sweep.tree_libraries``:
+    the sample's (k, lanes, top), PDL on and off, and the write of each),
+    the write on a tree whose inner nodes are noise (it must still be the
+    reference's, bit for bit)."""
+    from repro_torch.launch import bwd_sweep
+    capacity, b, n = 100_000, 256, 3000
+    tree = _tree(capacity, 9)
+    depth = tree.shape[0].bit_length() - 1
+    rng = np.random.default_rng(10)
+    t = torch.from_numpy((rng.uniform(size=b) * float(tree[1])).astype(
+        np.float32))
+    want_leaf, want_pri = tops.sumtree_sample(tree, t, capacity=capacity)
+    half = tree.shape[0] // 2
+    noise = tree.clone()
+    noise[1:half] = torch.from_numpy(rng.uniform(0, 5, half - 1).astype(
+        np.float32))
+    idx = torch.from_numpy(rng.integers(0, capacity, n).astype(np.int32))
+    val = torch.from_numpy(rng.uniform(0, 2, n).astype(np.float32))
+    want = tops.sumtree_set(noise.clone(), idx, val)
+    dtree, dt = tree.to(cuda_device), t.to(cuda_device)
+    di, dv = idx.to(cuda_device), val.to(cuda_device)
+    leaf = torch.empty((b,), dtype=torch.int32, device=cuda_device)
+    pri = torch.empty((b,), device=cuda_device)
+    skipped = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for plan, lib in bwd_sweep.tree_libraries().items():
+        assert lib.tree_sample(dtree.data_ptr(), depth, capacity,
+                               dt.data_ptr(), b, leaf.data_ptr(),
+                               pri.data_ptr(), stream) == 0
+        assert torch.equal(leaf.cpu(), want_leaf), plan
+        assert torch.equal(pri.cpu(), want_pri), plan
+        got = noise.to(cuda_device)
+        assert lib.tree_set(got.data_ptr(), depth, di.data_ptr(),
+                            dv.data_ptr(), n, skipped.data_ptr(),
+                            stream) == 0
+        assert torch.equal(got.cpu(), want), plan
+    assert int(skipped) == 0
+
+
+def test_cuda_sumtree_set_writes_a_tree_view_at_any_offset(cuda_device):
+    """The write reads the tree a node at a time: a tree that is a view 4
+    or 8 bytes into its storage is written as any other."""
+    tree = _tree(500, 5)                    # 1,024 nodes
+    idx, val = torch.tensor([3, 7, 3]), torch.tensor([5., 8., 2.])
+    want = tops.sumtree_set(tree.clone(), idx, val)
+    buf = torch.zeros((tree.shape[0] + 2,), device=cuda_device)
+    for offset in (1, 2):
+        view = buf[offset:offset + tree.shape[0]]
+        view.copy_(tree)
+        got = tops.sumtree_set(view, idx.to(cuda_device),
+                               val.to(cuda_device))
+        assert torch.equal(got.cpu(), want), offset
 
 
 def test_cuda_sumtree_set_skips_and_counts_an_index_outside_the_leaves(
