@@ -42,9 +42,12 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
      activation, ragged (M=33, N=70) and full (the Ant DenseNet layer 3,
      M=256 K=4207 N=2048); the Ant layer's product alone also against a
      float64 product;
-   - flash attention: causal and not, window 32, softcap 50, Sq != Skv,
-     rows with no valid key (the mean of v), GQA G=4 up to the full
-     B=2 S=2048 H=16 KV=4 hd=64;
+   - flash attention (3xTF32 on ``mma.sync``, one launch a call): causal
+     and not, window 32, softcap 50, Sq != Skv, rows with no valid key
+     (the mean of v), Sq and Skv at the tiles' edges (63, 65, 127, 129,
+     2048), head dims 40 and 100, windows across key tiles, GQA G=4 up to
+     the full B=2 S=2048 H=16 KV=4 hd=64, hd=128 at S=2048 and GQA views
+     whose row strides rule out 16-byte copies;
    - SSD: ``ssd_chunk_dual`` at chunk 8, a ragged 100 and 256 (the full
      G=16 H=16 N=P=64), and the whole ``ssd_chunked_kernel`` against the
      plain ``ssd_chunked`` + D x at chunk 8 and 256.
@@ -80,8 +83,9 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
 6. Times at the main paths' shapes, each beside its plain version, a
    library yardstick the port never calls, and the least time the card
    could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
-   H100 SXM data sheet; 3xTF32 operations at 495 TFLOP/s for fused dense,
-   its fp32 SIMT bound beside it): the stack forward of the actor and
+   H100 SXM data sheet; 3xTF32 operations at 495 TFLOP/s for fused dense
+   and fp32 flash attention, their fp32 SIMT bounds logged beside them; bf16
+   flash's operations at 989 TFLOP/s): the stack forward of the actor and
    ``phi_s`` at slots 1, 8, 32, 256 and of the critic and ``phi_sa`` at
    256 (weights read cold); the
    full stack backward of each net at M=256, and
@@ -93,7 +97,11 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    each call), beside a latency floor (an empty kernel plus the plan's
    dependent rounds times one load's latency, from L2 or device memory:
    ``bwd_sweep.latency_floor``); fused dense, flash attention and the SSD
-   chunk at their full shapes (``phase_new_times``).
+   chunk at their full shapes (``phase_new_times``); flash in float32 and
+   bfloat16, each beside SDPA's GQA call pinned to the backend that takes
+   its dtype (math for float32, flash for bfloat16; named) and the
+   memory-efficient backend on K/V repeated to H heads outside the timed
+   call.
 7. One JSON line of seven kernel records, then the device line, last.
 """
 from __future__ import annotations
@@ -114,6 +122,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12          # H100 SXM, TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 on the tensor cores
 # the paper budget of benchmarks/common.py (PAPER) + Fig. 10's large width
 PAPER_BUDGET = dict(total_steps=1_000_000, warmup_steps=10_000,
                     eval_every=10_000, eval_episodes=10,
@@ -1511,18 +1520,28 @@ def phase_dense_parity(gen):
 def phase_flash_parity(gen):
     """flash_attention / gqa_flash against the plain versions: causal and
     not, window 32, softcap 50, GQA G=4, Sq != Skv, rows with no valid key
-    (the mean of v), in float32 and bfloat16, small and full shape."""
+    (the mean of v), Sq and Skv at the 64-row and 64-key tiles' edges (63,
+    65, 127, 129), head dims 40 and 100 (zero-padded k8 steps), windows
+    across key-tile edges, GQA views whose row strides rule out 16-byte
+    copies, in float32 and bfloat16, small and full shape (and hd=128 at
+    S=2048, the path that holds q in shared memory); one launch a call."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops, ref
     flat = ((100, 100, 32, True, 0, 0.0), (128, 256, 16, False, 0, 0.0),
             (128, 128, 64, True, 32, 0.0), (64, 64, 32, True, 0, 50.0),
-            (200, 130, 128, False, 32, 50.0), (128, 64, 32, True, 16, 0.0))
+            (200, 130, 128, False, 32, 50.0), (128, 64, 32, True, 16, 0.0),
+            (63, 65, 40, True, 0, 0.0), (129, 127, 100, True, 0, 0.0),
+            (65, 2048, 64, False, 0, 0.0), (2048, 129, 32, True, 0, 0.0),
+            (300, 300, 100, True, 65, 0.0), (200, 70, 64, True, 30, 0.0))
     f = FLASH_FULL
-    gqa = ((2, 96, 80, 8, 2, 32, True, 32, 0.0),
-           (f["b"], f["s"], f["s"], f["h"], f["kv"], f["hd"], True, 0, 0.0),
+    gqa = ((2, 96, 80, 8, 2, 32, True, 32, 0.0, 0),
+           (f["b"], f["s"], f["s"], f["h"], f["kv"], f["hd"], True, 0, 0.0,
+            0),
            (f["b"], f["s"], f["s"], f["h"], f["kv"], f["hd"], False, 0,
-            50.0))
+            50.0, 0),
+           (1, f["s"], f["s"], f["h"], f["kv"], 128, True, 0, 0.0, 0),
+           (2, 129, 200, 8, 2, 64, True, 0, 0.0, 3))
     worst = {}
     for dname, rtol in NEW_RTOL.items():
         dtype = getattr(torch, dname)
@@ -1530,8 +1549,11 @@ def phase_flash_parity(gen):
             dtype)
         for sq, skv, d, causal, window, cap in flat:
             q, k, v = rnd(3, sq, d), rnd(3, skv, d), rnd(3, skv, d)
+            before = fa.launch_count()
             got = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      softcap=cap)
+            if fa.launch_count() - before != 1:
+                raise AssertionError("flash_attention did not launch once")
             want = ref.attention_ref(q, k, v, causal=causal, window=window,
                                      softcap=cap)
             ok, err = close_enough(got.float(), want.float(), rtol)
@@ -1540,16 +1562,18 @@ def phase_flash_parity(gen):
                 raise AssertionError(f"flash kernel != plain: {dname} Sq={sq}"
                                      f" Skv={skv} d={d} causal={causal} "
                                      f"window={window} softcap={cap}: {err:.3e}")
-            if sq == 128 and skv == 64:            # rows 79.. see no key
-                mean_v = v.float().mean(1, keepdim=True).expand(-1, sq - 79,
-                                                                -1)
-                ok, err = close_enough(got[:, 79:].float(), mean_v, rtol)
+            first = skv + window - 1         # rows first.. see no key
+            if window and first < sq:
+                mean_v = v.float().mean(1, keepdim=True).expand(
+                    -1, sq - first, -1)
+                ok, err = close_enough(got[:, first:].float(), mean_v, rtol)
                 if not ok:
                     raise AssertionError(f"flash rows with no valid key are "
                                          f"not the mean of v ({err:.3e})")
-        for b, sq, skv, h, kvh, hd, causal, window, cap in gqa:
-            q, k, v = rnd(b, sq, h, hd), rnd(b, skv, kvh, hd), \
-                rnd(b, skv, kvh, hd)
+        for b, sq, skv, h, kvh, hd, causal, window, cap, pad in gqa:
+            # pad > 0: views of rows hd + pad wide (no 16-byte copies)
+            q, k, v = (rnd(*shape, hd + pad)[..., :hd] for shape in
+                       ((b, sq, h), (b, skv, kvh), (b, skv, kvh)))
             before = fa.launch_count()
             got = ops.gqa_flash(q, k, v, causal=causal, window=window,
                                 softcap=cap)
@@ -1565,8 +1589,10 @@ def phase_flash_parity(gen):
                                      f"hd={hd}: {err:.3e}")
     log(f"[parity] flash_attention == plain: {len(flat)} flat cases (causal "
         f"and not, window 32, softcap 50, Sq != Skv, rows with no valid key "
-        f"= mean of v) + {len(gqa)} GQA cases (G=4, the full B=2 S=2048 "
-        f"H=16 KV=4 hd=64), max abs err f32 {worst['float32']:.2e}, bf16 "
+        f"= mean of v, tile edges 63/65/127/129, hd 40 and 100, windows "
+        f"across key tiles) + {len(gqa)} GQA cases (G=4, the full B=2 S=2048 "
+        f"H=16 KV=4 hd=64, hd=128 at S=2048, views without 16-byte rows), "
+        f"one launch each, max abs err f32 {worst['float32']:.2e}, bf16 "
         f"{worst['bfloat16']:.2e}")
     return worst
 
@@ -1696,9 +1722,15 @@ def phase_new_times(gen):
     version, library yardstick, bound. Fused dense: the Ant DenseNet layer
     3 with bias and swish, W cycled through copies larger than L2;
     library ``silu(addmm(b, x, W))`` on the concat already built. Flash:
-    causal GQA at B=2 S=2048 H=16 KV=4 hd=64; library
-    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``;
-    operations counted over the causal half. SSD: one ``ssd_chunk_dual`` at
+    causal GQA at B=2 S=2048 H=16 KV=4 hd=64, float32 (bound 3 x the
+    operations at the TF32 rate, the fp32 SIMT bound beside it) and
+    bfloat16 (the operations at the bf16 rate); library: SDPA's GQA call
+    pinned to the backend that takes q's dtype, math for float32, flash for
+    bfloat16 (``bwd_sweep.sdpa_yardsticks``, named), and beside it the
+    memory-efficient backend on K/V repeated to H heads outside the timed
+    call; operations counted over the causal half. The fp32 SIMT bounds
+    are logged, not recorded.
+    SSD: one ``ssd_chunk_dual`` at
     B=2 S=2048 (G=16 cells) H=16 Q=256 N=P=64; no library call; C B^T
     counted once per cell (the heads share it)."""
     import torch
@@ -1709,6 +1741,7 @@ def phase_new_times(gen):
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import bwd_sweep
     rows = {}
     m, n, widths = DENSE_FULL["m"], DENSE_FULL["n"], DENSE_FULL["widths"]
     k = sum(widths)
@@ -1730,10 +1763,9 @@ def phase_new_times(gen):
         lambda c: dref.dense_concat_matmul_ref(parts, c[0], c[1]),
         lambda c: F.silu(torch.addmm(c[1], xcat, c[0])), copies,
         nbytes, 3 * flops, err, peak=TF32_FLOPS_PER_S)
-    r["bound_fp32_simt_ms"] = _bound(nbytes, flops)[0]
     log(f"[time]   fused_dense bounds: 3xTF32 tensor {r['bound_ms'] * 1e3:.1f}"
         f" us (3 x {flops / 1e9:.2f} GFLOP at 495 TFLOP/s), fp32 SIMT "
-        f"{r['bound_fp32_simt_ms'] * 1e3:.1f} us ({flops / 1e9:.2f} GFLOP at "
+        f"{_bound(nbytes, flops)[0] * 1e3:.1f} us ({flops / 1e9:.2f} GFLOP at "
         f"67 TFLOP/s); kernel {r['ms'] * 1e3:.1f} us, silu(addmm) "
         f"{r['library_ms'] * 1e3:.1f} us ("
         f"{'faster' if r['ms'] <= r['library_ms'] else 'SLOWER'} than it)")
@@ -1743,19 +1775,43 @@ def phase_new_times(gen):
     q = rnd(f["b"], f["s"], f["h"], f["hd"])
     kk, v = rnd(f["b"], f["s"], f["kv"], f["hd"]), \
         rnd(f["b"], f["s"], f["kv"], f["hd"])
-    _, err = close_enough(fops.gqa_flash(q, kk, v),
-                          fref.plain_attention(q, kk, v))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
     pairs = f["s"] * (f["s"] + 1) // 2             # causal (q, k) pairs
-    rows["flash_attention"] = _time_row(
-        f"gqa_flash B={f['b']} S={f['s']} H={f['h']} KV={f['kv']} "
-        f"hd={f['hd']} causal",
-        lambda _: fops.gqa_flash(q, kk, v),
-        lambda _: fref.plain_attention(q, kk, v),
-        lambda _: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 enable_gqa=True), [0],
-        4 * f["b"] * f["s"] * f["hd"] * (2 * f["h"] + 2 * f["kv"]),
-        4 * f["hd"] * pairs * f["b"] * f["h"], err)
+    flops = 4 * f["hd"] * pairs * f["b"] * f["h"]
+    nbytes = 4 * f["b"] * f["s"] * f["hd"] * (2 * f["h"] + 2 * f["kv"])
+    name = (f"gqa_flash B={f['b']} S={f['s']} H={f['h']} KV={f['kv']} "
+            f"hd={f['hd']} causal")
+    for dname, rtol in NEW_RTOL.items():
+        dtype = getattr(torch, dname)
+        qd, kd, vd = q.to(dtype), kk.to(dtype), v.to(dtype)
+        _, err = close_enough(fops.gqa_flash(qd, kd, vd).float(),
+                              fref.plain_attention(qd, kd, vd).float(), rtol)
+        (lib, lib_fn), (rep_name, rep_fn) = bwd_sweep.sdpa_yardsticks(
+            qd, kd, vd).items()
+        # fp32: three TF32 products a pair on the tensor cores (3xTF32),
+        # its bound theirs, an fp32 SIMT bound beside it; bf16: two TF32
+        # products, against the card's bf16 tensor rate
+        split = dname == "float32"
+        r = _time_row(
+            f"{name} {dname} ({'3xTF32' if split else 'TF32 x2'}; library "
+            f"{lib})",
+            lambda _: fops.gqa_flash(qd, kd, vd),
+            lambda _: fref.plain_attention(qd, kd, vd), lib_fn, [0],
+            nbytes // (1 if split else 2), 3 * flops if split else flops,
+            err, peak=TF32_FLOPS_PER_S if split else BF16_FLOPS_PER_S)
+        r["library"] = lib
+        r["library_repeat_kv_ms"] = time_ms(rep_fn, [0])[0]
+        line = (f"[time]   flash {dname}: kernel {r['ms'] * 1e3:.1f} us; "
+                f"{lib} {r['library_ms'] * 1e3:.1f} us, {rep_name} "
+                f"{r['library_repeat_kv_ms'] * 1e3:.1f} us; bound ")
+        if split:
+            rows["flash_attention"] = r
+            log(line + f"3xTF32 tensor {r['bound_ms'] * 1e3:.1f} us (3 x "
+                f"{flops / 1e9:.2f} GFLOP at 495 TFLOP/s), fp32 SIMT "
+                f"{_bound(nbytes, flops)[0] * 1e3:.1f} us (at 67 TFLOP/s)")
+        else:
+            rows["flash_attention"]["bf16"] = r
+            log(line + f"{r['bound_ms'] * 1e3:.1f} us ({flops / 1e9:.2f} "
+                f"GFLOP at 989 TFLOP/s, bf16 tensor)")
 
     s = SSD_FULL
     g, qq = s["b"] * s["s"] // s["chunk"], s["chunk"]
@@ -1923,15 +1979,21 @@ def main() -> int:
                f"M={DENSE_FULL['m']}, parts {list(DENSE_FULL['widths'])}, "
                f"N={DENSE_FULL['n']}, swish + bias (Ant DenseNet layer 3); "
                f"launches from kernels_micro.run(); 3xTF32 on the tensor "
-               f"cores, bound_ms theirs",
-               bound_fp32_simt_ms=new["fused_dense"]["bound_fp32_simt_ms"]),
+               f"cores, bound_ms theirs"),
         record("flash_attention",
                "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
                "src/repro/kernels/flash_attention/flash_attention.py:33",
                micro_launches["flash_attention"], new["flash_attention"],
-               "gqa_flash B=2 S=2048 H=16 KV=4 hd=64 causal; launches from "
-               "kernels_micro.run()"),
+               "gqa_flash B=2 S=2048 H=16 KV=4 hd=64 causal, float32; "
+               "launches from kernels_micro.run(); 3xTF32 on the tensor "
+               "cores, bound_ms theirs; bf16: the same shape in bfloat16",
+               **{k: new["flash_attention"][k] for k in (
+                   "library", "library_repeat_kv_ms")},
+               bf16={k: new["flash_attention"]["bf16"][k] for k in (
+                   "ms", "plain_ms", "library_ms", "library",
+                   "library_repeat_kv_ms", "bound_ms", "bound_by",
+                   "max_abs_err")}),
         record("ssd_chunk_dual",
                "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan/ssd_scan.py:24",

@@ -13,13 +13,17 @@ kernel maps query head h to kv head ``h // (H // KV)``. The TPU kernel's
 block sizes ``bq/bkv`` and its ``interpret`` flag do not carry over (the
 CUDA kernel masks ragged Sq and Skv, so neither needs to be a multiple of a
 block). Inputs are float32 or bfloat16, one dtype for q, k and v, head dim
-at most 128.
+at most 128. ``PLAN`` is the kernel's launch shape and exp form, the card
+sweep's pick (``launch/bwd_sweep.py --only flash``); the library is built
+with it as constants (``build_defines``), so the wrapper has no runtime
+knob.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -28,6 +32,10 @@ from repro_torch.kernels.flash_attention import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (warps a block, keys a tile, fast exp): a block owns 16 query rows a warp
+# and streams K/V tiles through a 2-stage ring; the softmax's e^x is
+# ``__expf`` if fast exp is 1, else ``expf``
+PLAN = (4, 64, 1)
 
 _count_lock = threading.Lock()
 _launches = 0
@@ -50,9 +58,19 @@ def _count_launch() -> None:
         _launches += 1
 
 
-def _library() -> ctypes.CDLL:
+def build_defines(plan=PLAN) -> Tuple[str, ...]:
+    """The ``-D`` flags that fix ``flash_attention.cu``'s launch shape and
+    exp form."""
+    warps, bkv, fast_exp = plan
+    return (f"-DFLASH_WARPS={warps}", f"-DFLASH_BKV={bkv}",
+            f"-DFLASH_FAST_EXP={int(fast_exp)}")
+
+
+def _library(name: str = "flash_attention", defines=None) -> ctypes.CDLL:
+    """The library built with ``defines`` (``build_defines()``'s, the
+    picked shape, when None), its entry point declared."""
     from repro_torch.kernels import load_library
-    lib = load_library("flash_attention", [SOURCE])
+    lib = load_library(name, [SOURCE], defines=defines or build_defines())
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,14 +92,33 @@ def _check(window: int, softcap: float) -> None:
                          f">= 0 (0 turns either off)")
 
 
+def _launch(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, causal: bool, window: int,
+            softcap: float) -> None:
+    """One launch of the C entry ``entry`` (``flash_attention_fwd``'s
+    arguments) on checked ``(B, H, S, d)`` views; raises on a CUDA error."""
+    bsz, heads, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = entry(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), (ctypes.c_longlong * 12)(*strides), bsz, heads,
+            kvh, sq, skv, d, int(causal), int(window), float(softcap),
+            d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry.__name__} launch failed: CUDA error "
+                           f"{err} (B={bsz}, H={heads}, KV={kvh}, Sq={sq}, "
+                           f"Skv={skv}, d={d})")
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, *, causal: bool, window: int,
            softcap: float) -> torch.Tensor:
     """One launch on ``(B, H, S, d)`` views (any strides, unit stride in
     d): q and ``out`` ``(B, H, Sq, d)``, k and v ``(B, KV, Skv, d)``.
     Writes ``out`` and returns it."""
-    bsz, heads, sq, d = q.shape
-    kvh, skv = k.shape[1], k.shape[2]
+    d = q.shape[-1]
     named = (("q", q), ("k", k), ("v", v), ("out", out))
     for name, t in named:
         if t.device != q.device:
@@ -99,18 +136,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernel takes head dims up to "
                          f"{MAX_HEAD_DIM}, got {d}")
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), (ctypes.c_longlong * 12)(*strides), bsz, heads,
-            kvh, sq, skv, d, int(causal), int(window), float(softcap),
-            d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err} (B={bsz}, H={heads}, KV={kvh}, Sq={sq}, "
-                           f"Skv={skv}, d={d})")
+    _launch(_library().flash_attention_fwd, q, k, v, out, causal, window,
+            softcap)
     _count_launch()
     return out
 

@@ -30,12 +30,24 @@ without, beside the port's first tree kernels (``csrc/tree_first.cu``),
 each checked bitwise against the plain version and timed hot and cold
 (the L2 flushed before every call); and the two latencies that floor
 them (``csrc/latency_probe.cu``: an empty kernel, one dependent load
-from L2 and from device memory). Times are CUDA events over back-to-back
-calls after a warm-up, enqueued while the card is held busy (so the
-wrappers' host work is not in them), the median of three runs; the card
-must be there (``resolve_device``).
+from L2 and from device memory). Then flash attention
+(``flash_attention.cu``, 3xTF32 on ``mma.sync``, built once for each
+candidate with ``-D`` flags: warps a block, keys a tile, ``expf`` or
+``__expf`` in the softmax) at the full shape (B=2 S=2048 H=16 KV=4 hd=64,
+causal) and the ``kernels_micro`` row's (B=1 S=256 H=8 KV=4 hd=32),
+float32 and bfloat16, each candidate held against the plain version,
+beside the port's first flash kernel (``csrc/flash_first.cu``), two SDPA
+yardsticks (the GQA call on the backend that takes q's dtype, math for
+float32 and flash for bfloat16; the memory-efficient backend on K/V
+already repeated to H heads), the plain version and the kernel's
+arithmetic emulated (``ref.emulated_attention``), every error also
+against a float64 attention. Times are
+CUDA events over back-to-back calls after a warm-up, enqueued while the
+card is held busy (so the wrappers' host work is not in them), the median
+of three runs; the card must be there (``resolve_device``).
 
-    python -m repro_torch.launch.bwd_sweep --only tree   # the tree rows
+    python -m repro_torch.launch.bwd_sweep --only tree    # the tree rows
+    python -m repro_torch.launch.bwd_sweep --only flash   # the flash rows
 """
 from __future__ import annotations
 
@@ -50,6 +62,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.dense_block import dense_block, stack
+from repro_torch.kernels.flash_attention import flash_attention as flash
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.replay_tree import ops as tree_ops, ref as tree_ref
 
 # (name, M, d0, U, L) of the training path's densenet stacks
@@ -72,6 +86,12 @@ TREE_CAPACITY, TREE_BATCH, TREE_WRITES = 100_000, 256, (32, 256, 9984)
 SAMPLE_SHAPES = tuple((k, lanes, top) for k, lanes in
                       ((3, 8), (4, 16), (5, 16), (5, 32), (6, 32))
                       for top in (0, 8, 11))
+# (name, B, S, H, KV, hd) of the flash rows, causal: the full shape and the
+# kernels_micro row; the kernel's builds the sweep times (warps a block,
+# keys a tile, fast exp; flash_attention.build_defines)
+FLASH_PLANS = tuple((w, bkv, fe) for w in (4, 8) for bkv in (32, 64)
+                    for fe in (1, 0))
+FLASH_CASES = (("full", 2, 2048, 16, 4, 64), ("micro", 1, 256, 8, 4, 32))
 
 
 def candidates(m: int, n: int, k: int, num_sms: int,
@@ -192,6 +212,8 @@ LATENCY_SOURCE = Path(__file__).resolve().parent / "csrc" / \
     "latency_probe.cu"
 FIRST_TREE_SOURCE = Path(__file__).resolve().parent / "csrc" / \
     "tree_first.cu"
+FIRST_FLASH_SOURCE = Path(__file__).resolve().parent / "csrc" / \
+    "flash_first.cu"
 
 
 def _latency_library():
@@ -363,6 +385,152 @@ def tree_rows(seed: int = 0) -> List[dict]:
                      f"{floor['l2_ns']:.0f} ns, HBM load "
                      f"{floor['hbm_ns']:.0f} ns", picked=False,
                      us=floor["empty_us"]))
+    return rows
+
+
+def flash_libraries(plans=FLASH_PLANS):
+    """``{plan: library}``: ``flash_attention.cu`` built for each launch
+    shape, one nvcc each, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build(plan):
+        defines = flash.build_defines(plan)
+        name = "flash_attention_" + "_".join(map(str, plan))
+        return plan, flash._library(name, defines)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return dict(pool.map(build, plans))
+
+
+def _first_flash_library():
+    import ctypes
+
+    from repro_torch.kernels import load_library
+    lib = load_library("flash_first", [FIRST_FLASH_SOURCE])
+    fn = lib.flash_first_fwd
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def sdpa_yardsticks(q, k, v):
+    """Two SDPA calls computing causal GQA attention on ``(B, S, H, hd)``
+    q and ``(B, S, KV, hd)`` k, v, as ``{label: fn}``, both pinned to their
+    backend with ``sdpa_kernel``: the GQA call (``enable_gqa``) on the
+    backend that takes it in q's dtype, math for float32 (flash takes no
+    float32, and only flash and math take GQA), flash for bfloat16, labelled
+    by its name; and the memory-efficient backend on K/V repeated to H
+    heads, the repeat built here, outside the timed call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    g = q.shape[2] // k.shape[2]
+    kr, vr = (t.repeat_interleave(g, 1) for t in (kt, vt))
+
+    def pinned(backend, *args, **kw):
+        def run(_=None):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(*args, is_causal=True,
+                                                      **kw)
+        return run
+    backend = SDPBackend.MATH if q.dtype == torch.float32 else \
+        SDPBackend.FLASH_ATTENTION
+    return {f"sdpa {backend.name.lower()}, enable_gqa":
+            pinned(backend, qt, kt, vt, enable_gqa=True),
+            "sdpa efficient_attention, K/V repeated":
+            pinned(SDPBackend.EFFICIENT_ATTENTION, qt, kr, vr)}
+
+
+def flat_heads(t, heads: int):
+    """``(B, S, KV, hd)`` -> ``(B*heads, S, hd)``, kv head i repeated for
+    query heads i*G .. i*G + G - 1 (G = heads / KV)."""
+    b, s, kvh, hd = t.shape
+    return t.permute(0, 2, 1, 3).repeat_interleave(heads // kvh, 1).reshape(
+        b * heads, s, hd)
+
+
+def attention_f64(q, k, v):
+    """Causal GQA attention of ``(B, S, H, hd)`` q and ``(B, S, KV, hd)``
+    k, v in float64, ``(B*H, S, hd)``: what the float32 versions' errors
+    are measured against."""
+    h, s, hd = q.shape[2], q.shape[1], q.shape[3]
+    q, k, v = (flat_heads(t, h).double() for t in (q, k, v))
+    sc = (q * hd ** -0.5) @ k.transpose(1, 2)
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    return torch.where(ok, sc, -1e30).softmax(-1) @ v
+
+
+def flash_rows(seed: int = 0) -> List[dict]:
+    """Flash attention at each ``FLASH_CASES`` shape, float32 and bfloat16:
+    every build of ``flash_libraries`` (each held against the plain
+    version: 1e-4 float32, 2e-2 bfloat16, rtol and atol * max|plain|), the
+    port's first kernel (``csrc/flash_first.cu``) and the SDPA yardsticks;
+    ``*`` marks ``flash.PLAN``. Each row's max abs error is given against
+    the plain version and (``f64``) against ``attention_f64``, beside the
+    plain version's own and ``ref.emulated_attention``'s (not timed) with
+    each exp, its sums rounded to nearest, and with the plan's exp, its
+    sums rounded toward zero a k8 MMA at a time as the tensor cores round
+    them: what sets the kernel's error."""
+    dev = resolve_device(None)
+    libs, first = flash_libraries(), _first_flash_library()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    view = lambda t: t.permute(0, 2, 1, 3)
+    rows = []
+    for name, b, s, h, kvh, hd in FLASH_CASES:
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            q = torch.randn((b, s, h, hd), generator=gen, device=dev)
+            k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=dev)
+                    for _ in range(2))
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            want = flash_ref.plain_attention(q, k, v).float()
+            exact = attention_f64(q, k, v)
+            to_flat = lambda t: flat_heads(t, h)
+            f64 = lambda t: float((t.double() - exact).abs().max())
+            out = torch.empty_like(q)
+            label = f"{name} {str(dtype)[6:]}"
+            shape = f"B={b} S={s} H={h} KV={kvh} hd={hd} causal"
+
+            def run(entry):
+                def call(_=None):
+                    flash._launch(entry, view(q), view(k), view(v),
+                                  view(out), True, 0, 0.0)
+                call()
+                err = (out.float() - want).abs()
+                bar = rtol * want.abs() + rtol * want.abs().max()
+                if not bool(torch.all(err <= bar)):
+                    raise AssertionError(f"{entry.__name__} {label}: max "
+                                         f"abs err {float(err.max()):.3e}")
+                return call, (float(err.max()), f64(to_flat(out)))
+
+            def row(plan, call, err=None, is_pick=False):
+                what = plan if err is None else \
+                    f"{plan}, err {err[0]:.1e} (f64 {err[1]:.1e})"
+                rows.append(dict(net="flash", layer=label,
+                                 product="attention", shape=shape, plan=what,
+                                 picked=is_pick,
+                                 us=None if call is None else
+                                 _time_us(call)))
+            plain = lambda _=None: flash_ref.plain_attention(q, k, v)
+            row("plain version", plain, (0.0, f64(to_flat(want))))
+            for fast, rz in ((0, False), (1, False), (flash.PLAN[2], True)):
+                got = flash_ref.emulated_attention(
+                    to_flat(q), to_flat(k), to_flat(v), causal=True,
+                    fast_exp=bool(fast), mma_rz=rz)
+                row(f"emulation (not timed), exp="
+                    f"{'__expf' if fast else 'expf'}, sums "
+                    f"{'toward zero a k8 MMA' if rz else 'to nearest'}", None,
+                    (float((got - to_flat(want)).abs().max()), f64(got)))
+            row("first design (SIMT, 8 warps, 64-key tiles)",
+                *run(first.flash_first_fwd))
+            for plan, lib in libs.items():
+                row(f"warps={plan[0]} bkv={plan[1]:2d} "
+                    f"exp={'__expf' if plan[2] else 'expf'}",
+                    *run(lib.flash_attention_fwd), is_pick=plan == flash.PLAN)
+            for what, call in sdpa_yardsticks(q, k, v).items():
+                got = call().transpose(1, 2)
+                row(what, call, (float((got.float() - want).abs().max()),
+                                 f64(to_flat(got))))
     return rows
 
 
@@ -586,17 +754,19 @@ def mma_peak_rows(iters: int = 4096) -> List[dict]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("all", "tree"), default="all")
+    parser.add_argument("--only", choices=("all", "tree", "flash"),
+                        default="all")
     only = parser.parse_args().only
-    rows = tree_rows()
+    rows = flash_rows() if only == "flash" else tree_rows()
     if only == "all":
-        rows = sweep() + whole_rows() + dense_rows() + mma_peak_rows() + rows
+        rows = sweep() + whole_rows() + dense_rows() + mma_peak_rows() + \
+            rows + flash_rows()
     print(f"# {torch.cuda.get_device_name(0)}; config 3 = 128x128 (the "
           f"backward only), 4 = 128x64, 5 = the weight-streaming kernel (its "
           f"last number counts rows); fused dense configs by (BM, BN): "
           f"{dict(enumerate(dense_block.TILES))}; * = plan_bwd's, "
-          f"plan_fwd's, dense_block.plan's or the tree's SAMPLE_PLAN and "
-          f"PDL pick")
+          f"plan_fwd's, dense_block.plan's, the tree's SAMPLE_PLAN and "
+          f"PDL or flash_attention.PLAN pick")
     key = None
     for r in rows:
         if (r["net"], r["layer"], r["product"]) != key:
@@ -608,6 +778,9 @@ def main() -> None:
         else:
             config, _, splits, per = r["plan"]
             what = f"config {config} splits {splits:2d} ({per:3d})"
+        if r["us"] is None:
+            print(f"  {what}")
+            continue
         print(f"  {what}: {r['us']:8.2f} us{'  *' if r['picked'] else ''}")
 
 
