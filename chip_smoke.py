@@ -48,9 +48,13 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
      2048), head dims 40 and 100, windows across key tiles, GQA G=4 up to
      the full B=2 S=2048 H=16 KV=4 hd=64, hd=128 at S=2048 and GQA views
      whose row strides rule out 16-byte copies;
-   - SSD: ``ssd_chunk_dual`` at chunk 8, a ragged 100 and 256 (the full
-     G=16 H=16 N=P=64), and the whole ``ssd_chunked_kernel`` against the
-     plain ``ssd_chunked`` + D x at chunk 8 and 256.
+   - SSD (3xTF32 on ``mma.sync``, one launch a call): ``ssd_chunk_dual``
+     at chunk 8, a ragged 100, 256 (the full G=16 H=16 N=P=64) and 1024
+     (longer than the t-tile), H=3 (not a multiple of the heads a block),
+     N=4 with P=8 (padding), P=100 and 128, and x views whose row stride
+     rules out 16-byte copies; the whole ``ssd_chunked_kernel`` (its state
+     pass a fixed number of torch ops) against the plain ``ssd_chunked`` +
+     D x, and its final state, at chunk 8 and 256.
 4. Serving main path: the paper's "large" Fig. 10 SAC agent
    (``fig10-ablation`` at the paper budget, 2048 units, fused blocks,
    pendulum) is initialised on the card from a seed, saved with the port's
@@ -85,7 +89,9 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
    H100 SXM data sheet; 3xTF32 operations at 495 TFLOP/s for fused dense
    and fp32 flash attention, their fp32 SIMT bounds logged beside them; bf16
-   flash's operations at 989 TFLOP/s): the stack forward of the actor and
+   flash's operations at 989 TFLOP/s; fp32 SSD: the larger of its bytes
+   and 3xTF32 operations, bf16 SSD its operations at 989): the stack
+   forward of the actor and
    ``phi_s`` at slots 1, 8, 32, 256 and of the critic and ``phi_sa`` at
    256 (weights read cold); the
    full stack backward of each net at M=256, and
@@ -101,7 +107,7 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    bfloat16, each beside SDPA's GQA call pinned to the backend that takes
    its dtype (math for float32, flash for bfloat16; named) and the
    memory-efficient backend on K/V repeated to H heads outside the timed
-   call.
+   call; the SSD chunk in float32 and bfloat16.
 7. One JSON line of seven kernel records, then the device line, last.
 """
 from __future__ import annotations
@@ -1597,12 +1603,14 @@ def phase_flash_parity(gen):
     return worst
 
 
-def _ssd_chunk_inputs(gen, g, h, q, n, p, dtype):
+def _ssd_chunk_inputs(gen, g, h, q, n, p, dtype, pad=0):
+    """c, b, x, cum, dt, state, D on the card; pad > 0: x a view of rows
+    p + pad wide (no 16-byte copies)."""
     import torch
     import torch.nn.functional as F
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     c, b, x = rnd(g, q, n).to(dtype), rnd(g, q, n).to(dtype), \
-        rnd(g, h, q, p).to(dtype)
+        rnd(g, h, q, p + pad)[..., :p].to(dtype)
     cum = torch.cumsum(-F.softplus(rnd(g, h, q)), -1)
     return c, b, x, cum, F.softplus(rnd(g, h, q)), rnd(g, h, p, n), rnd(h)
 
@@ -1616,26 +1624,37 @@ def _ssd_seq_inputs(gen, b, s, h, p, n):
 
 
 def phase_ssd_parity(gen):
-    """ssd_chunk_dual against the plain version at chunk 8 and 256 (and a
-    ragged 100), float32 and bfloat16; the whole ssd_chunked_kernel
-    against the plain ssd_chunked + D x at chunk 8 and 256."""
+    """ssd_chunk_dual against the plain version at chunk 8, a ragged 100,
+    256 and 1024, H=3, N=4 with P=8, P=100 and 128, and x views without
+    16-byte rows, float32 and bfloat16, one launch a call; the whole
+    ssd_chunked_kernel against the plain ssd_chunked + D x at chunk 8 and
+    256."""
     import torch
     from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
     s = SSD_FULL
-    chunks = ((4, 2, 8, 4, 16), (3, 2, 100, 24, 40),
-              (s["b"] * s["s"] // 256, s["h"], 256, s["n"], s["p"]))
+    # (G, H, Q, N, P, pad): pad > 0, x rows p + pad wide (4- or 8-byte
+    # copies)
+    chunks = ((4, 2, 8, 4, 16, 0), (3, 2, 100, 24, 40, 0),
+              (s["b"] * s["s"] // 256, s["h"], 256, s["n"], s["p"], 0),
+              (2, 3, 1024, 64, 64, 0), (3, 3, 100, 4, 8, 0),
+              (2, 5, 300, 64, 128, 0), (2, 3, 130, 32, 100, 0),
+              (3, 3, 200, 64, 64, 3), (2, 4, 96, 16, 40, 2))
     worst = {}
     for dname, rtol in NEW_RTOL.items():
         dtype = getattr(torch, dname)
-        for shape in chunks:
-            args = _ssd_chunk_inputs(gen, *shape, dtype)
+        for *shape, pad in chunks:
+            args = _ssd_chunk_inputs(gen, *shape, dtype, pad)
+            before = ssd_scan.launch_count()
             got = ssd_scan.ssd_chunk_dual(*args)
+            if ssd_scan.launch_count() - before != 1:
+                raise AssertionError("ssd_chunk_dual did not launch once")
             want = ref.ssd_chunk_dual_ref(*args)
             ok, err = close_enough(got.float(), want.float(), rtol)
             worst[dname] = max(worst.get(dname, 0.0), err)
             if not ok:
                 raise AssertionError(f"ssd kernel != plain: {dname} (G, H, Q,"
-                                     f" N, P)={shape}: {err:.3e}")
+                                     f" N, P)={tuple(shape)} pad {pad}: "
+                                     f"{err:.3e}")
     for chunk in (8, 256):
         x, b, c, dt, log_a, d_skip = _ssd_seq_inputs(
             gen, s["b"], s["s"], s["h"], s["p"], s["n"])
@@ -1653,7 +1672,8 @@ def phase_ssd_parity(gen):
             raise AssertionError(f"ssd_chunked_kernel != plain ssd_chunked + "
                                  f"D x at chunk {chunk}: y {err:.3e}, final "
                                  f"state {err2:.3e}")
-    log(f"[parity] ssd_chunk_dual == plain at (G, H, Q, N, P) {chunks}; "
+    log(f"[parity] ssd_chunk_dual == plain at (G, H, Q, N, P, x pad) "
+        f"{chunks}, one launch each; "
         f"ssd_chunked_kernel == plain ssd_chunked + D x (and final state) at "
         f"B=2 S=2048 H=16 P=N=64, chunk 8 and 256; max abs err f32 "
         f"{worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e}")
@@ -1731,8 +1751,11 @@ def phase_new_times(gen):
     call; operations counted over the causal half. The fp32 SIMT bounds
     are logged, not recorded.
     SSD: one ``ssd_chunk_dual`` at
-    B=2 S=2048 (G=16 cells) H=16 Q=256 N=P=64; no library call; C B^T
-    counted once per cell (the heads share it)."""
+    B=2 S=2048 (G=16 cells) H=16 Q=256 N=P=64, float32 (bound: the larger
+    of its bytes and 3 x its operations at the TF32 rate, the kernel's
+    3xTF32) and bfloat16 (its operations at the bf16 rate); no library
+    call; C B^T counted once per cell (the heads share it); the fp32 SIMT
+    bound logged beside."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.dense_block import ops as dops
@@ -1815,21 +1838,40 @@ def phase_new_times(gen):
 
     s = SSD_FULL
     g, qq = s["b"] * s["s"] // s["chunk"], s["chunk"]
-    args = _ssd_chunk_inputs(gen, g, s["h"], qq, s["n"], s["p"],
-                             torch.float32)
-    _, err = close_enough(ssd_scan.ssd_chunk_dual(*args),
-                          sref.ssd_chunk_dual_ref(*args))
     tri = qq * (qq + 1) // 2
     flops = g * 2 * s["n"] * tri + g * s["h"] * (
         2 * s["p"] * tri + 2 * qq * s["p"] * s["n"] + 2 * qq * s["p"])
-    nbytes = 4 * (2 * g * qq * s["n"] + 2 * g * s["h"] * qq * s["p"]
-                  + 2 * g * s["h"] * qq + g * s["h"] * s["p"] * s["n"]
-                  + s["h"])
-    rows["ssd_chunk_dual"] = _time_row(
-        f"ssd_chunk_dual G={g} H={s['h']} Q={qq} N={s['n']} P={s['p']}",
-        lambda _: ssd_scan.ssd_chunk_dual(*args),
-        lambda _: sref.ssd_chunk_dual_ref(*args), None, [0], nbytes, flops,
-        err)
+    name = f"ssd_chunk_dual G={g} H={s['h']} Q={qq} N={s['n']} P={s['p']}"
+    for dname, rtol in NEW_RTOL.items():
+        dtype = getattr(torch, dname)
+        args = _ssd_chunk_inputs(gen, g, s["h"], qq, s["n"], s["p"], dtype)
+        _, err = close_enough(ssd_scan.ssd_chunk_dual(*args).float(),
+                              sref.ssd_chunk_dual_ref(*args).float(), rtol)
+        e = args[0].element_size()              # c, b, x and y's bytes
+        nbytes = e * (2 * g * qq * s["n"] + 2 * g * s["h"] * qq * s["p"]) \
+            + 4 * (2 * g * s["h"] * qq + g * s["h"] * s["p"] * s["n"]
+                   + s["h"])
+        split = dname == "float32"
+        r = _time_row(
+            f"{name} {dname} ({'3xTF32' if split else 'TF32, bf16 exact'})",
+            lambda _: ssd_scan.ssd_chunk_dual(*args),
+            lambda _: sref.ssd_chunk_dual_ref(*args), None, [0], nbytes,
+            3 * flops if split else flops, err,
+            peak=TF32_FLOPS_PER_S if split else BF16_FLOPS_PER_S)
+        if split:
+            rows["ssd_chunk_dual"] = r
+            log(f"[time]   ssd fp32: kernel {r['ms'] * 1e3:.1f} us; bound "
+                f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
+                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, 3 x "
+                f"{flops / 1e9:.2f} GFLOP of TF32 at 495 TFLOP/s "
+                f"{3e6 * flops / TF32_FLOPS_PER_S:.1f} us), fp32 SIMT "
+                f"{_bound(nbytes, flops)[0] * 1e3:.1f} us (at 67 TFLOP/s)")
+        else:
+            rows["ssd_chunk_dual"]["bf16"] = r
+            log(f"[time]   ssd bf16: kernel {r['ms'] * 1e3:.1f} us; bound "
+                f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at 989 "
+                f"TFLOP/s, bf16 tensor)")
     return rows
 
 
@@ -1998,8 +2040,13 @@ def main() -> int:
                "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan/ssd_scan.py:24",
                micro_launches["ssd_chunk_dual"], new["ssd_chunk_dual"],
-               "G=16 H=16 Q=256 N=P=64 (B=2 S=2048 at chunk 256); launches "
-               "from kernels_micro.run()"),
+               "G=16 H=16 Q=256 N=P=64 (B=2 S=2048 at chunk 256), float32; "
+               "launches from kernels_micro.run(); 3xTF32 on the tensor "
+               "cores, bound_ms the larger of bytes and theirs; bf16: the "
+               "same shape in bfloat16",
+               bf16={k: new["ssd_chunk_dual"]["bf16"][k] for k in (
+                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "max_abs_err")}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,13 +41,22 @@ yardsticks (the GQA call on the backend that takes q's dtype, math for
 float32 and flash for bfloat16; the memory-efficient backend on K/V
 already repeated to H heads), the plain version and the kernel's
 arithmetic emulated (``ref.emulated_attention``), every error also
-against a float64 attention. Times are
+against a float64 attention. Then the SSD chunk (``ssd_scan.cu``, 3xTF32
+on ``mma.sync``, built once for each candidate with ``-D`` flags: heads a
+block sharing C B^T, warps, s-tile width, ``expf`` or ``__expf``; each build's registers and spilled bytes a thread beside it)
+at the full shape (G=16 H=16 Q=256 N=P=64) and the ``kernels_micro``
+row's chunk (G=8 H=4 Q=16 N=8 P=16), float32 and bfloat16, each
+candidate held against the plain version, beside the port's first SSD
+kernel (``csrc/ssd_first.cu``), the plain version and the kernel's
+arithmetic emulated (``ref.emulated_ssd_chunk``), every error also against
+a float64 chunk. Times are
 CUDA events over back-to-back calls after a warm-up, enqueued while the
 card is held busy (so the wrappers' host work is not in them), the median
 of three runs; the card must be there (``resolve_device``).
 
     python -m repro_torch.launch.bwd_sweep --only tree    # the tree rows
     python -m repro_torch.launch.bwd_sweep --only flash   # the flash rows
+    python -m repro_torch.launch.bwd_sweep --only ssd     # the SSD rows
 """
 from __future__ import annotations
 
@@ -65,6 +74,7 @@ from repro_torch.kernels.dense_block import dense_block, stack
 from repro_torch.kernels.flash_attention import flash_attention as flash
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.replay_tree import ops as tree_ops, ref as tree_ref
+from repro_torch.kernels.ssd_scan import ref as ssd_ref, ssd_scan
 
 # (name, M, d0, U, L) of the training path's densenet stacks
 NETS = (("critic", 256, 516, 2048, 2), ("actor", 256, 259, 2048, 2))
@@ -92,6 +102,13 @@ SAMPLE_SHAPES = tuple((k, lanes, top) for k, lanes in
 FLASH_PLANS = tuple((w, bkv, fe) for w in (4, 8) for bkv in (32, 64)
                     for fe in (1, 0))
 FLASH_CASES = (("full", 2, 2048, 16, 4, 64), ("micro", 1, 256, 8, 4, 32))
+# (name, G, H, Q, N, P) of the SSD rows: the full shape (B=2 S=2048 at
+# chunk 256) and the kernels_micro row's chunk; the kernel's builds the
+# sweep times (heads a block, warps, s-tile width, fast exp;
+# ssd_scan.build_defines)
+SSD_PLANS = ((1, 4, 32, 1), (2, 4, 32, 1), (4, 4, 32, 1), (1, 4, 64, 1),
+             (2, 4, 64, 1), (2, 8, 32, 1), (4, 8, 32, 1), (2, 4, 32, 0))
+SSD_CASES = (("full", 16, 16, 256, 64, 64), ("micro", 8, 4, 16, 8, 16))
 
 
 def candidates(m: int, n: int, k: int, num_sms: int,
@@ -214,6 +231,8 @@ FIRST_TREE_SOURCE = Path(__file__).resolve().parent / "csrc" / \
     "tree_first.cu"
 FIRST_FLASH_SOURCE = Path(__file__).resolve().parent / "csrc" / \
     "flash_first.cu"
+FIRST_SSD_SOURCE = Path(__file__).resolve().parent / "csrc" / \
+    "ssd_first.cu"
 
 
 def _latency_library():
@@ -534,6 +553,116 @@ def flash_rows(seed: int = 0) -> List[dict]:
     return rows
 
 
+def ssd_libraries(plans=SSD_PLANS):
+    """``{plan: library}``: ``ssd_scan.cu`` built for each plan, one nvcc
+    each, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build(plan):
+        name = "ssd_scan_" + "_".join(map(str, plan))
+        return plan, ssd_scan._library(name, ssd_scan.build_defines(plan))
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return dict(pool.map(build, plans))
+
+
+def _first_ssd_library():
+    import ctypes
+
+    from repro_torch.kernels import load_library
+    lib = load_library("ssd_first", [FIRST_SSD_SOURCE])
+    fn = lib.ssd_first_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_f64(c, b, x, cum, dt, state, d_skip):
+    """``ref.ssd_chunk_dual_ref``'s function in float64 (masked before the
+    exp): what the float32 versions' errors are measured against."""
+    c, b, x, cum, dt, state = (t.double() for t in
+                               (c, b, x, cum, dt, state))
+    q = c.shape[1]
+    ok = torch.ones((q, q), dtype=torch.bool, device=c.device).tril()
+    rel = torch.where(ok, cum[..., :, None] - cum[..., None, :], -math.inf)
+    m = (c @ b.transpose(1, 2))[:, None] * rel.exp() * dt[:, :, None, :]
+    return m @ x + cum.exp()[..., None] * (c[:, None] @ state.transpose(
+        2, 3)) + d_skip.double()[None, :, None, None] * x
+
+
+def ssd_rows(seed: int = 0) -> List[dict]:
+    """The SSD chunk at each ``SSD_CASES`` shape, float32 and bfloat16:
+    every build of ``ssd_libraries`` (each held against the plain version:
+    1e-4 float32, 2e-2 bfloat16, rtol and atol * max|plain|; its registers
+    and spilled bytes a thread at that P), the port's first kernel
+    (``csrc/ssd_first.cu``) and the plain version; ``*`` marks
+    ``ssd_scan.PLAN``. Each row's max abs error is given against the plain
+    version and (``f64``) against ``ssd_f64``, beside
+    ``ref.emulated_ssd_chunk``'s (not timed; the plan's exp, its sums
+    rounded toward zero a k8 MMA at a time as the tensor cores round
+    them)."""
+    import ctypes
+    import torch.nn.functional as F
+    dev = resolve_device(None)
+    libs, first = ssd_libraries(), _first_ssd_library()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for name, g, h, q, n, p in SSD_CASES:
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+            c, b, x = (rnd(*s).to(dtype) for s in
+                       ((g, q, n), (g, q, n), (g, h, q, p)))
+            cum = torch.cumsum(-F.softplus(rnd(g, h, q)), -1)
+            args = (c, b, x, cum, F.softplus(rnd(g, h, q)),
+                    rnd(g, h, p, n), rnd(h))
+            want = ssd_ref.ssd_chunk_dual_ref(*args).float()
+            exact = ssd_f64(*args)
+            f64 = lambda t: float((t.double() - exact).abs().max())
+            out = torch.empty_like(x)
+            label = f"{name} {str(dtype)[6:]}"
+            shape = f"G={g} H={h} Q={q} N={n} P={p}"
+
+            def run(entry):
+                def call(_=None):
+                    ssd_scan._launch(*args, out, entry=entry)
+                call()
+                err = (out.float() - want).abs()
+                bar = rtol * want.abs() + rtol * want.abs().max()
+                if not bool(torch.all(err <= bar)):
+                    raise AssertionError(f"{entry.__name__} {label}: max "
+                                         f"abs err {float(err.max()):.3e}")
+                return call, (float(err.max()), f64(out))
+
+            def row(plan, call, err=None, is_pick=False):
+                what = plan if err is None else \
+                    f"{plan}, err {err[0]:.1e} (f64 {err[1]:.1e})"
+                rows.append(dict(net="ssd", layer=label, product="chunk",
+                                 shape=shape, plan=what, picked=is_pick,
+                                 us=None if call is None else
+                                 _time_us(call)))
+            row("plain version",
+                lambda _=None: ssd_ref.ssd_chunk_dual_ref(*args),
+                (0.0, f64(want)))
+            emu = ssd_ref.emulated_ssd_chunk(
+                *args, fast_exp=bool(ssd_scan.PLAN[3]), mma_rz=True,
+                s_tile=ssd_scan.PLAN[2])
+            row("emulation (not timed), sums toward zero a k8 MMA", None,
+                (float((emu - want).abs().max()), f64(emu)))
+            row("first design (SIMT, 256 threads, C B^T a head)",
+                *run(first.ssd_first_fwd))
+            regs, spill = ctypes.c_int(), ctypes.c_int()
+            code = int(dtype == torch.bfloat16)
+            for plan, lib in libs.items():
+                lib.ssd_kernel_attrs(code, code, p, ctypes.byref(regs),
+                                     ctypes.byref(spill))
+                row(f"heads={plan[0]} warps={plan[1]} bs={plan[2]} "
+                    f"exp={'__expf' if plan[3] else 'expf'} "
+                    f"({regs.value} regs, {spill.value} B spilled)",
+                    *run(lib.ssd_chunk_fwd), is_pick=plan == ssd_scan.PLAN)
+    return rows
+
+
 def sweep(seed: int = 0) -> List[dict]:
     """The rows: one per product and candidate plan, with its time."""
     dev = resolve_device(None)
@@ -754,19 +883,19 @@ def mma_peak_rows(iters: int = 4096) -> List[dict]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("all", "tree", "flash"),
+    parser.add_argument("--only", choices=("all", "tree", "flash", "ssd"),
                         default="all")
     only = parser.parse_args().only
-    rows = flash_rows() if only == "flash" else tree_rows()
+    rows = {"flash": flash_rows, "ssd": ssd_rows}.get(only, tree_rows)()
     if only == "all":
         rows = sweep() + whole_rows() + dense_rows() + mma_peak_rows() + \
-            rows + flash_rows()
+            rows + flash_rows() + ssd_rows()
     print(f"# {torch.cuda.get_device_name(0)}; config 3 = 128x128 (the "
           f"backward only), 4 = 128x64, 5 = the weight-streaming kernel (its "
           f"last number counts rows); fused dense configs by (BM, BN): "
           f"{dict(enumerate(dense_block.TILES))}; * = plan_bwd's, "
           f"plan_fwd's, dense_block.plan's, the tree's SAMPLE_PLAN and "
-          f"PDL or flash_attention.PLAN pick")
+          f"PDL, flash_attention.PLAN or ssd_scan.PLAN pick")
     key = None
     for r in rows:
         if (r["net"], r["layer"], r["product"]) != key:
