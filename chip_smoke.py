@@ -80,6 +80,20 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    ``[tree-prof]``; the int32 fills of the whole superstep, read, not
    asserted). ``phase_fwd_fills`` then asserts that
    the stack forward itself issues no int32 fill.
+   ``execution.loop="scan"`` (``phase_graph``, ``[graph]`` lines): the
+   same spec's superstep captured as a CUDA graph by ``Trainer.chunk_fn``,
+   with the wrapper counts of the warm-up and the captured superstep held
+   to ``expected_launches``; 20 replays against 20 eager supersteps from
+   one state, bitwise on every state tensor and the generator's state,
+   then an eval after each, bitwise too; wall per superstep of both loops
+   in turns (host clock, 40 supersteps a run); a replay's device time
+   (CUDA events) and, from ``torch.profiler``, its device busy (the union
+   of the device intervals), idle share, kernels per replay, the
+   copy-back's time and a breakdown by class (``[graph-prof]``);
+   ``Experiment.run`` in chunks of 17 + 23 supersteps against one call of
+   40 and ``loop="python"`` (eval every 10, srank every 5), bitwise on the
+   state, returns and sranks; the epilogue's srank against
+   ``effective_rank`` on the CPU over the same features.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
    (the fused dense, flash and SSD kernels, which no training or serving
    path runs) with every count set to 0 just before; each row must launch
@@ -1093,6 +1107,288 @@ def phase_train_profile(exp, steps=10):
         {c: tuple(v) for c, v in tree.items()}
 
 
+GRAPH_K = 20        # replays held bitwise against eager supersteps
+GRAPH_TIMED = 40    # supersteps a loop, timed on the host clock
+
+
+def _state_names(ls):
+    """``(name, tensor)`` of every state tensor, in ``state_leaves``'
+    order (sorted dict keys, as ``tree_leaves``)."""
+    from repro_torch.rl.runner import state_leaves
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from walk(tree[k], f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from walk(v, f"{path}/{i}")
+        else:
+            yield path, tree
+    named = [*walk(ls.agent, "agent"),
+             *((f"actors/{f}", t) for f, t in zip(ls.actors._fields,
+                                                  ls.actors)),
+             *(walk(ls.nstep, "nstep") if ls.nstep is not None else ()),
+             *walk(ls.replay, "replay"), ("step", ls.step)]
+    leaves = state_leaves(ls)
+    if len(named) != len(leaves) or any(
+            t is not u for (_, t), u in zip(named, leaves)):
+        raise AssertionError("state names out of step with state_leaves")
+    return named
+
+
+def state_diff(a, b):
+    """``[(name, max abs difference)]`` of the state tensors of ``a`` and
+    ``b`` that are not bitwise equal, the generator's state included."""
+    import torch
+    bad = [(name, float((x.double() - y.double()).abs().max()))
+           for (name, x), (_, y) in zip(_state_names(a), _state_names(b))
+           if not torch.equal(x, y)]
+    if not torch.equal(a.gen.get_state(), b.gen.get_state()):
+        bad.append(("gen", float("nan")))
+    return bad
+
+
+def graph_class(key):
+    """'copy-back' (the foreach copy into the static state), 'adamw' (the
+    other foreach kernels: the optimizer's) or None, for a profiler kernel
+    name."""
+    if "multi_tensor_apply_kernel" not in key:
+        return None
+    return "copy-back" if "Copy" in key else "adamw"
+
+
+def busy_union_ms(prof):
+    """The time at least one device operation ran, in ms, from a profile's
+    device events (the union of their intervals: kernels on two streams
+    that overlap count once), or None without device events."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    total, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            total, lo = total + hi - lo, a
+        hi = max(hi, b)
+    return (total + hi - lo) / 1e3
+
+
+def superstep_class(key):
+    """The class of a superstep's kernel for the breakdown under replay:
+    the forward's, the backward's and the tree's classes, the foreach
+    kernels', else 'other' (elementwise, reductions, library products)."""
+    for prefix, c in (("fwd ", fwd_class(key)), ("bwd ",
+                                                 bwd_product_class(key)),
+                      ("tree ", tree_class(key)), ("", graph_class(key))):
+        if c is not None:
+            return prefix + c
+    return "other"
+
+
+def phase_graph(spec):
+    """``execution.loop="scan"`` on the card: the superstep captured once
+    as a CUDA graph (``Trainer.chunk_fn``) against the eager superstep, at
+    the training phase's full width."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.effective_rank import effective_rank
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state, state_leaves
+    scan = spec.override(loop="scan")
+    exp = Experiment.from_spec(scan)
+    tr = exp.trainer
+    want = expected_launches(tr)
+    exp._ensure_init()
+    ls0 = clone_state(exp._ls)
+
+    # capture: the warm-up superstep, then the captured one; the wrapper
+    # counters see each (replays are invisible to them)
+    per_call, step_fn = [], tr.step
+
+    def counted(ls, draws=None):
+        before = _counts()
+        out = step_fn(ls, draws)
+        after = _counts()
+        per_call.append({k: after[k] - before[k] for k in after})
+        return out
+    tr.step = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.chunk_fn(1, False)(clone_state(ls0))     # warm-up + capture only
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    tr.step = step_fn
+    if per_call != [want, want]:
+        raise AssertionError(f"launches at warm-up and capture {per_call}, "
+                             f"want {want} each")
+    graph = tr.graph
+    log(f"[graph] capture of one superstep ({t_cap:.2f}s with the warm-up "
+        f"superstep): launches counted at warm-up and at capture, each "
+        f"{want} (expected_launches); copy-back "
+        f"{graph.copied_bytes / 1e6:.1f} MB a replay ({len(state_leaves(ls0))}"
+        f" state tensors in all)")
+
+    # K replays against K eager supersteps, then an eval draw after each
+    eager = clone_state(ls0)
+    for _ in range(GRAPH_K):
+        eager, _, _ = tr.step(eager)
+    replayed, _ = tr.chunk_fn(GRAPH_K, False)(clone_state(ls0))
+    torch.cuda.synchronize()
+    bad = state_diff(eager, replayed)
+    if bad:
+        raise AssertionError(f"{GRAPH_K} replays != {GRAPH_K} eager "
+                             f"supersteps in {len(bad)} state tensors, first"
+                             f" (name, max abs diff): {bad[:8]}")
+    ev_e, ev_g = tr.evaluate(eager), tr.evaluate(replayed)
+    bad = state_diff(eager, replayed)
+    if not torch.equal(ev_e, ev_g) or bad:
+        raise AssertionError(f"eval after {GRAPH_K} replays != after eager:"
+                             f" returns {ev_e.tolist()} vs {ev_g.tolist()},"
+                             f" state {bad[:8]}")
+    n_el = sum(t.numel() for t in state_leaves(eager))
+    log(f"[graph] bitwise: {GRAPH_K} replays == {GRAPH_K} eager supersteps "
+        f"from one state on all {len(state_leaves(eager))} state tensors "
+        f"({n_el} elements: params, AdamW moments and counts, actors, "
+        f"replay store, sum-tree, max priority, add steps, step) and the "
+        f"generator's state; an eval after each: the same "
+        f"{ev_e.numel()} returns (mean {float(ev_e.mean()):.6g}) and "
+        f"generator state")
+
+    # wall per superstep, host clock, eager and graph in turns
+    walls = []
+    for loop in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if loop == "eager":
+            for _ in range(GRAPH_TIMED):
+                eager, _, _ = tr.step(eager)
+        else:
+            replayed, _ = tr.chunk_fn(GRAPH_TIMED, False)(replayed)
+        torch.cuda.synchronize()
+        walls.append((loop, 1e3 * (time.perf_counter() - t0) / GRAPH_TIMED))
+    log(f"[graph] wall per superstep, host clock, {GRAPH_TIMED} supersteps "
+        f"a run, in turns: " + ", ".join(f"{k} {ms:.3f} ms"
+                                         for k, ms in walls)
+        + f" (eager {np.mean([m for k, m in walls if k == 'eager']):.3f},"
+        f" graph {np.mean([m for k, m in walls if k == 'graph']):.3f})")
+
+    # device time of a replay with the host out of its way (CUDA events,
+    # the card held busy first), then the profiler's view of replays
+    reps = 10
+    samples = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e6 * 20))
+        start.record()
+        graph.replay(reps)
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph.replay(reps)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    summed = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    union = busy_union_ms(prof)
+    classes = {}
+    for e in events:
+        c = classes.setdefault(superstep_class(e.key), [0.0, 0.0])
+        c[0] += e.self_device_time_total / 1e3 / reps
+        c[1] += e.count / reps
+    ev_ms = float(np.median(samples))
+    if events and union is not None:
+        busy_ms = union / reps
+        cb, aw = classes.get("copy-back", (0, 0)), classes.get("adamw",
+                                                              (0, 0))
+        log(f"[graph-prof] {reps} replays under the profiler: "
+            f"{wall_ms:.3f} ms wall per superstep, device busy "
+            f"{busy_ms:.3f} ms (union of the device intervals; summed "
+            f"kernel time {summed:.3f}), idle share "
+            f"{100 * (1 - busy_ms / wall_ms):.1f}%; "
+            f"{sum(e.count for e in events) / reps:.0f} kernels per replay;"
+            f" copy-back {cb[0]:.4f} ms over {cb[1]:.1f} kernels (bound "
+            f"{2 * graph.copied_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms: "
+            f"{graph.copied_bytes / 1e6:.1f} MB read and written); AdamW's "
+            f"foreach kernels {aw[0]:.4f} ms over {aw[1]:.1f}")
+        log("[graph-prof] by class, ms/replay (kernels): " + ", ".join(
+            f"{c} {ms:.3f} ({n:.0f})" for c, (ms, n) in
+            sorted(classes.items(), key=lambda kv: -kv[1][0])))
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[graph-prof]   {e.self_device_time_total / reps / 1e3:8.3f}"
+                f" ms/replay {e.count / reps:6.1f}x  {e.key[:90]}")
+    else:
+        log("[graph-prof] the profiler saw no device time under replay: "
+            "busy share, kernels per replay and the copy-back not measured")
+    log(f"[graph] device time per replay (CUDA events, card held busy, "
+        f"{reps} replays, median of 3): {ev_ms:.3f} ms "
+        f"({', '.join(f'{x:.3f}' for x in samples)})")
+    del exp, tr, graph, eager, replayed, ls0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # chunking: 17 + 23 against one call of 40 and the python loop, eval
+    # every 10, srank every 5
+    cspec = scan.override(eval_every=10, srank_every=5)
+    runs = {}
+    for name, loop, calls in (("17+23", "scan", (17, 23)),
+                              ("40", "scan", (40,)),
+                              ("python", "python", (40,))):
+        e = Experiment.from_spec(cspec.override(loop=loop))
+        t0 = time.perf_counter()
+        for n in calls:
+            r = e.run(n)
+        torch.cuda.synchronize()
+        runs[name] = (e, r, time.perf_counter() - t0)
+    base_e, base_r, _ = runs["17+23"]
+    for name in ("40", "python"):
+        e, r, _ = runs[name]
+        bad = state_diff(base_e._ls, e._ls)
+        if bad or r.returns != base_r.returns or r.sranks != base_r.sranks \
+                or r.eval_steps != base_r.eval_steps:
+            raise AssertionError(
+                f"chunked run 17+23 != {name}: state {bad[:8]}, returns "
+                f"{base_r.returns} vs {r.returns}, sranks {base_r.sranks} vs"
+                f" {r.sranks}, eval steps {base_r.eval_steps} vs "
+                f"{r.eval_steps}")
+    if base_r.eval_steps != [10, 20, 30, 40] or len(base_r.sranks) != 8:
+        raise AssertionError(f"eval steps {base_r.eval_steps}, sranks "
+                             f"{base_r.sranks}")
+    log(f"[graph] chunking: Experiment.run loop='scan' as 17 + 23 "
+        f"supersteps == one call of 40 == loop='python', bitwise on every "
+        f"state tensor and the generator; returns {base_r.returns} at "
+        f"{base_r.eval_steps}, sranks {base_r.sranks} equal ("
+        + ", ".join(f"{k} {v[2]:.1f}s" for k, v in runs.items()) + ")")
+
+    # the epilogue's srank against the CPU's on the same features: the last
+    # chunk (35-40) took it from the graph's static q_features
+    tr40 = runs["40"][0].trainer
+    feats = tr40.graph.metrics["q_features"].cpu()
+    cpu = int(effective_rank(feats))
+    sig = np.linalg.svd(feats.double().numpy(), compute_uv=False)
+    margin = float(np.min(np.abs(np.cumsum(sig) / sig.sum() - 0.99)))
+    if cpu != runs["40"][1].sranks[-1]:
+        raise AssertionError(f"epilogue srank {runs['40'][1].sranks[-1]} "
+                             f"!= CPU effective_rank {cpu} (nearest "
+                             f"cumulative share {margin:.2e} from 0.99)")
+    log(f"[graph] srank: the epilogue's {cpu} at step 40 == effective_rank "
+        f"on the CPU over the same q_features {tuple(feats.shape)} (nearest"
+        f" cumulative share {margin:.2e} from 1 - delta)")
+    del runs, base_e, e, tr40
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_fwd_fills(gen):
     """The int32 fills the stack forward itself issues (split counters
     once came from a ``torch.zeros`` per launch): ``torch.profiler`` over
@@ -1964,6 +2260,7 @@ def main() -> int:
                                replay_kernel="pallas")
     exp, train_launches = phase_train(train_spec)
     profile_classes = phase_train_profile(exp)
+    phase_graph(train_spec)
     phase_fwd_fills(gen)
     micro_launches = phase_micro()
 

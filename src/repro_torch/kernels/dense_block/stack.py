@@ -37,7 +37,11 @@ launch: PyTorch's caching allocator hands their memory out again only in
 stream order, after the kernel has run (a tensor one stream makes and the
 other uses is recorded for it). Split counters come from one zeroed
 buffer per (device, stream) (``_tile_counters``), which every forward and
-backward kernel leaves at zero, so no launch fills them.
+backward kernel leaves at zero, so no launch fills them. Under CUDA graph
+capture the workspaces come from the graph's pool and keep their addresses
+at replay; the counter buffers and the backward's side stream must already
+be cached for the capture stream (a warm-up call there), else the call
+raises rather than allocate inside the capture.
 
 Buffer layout (logical widths, no lane padding; see the kernel's header):
 densenet writes every layer into its column slot of one ``(M, d0 + L*U)``
@@ -482,6 +486,19 @@ _counter_bufs: dict = {}
 _side_streams: dict = {}
 
 
+def _no_capture(cache: str) -> None:
+    """Raise where a cache would be filled while a CUDA graph captures:
+    its buffer or stream would be made inside the graph. A warm-up call on
+    the capture stream fills the caches first. (No capture is underway
+    before CUDA is initialized; the CPU tests call the caches without it.)"""
+    if torch.cuda.is_initialized() and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{cache}: cache miss while a CUDA graph captures the current "
+            f"stream; run the captured work once on the capture stream "
+            f"before capturing it")
+
+
 def _tile_counters(n: int, dev: torch.device, stream: int) -> torch.Tensor:
     """``n`` zeroed int32 counters for a backward launch on ``stream``.
 
@@ -493,6 +510,7 @@ def _tile_counters(n: int, dev: torch.device, stream: int) -> torch.Tensor:
     with _state_lock:
         buf = _counter_bufs.get(key)
         if buf is None or buf.numel() < n:
+            _no_capture("_tile_counters")
             size = max(n, 1024, 0 if buf is None else 2 * buf.numel())
             buf = torch.zeros((size,), device=dev, dtype=torch.int32)
             _counter_bufs[key] = buf
@@ -507,6 +525,7 @@ def _side_stream(dev: torch.device, main: torch.cuda.Stream
     with _state_lock:
         side = _side_streams.get(key)
         if side is None:
+            _no_capture("_side_stream")
             side = _side_streams[key] = torch.cuda.Stream(device=dev)
         return side
 

@@ -148,6 +148,10 @@ def sumtree_set(tree: torch.Tensor, idx: torch.Tensor,
                          f"{tuple(value.shape)} differ")
     skipped = _skipped.get(tree.device)
     if skipped is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "sumtree_set: the skip counter of this card is made at its "
+                "first write; write once before capturing a CUDA graph")
         skipped = _skipped.setdefault(tree.device, torch.zeros(
             (1,), dtype=torch.int32, device=tree.device))
     with torch.cuda.device(tree.device):

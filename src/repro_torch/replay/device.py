@@ -8,7 +8,8 @@ plain version for one on the CPU. Semantics are the reference's:
 stratified proportional sampling, ``(|p| + eps) ** alpha`` priorities,
 ``(N * p) ** -beta`` importance weights normalized by the batch max.
 Randomness comes in as an argument: ``replay_sample`` takes its ``(B,)``
-uniform draws. Operations update the state in place and return it.
+uniform draws. Operations update the state in place, every tensor at its
+address (so a captured superstep can replay them), and return it.
 """
 from __future__ import annotations
 
@@ -126,8 +127,8 @@ def replay_update(cfg: DeviceReplayConfig, state: ReplayState,
     if cfg.uniform:
         return state
     pr = torch.abs(priorities.to(torch.float32)) + cfg.eps
-    state["max_priority"] = torch.maximum(state["max_priority"],
-                                          torch.max(pr))
+    mp = state["max_priority"]
+    torch.maximum(mp, torch.max(pr), out=mp)
     sumtree_set(state["tree"], idx, pr ** cfg.alpha)
     return state
 

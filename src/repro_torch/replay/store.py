@@ -3,12 +3,12 @@
 
 The store is a dict of preallocated ``(capacity, ...)`` tensors plus an
 int32 write cursor and live count, all on the device; ``store_add`` writes
-in place and never syncs with the host (the cursor arithmetic stays on the
-device). The n-step ring (Ape-X n-step returns, Horgan et al. 2018) sits in
-front of the store: each incoming 1-step transition displaces the one from
-n-1 steps ago, emitted with the discounted reward sum over its window and
-a ``disc`` bootstrap coefficient (gamma^span * (1-done), truncated at
-episode boundaries).
+all of them in place and never syncs with the host (the cursor arithmetic
+stays on the device). The n-step ring (Ape-X n-step returns, Horgan et al.
+2018) sits in front of the store: each incoming 1-step transition
+displaces the one from n-1 steps ago, emitted with the discounted reward
+sum over its window and a ``disc`` bootstrap coefficient (gamma^span *
+(1-done), truncated at episode boundaries).
 """
 from __future__ import annotations
 
@@ -56,8 +56,10 @@ def store_add(store: Store, batch: Dict[str, torch.Tensor]
     rows = idx.long()
     for k, v in store["data"].items():
         v.index_copy_(0, rows, batch[k].to(v.dtype))
-    store["ptr"] = ((store["ptr"] + n) % cap).to(torch.int32)
-    store["count"] = torch.clamp(store["count"] + n, max=cap).to(torch.int32)
+    # the cursor and count keep their tensors (a captured superstep reads
+    # and writes them at fixed addresses)
+    store["ptr"].copy_((store["ptr"] + n) % cap)
+    store["count"].copy_(torch.clamp(store["count"] + n, max=cap))
     return store, idx
 
 

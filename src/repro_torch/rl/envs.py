@@ -137,8 +137,8 @@ def make_cartpole_swingup() -> EnvSpec:
                            dim=-1)
 
     def reset(draws):
-        base = torch.tensor([0.0, math.pi], dtype=torch.float32,
-                            device=draws.device)
+        base = torch.zeros((2,), dtype=torch.float32, device=draws.device)
+        base[1] = math.pi       # a fill, not a host copy: capture-safe
         q0 = base + 0.05 * draws
         return _state(q0, torch.zeros_like(q0))
 

@@ -7,8 +7,13 @@ validation rule here is the reference's, including a copy of
 ``repro.guard.monitor.GuardSpec``.
 
 ``Experiment.from_spec(spec).run(steps)`` trains on the card (or on the
-CPU with ``device="cpu"``) through ``runner.Trainer``: evaluation fires at
-absolute multiples of ``eval.every``, as in the reference. ``save`` and
+CPU with ``device="cpu"``) through ``runner.Trainer``: evaluation and the
+effective rank fire at absolute multiples of ``eval.every`` and
+``eval.srank_every``, as in the reference, in both loops:
+``execution.loop="python"`` steps one superstep at a time,
+``execution.loop="scan"`` runs chunks that stop at those multiples
+(``Trainer.chunk_fn``: replays of a CUDA graph of the superstep on the
+card). Any chunking of a run gives the same state, bit for bit. ``save`` and
 ``restore`` with the bitwise-resume contract are not ported yet (ROADMAP
 A.2) and raise.
 """
@@ -21,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.common import ACTIVATIONS
 from repro_torch.core.blocks import BLOCK_BACKENDS, CONNECTIVITIES
+from repro_torch.core.effective_rank import effective_rank
 from repro_torch.core.ofenet import OFENetConfig
 from repro_torch.rl.envs import ENVS
 
@@ -407,7 +413,8 @@ class Experiment:
     first ``run``/``policy`` initializes the state (agent init + the
     random-policy warm-up). ``run(steps)`` advances ``steps`` supersteps,
     evaluating at absolute multiples of ``spec.eval.every`` (and at the end
-    of the call with ``eval_at_end``)."""
+    of the call with ``eval_at_end``) and taking the effective rank of the
+    critic's features at those of ``spec.eval.srank_every``."""
 
     def __init__(self, spec: ExperimentSpec, *, device=None):
         from repro_torch.rl.runner import Trainer
@@ -417,6 +424,7 @@ class Experiment:
         self.step = 0
         self.returns: List[float] = []
         self.eval_steps: List[int] = []
+        self.sranks: List[int] = []
         self._rows: List[Dict[str, float]] = []
         self._last_metrics: Dict[str, float] = {}
         self._last_batch = None
@@ -447,28 +455,58 @@ class Experiment:
             progress: Optional[Callable] = None, eval_at_end: bool = False,
             keep_last: bool = False):
         """Advance ``steps`` supersteps (default: the spec budget) and
-        return the cumulative ``RunResult``. ``execution.loop`` "python"
-        and "scan" run the same eager loop in the port."""
+        return the cumulative ``RunResult``. Eval and srank fire at absolute
+        multiples of ``eval.every`` and ``eval.srank_every`` wherever calls
+        start and stop (eval also at this call's end with
+        ``eval_at_end``); ``keep_last`` keeps the final sampled batch and
+        its priorities."""
         t0 = time.time()
-        every = self.spec.eval.every
+        ev = self.spec.eval
+        every, srank_every = ev.every, ev.srank_every
         if steps is None:
             steps = self.spec.execution.total_steps
         self._ensure_init()
         trainer, ls = self.trainer, self._ls
-        metrics = batch = None
         step, end = self.step, self.step + steps
-        while step < end:
-            step += 1
-            ls, metrics, batch = trainer.step(ls)
-            if step % every == 0 or (eval_at_end and step == end):
-                rets = trainer.evaluate(ls).cpu().numpy()
-                self._record_eval(
-                    step, float(rets.mean()),
-                    {k: float(v) for k, v in metrics.items()
-                     if v.ndim == 0}, progress)
-        if keep_last and metrics is not None:
-            self._last_batch = batch
-            self._last_priorities = metrics["priorities"]
+        if self.spec.execution.loop == "scan":
+            # chunks stop at every eval and every srank point, as the
+            # reference's scan loop does
+            while step < end:
+                stops = [(step // every + 1) * every, end]
+                if srank_every:
+                    stops.append((step // srank_every + 1) * srank_every)
+                stop = min(stops)
+                do_eval = stop % every == 0 or (eval_at_end and stop == end)
+                do_srank = bool(srank_every) and stop % srank_every == 0
+                ls, out = trainer.chunk_fn(stop - step, do_eval,
+                                           do_srank)(ls)
+                step = stop
+                if do_srank:
+                    self.sranks.append(int(out["srank"]))
+                if keep_last and stop == end:
+                    self._last_batch, self._last_priorities = out["last"]
+                if do_eval:
+                    self._record_eval(
+                        step, float(out["eval"].cpu().numpy().mean()),
+                        {k: float(v) for k, v in out["scal"].items()},
+                        progress)
+        else:
+            metrics = batch = None
+            while step < end:
+                step += 1
+                ls, metrics, batch = trainer.step(ls)
+                if srank_every and step % srank_every == 0:
+                    self.sranks.append(int(effective_rank(
+                        metrics["q_features"])))
+                if step % every == 0 or (eval_at_end and step == end):
+                    rets = trainer.evaluate(ls).cpu().numpy()
+                    self._record_eval(
+                        step, float(rets.mean()),
+                        {k: float(v) for k, v in metrics.items()
+                         if v.ndim == 0}, progress)
+            if keep_last and metrics is not None:
+                self._last_batch = batch
+                self._last_priorities = metrics["priorities"]
         self._ls, self.step = ls, end
         self._wall += time.time() - t0
         return self.result(include_state=keep_last)
@@ -494,7 +532,7 @@ class Experiment:
         from repro_torch.rl.runner import RunResult
         return RunResult(
             returns=list(self.returns), eval_steps=list(self.eval_steps),
-            sranks=[], metrics=dict(self._last_metrics),
+            sranks=list(self.sranks), metrics=dict(self._last_metrics),
             param_count=self.trainer.n_params, wall_time_s=self._wall,
             state=(self._ls.agent if include_state and self._ls is not None
                    else None),

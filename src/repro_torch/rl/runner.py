@@ -7,31 +7,35 @@ superstep is the reference's ``_device_step``:
     collect (1 env step per actor) -> n-step ring -> replay add ->
     stratified sample -> sac_update -> priority refresh
 
-The port runs eagerly, so ``execution.loop`` "python" and "scan" run the
-same superstep loop (capturing a chunk of supersteps as a CUDA graph is
-later work, ROADMAP A.3). All of a run's randomness comes from one
-``torch.Generator`` on the run's device, seeded from ``execution.seed``
-and carried in ``TrainLoopState.gen``; ``step`` takes the superstep's
-draws as an argument when given (a test feeds the reference's), else draws
-them from that generator.
+``execution.loop="python"`` calls ``Trainer.step`` once a superstep.
+``execution.loop="scan"`` runs chunks of supersteps through
+``Trainer.chunk_fn``, the port of the reference's: on the card the
+superstep is captured once as a CUDA graph (``StepGraph``) and a chunk of
+n supersteps is n replays of it, then an eager epilogue (srank, eval); on
+the CPU a chunk is n eager supersteps. Both loops give the same state, bit
+for bit. All of a run's randomness comes from one ``torch.Generator`` on
+the run's device, seeded from ``execution.seed`` and carried in
+``TrainLoopState.gen`` (the graph advances it as the eager steps would);
+``step`` takes the superstep's draws as an argument when given (a test
+feeds the reference's), else draws them from that generator.
 
 Not ported yet, and refused at construction with the ROADMAP item that
-brings it: TD3 training, the host replay, mesh sharding, effective-rank
-instrumentation, obs telemetry and the guards. On the card the sum-tree
-runs its CUDA kernels, so ``replay.kernel`` must be "pallas" there (the
-reference's "xla" names its plain scatter twin, which the port runs only
-for tensors on the CPU).
+brings it: TD3 training, the host replay, mesh sharding, obs telemetry and
+the guards. On the card the sum-tree runs its CUDA kernels, so
+``replay.kernel`` must be "pallas" there (the reference's "xla" names its
+plain scatter twin, which the port runs only for tensors on the CPU).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.common import tree_size
+from repro_torch.common import tree_leaves, tree_map, tree_size
+from repro_torch.core.effective_rank import effective_rank
 from repro_torch.replay import (DeviceReplayConfig, nstep_emit_flat,
                                 nstep_init, replay_add, replay_init,
                                 replay_sample, replay_update)
@@ -61,9 +65,6 @@ def check_ported(spec) -> None:
     if x.mesh_shards > 0:
         missing.append("execution.mesh_shards>0 (sharded replay on "
                        "torch.distributed: ROADMAP A.8)")
-    if spec.eval.srank_every > 0:
-        missing.append("eval.srank_every>0 (core/effective_rank: ROADMAP "
-                       "A.9)")
     if spec.obs.enabled:
         missing.append("obs.enabled (the obs slice: ROADMAP A.5)")
     if spec.guard.enabled:
@@ -105,6 +106,98 @@ class TrainLoopState(NamedTuple):
     step: torch.Tensor     # completed learner steps (i32), stamps adds
 
 
+def state_leaves(ls: TrainLoopState) -> List[torch.Tensor]:
+    """Every tensor of a loop state in a fixed order (the generator is not
+    a tensor): agent, actors, n-step ring, replay, step."""
+    return [*tree_leaves(ls.agent), *ls.actors,
+            *(tree_leaves(ls.nstep) if ls.nstep is not None else []),
+            *tree_leaves(ls.replay), ls.step]
+
+
+def clone_state(ls: TrainLoopState) -> TrainLoopState:
+    """A copy of ``ls`` that shares no tensor with it, with a generator of
+    its own in the same state."""
+    gen = torch.Generator(device=ls.gen.device)
+    gen.set_state(ls.gen.get_state())
+    c = lambda tree: tree_map(torch.clone, tree)
+    return TrainLoopState(c(ls.agent), type(ls.actors)(*map(torch.clone,
+                                                            ls.actors)),
+                          None if ls.nstep is None else c(ls.nstep),
+                          c(ls.replay), gen, ls.step.clone())
+
+
+def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor]) -> int:
+    """``dst[i] <- src[i]`` for every pair that is not one tensor, as one
+    ``torch._foreach_copy_`` per dtype; returns the bytes copied. A source
+    that shares memory with another destination is cloned first, so no
+    copy reads what an earlier one wrote."""
+    if len(dst) != len(src):
+        raise ValueError(f"state of {len(src)} tensors copied into one of "
+                         f"{len(dst)}")
+    owned = {d.untyped_storage().data_ptr() for d in dst}
+    groups: Dict[torch.dtype, tuple] = {}
+    for d, t in zip(dst, src):
+        if d is t:
+            continue
+        if t.untyped_storage().data_ptr() in owned:
+            t = t.clone()
+        ds, ts = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ts.append(t)
+    for ds, ts in groups.values():
+        torch._foreach_copy_(ds, ts)
+    return sum(d.numel() * d.element_size() for ds, _ in groups.values()
+               for d in ds)
+
+
+class StepGraph:
+    """``Trainer.step`` captured once as a CUDA graph.
+
+    The state it is built from becomes the graph's static state: the graph
+    reads it, and copies the superstep's results back into it (one
+    ``torch._foreach_copy_`` per dtype), so each ``replay`` advances it by
+    one superstep in place. The run's generator is registered with the
+    graph, so every replay advances it as an eager superstep does.
+
+    Building it runs one superstep eagerly on the capture stream (the
+    warm-up: it fills the kernels' per-stream caches, which raise on a miss
+    during capture) and then captures the next one without running it. The
+    warm-up is a real superstep of the run: ``warm`` holds its metrics and
+    batch. ``metrics`` and ``batch`` are the graph's static outputs, which
+    every replay overwrites; ``copied_bytes`` is what each replay's
+    copy-back writes."""
+
+    def __init__(self, trainer: "Trainer", ls: TrainLoopState):
+        dev = trainer.device
+        self.state = ls
+        self._dst = state_leaves(ls)
+        self.stream = torch.cuda.Stream(dev)
+        main = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            nxt, metrics, batch = trainer.step(ls)
+            _copy_into(self._dst, state_leaves(nxt))
+        self.warm = (metrics, batch)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(ls.gen)
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            nxt, self.metrics, self.batch = trainer.step(ls)
+            self.copied_bytes = _copy_into(self._dst, state_leaves(nxt))
+        main.wait_stream(self.stream)
+
+    def load(self, ls: TrainLoopState) -> None:
+        """Copy the tensors and the generator state of ``ls`` into the
+        static state."""
+        _copy_into(self._dst, state_leaves(ls))
+        if ls.gen is not self.state.gen:
+            self.state.gen.set_state(ls.gen.get_state())
+
+    def replay(self, n: int) -> None:
+        """``n`` supersteps on the static state, on the current stream."""
+        for _ in range(n):
+            self.graph.replay()
+
+
 def median(x: torch.Tensor) -> torch.Tensor:
     """The mean of the two middle values for an even length, as
     ``jnp.median`` (``torch.median`` returns the lower one)."""
@@ -129,6 +222,7 @@ class Trainer:
         self.batch_size = x.batch_size
         self.warmup_steps = x.warmup_steps
         self.eval_episodes = spec.eval.episodes
+        self.srank_every = spec.eval.srank_every
         self.n_actors = x.n_actors
         self.env = env = make_env(spec.env)
         self.acfg = algo_config(spec, env)
@@ -140,6 +234,7 @@ class Trainer:
             capacity=r.capacity, obs_dim=env.obs_dim, act_dim=env.act_dim,
             uniform=not r.prioritized, n_step=r.n_step)
         self.n_params = 0
+        self.graph: Optional[StepGraph] = None   # captured at first chunk
 
     def policy(self, params=None) -> Policy:
         """The run's inference handle, bound to ``params`` when given."""
@@ -202,6 +297,55 @@ class Trainer:
         """Deterministic-policy returns of ``eval.episodes`` episodes."""
         return eval_returns(self.env, self.policy(ls.agent["params"]),
                             self.eval_episodes, ls.gen)
+
+    def chunk_fn(self, n_steps: int, do_eval: bool,
+                 do_srank: bool = False) -> Callable:
+        """``n_steps`` supersteps, then the chunk's epilogue: the port of
+        the reference's ``Trainer.chunk_fn``. The returned function maps a
+        state to ``(state, out)``; ``out`` holds the last superstep's
+        scalar metrics (``"scal"``) and ``(batch, priorities)``
+        (``"last"``), with ``do_srank`` its ``q_features``' effective rank
+        (``"srank"``, an int32 tensor on the device) and with ``do_eval``
+        the eval returns (``"eval"``).
+
+        On the card the supersteps are replays of one ``StepGraph``,
+        captured at the first chunk (whose first superstep is the graph's
+        warm-up) and kept for every chunk length; a state other than the
+        graph's static one is copied into it first. The state returned is
+        the static state, which the next chunk overwrites in place: clone
+        what must outlive it. On the CPU a chunk is ``n_steps`` eager
+        supersteps."""
+        if n_steps < 1:
+            raise ValueError(f"a chunk runs n_steps >= 1, got {n_steps}")
+        do_srank = do_srank and bool(self.srank_every)
+
+        def chunk(ls: TrainLoopState):
+            n = n_steps
+            if self.device.type == "cpu":
+                for _ in range(n):
+                    ls, metrics, batch = self.step(ls)
+            else:
+                if self.graph is None:
+                    self.graph = StepGraph(self, ls)
+                    metrics, batch = self.graph.warm
+                    n -= 1
+                elif ls is not self.graph.state:
+                    self.graph.load(ls)
+                if n:
+                    self.graph.replay(n)
+                    metrics, batch = self.graph.metrics, self.graph.batch
+                ls = self.graph.state
+            out = {"scal": {k: v.clone() for k, v in metrics.items()
+                            if v.ndim == 0},
+                   "last": (tree_map(torch.clone, batch),
+                            metrics["priorities"].clone())}
+            if do_srank:
+                out["srank"] = effective_rank(metrics["q_features"])
+            if do_eval:
+                out["eval"] = self.evaluate(ls)
+            return ls, out
+
+        return chunk
 
     # ------------------------------------------------------ initial state
     def _fresh_state(self) -> TrainLoopState:

@@ -6,6 +6,11 @@ global-norm clipping and weight decay, over two steps (so bias correction
 at count 1 and 2 is exercised); ``huber``, ``ema_update``,
 ``tree_l2_norm``, ``tree_update_ratio`` and ``tree_size`` likewise.
 Tolerance rtol = atol = 1e-6 (float32 elementwise arithmetic, pow).
+
+``adamw_update`` (foreach ops over all leaves) is bitwise its plain
+per-leaf version ``adamw_update_ref`` over several steps, with and without
+clipping, weight decay and a schedule, and issues the same aten ops
+whatever the number of leaves.
 """
 import numpy as np
 import pytest
@@ -102,3 +107,52 @@ def test_value_and_grad_differentiates_one_tree_only():
     assert torch.equal(g["w"], torch.full((3,), 2.0))
     assert torch.equal(g["v"][0], torch.tensor([3.0, 0.0]))
     assert not w["w"].requires_grad and g["w"].grad_fn is None
+
+
+@pytest.mark.parametrize("clip,wd,sched", [
+    (None, 0.0, False), (0.5, 0.0, False), (None, 0.01, False),
+    (None, 0.0, True), (0.5, 0.01, True)])
+def test_foreach_adamw_is_bitwise_the_per_leaf_plain_version(clip, wd,
+                                                            sched):
+    cfg = toptim.AdamWConfig(
+        lr=1e-2, weight_decay=wd, grad_clip_norm=clip,
+        schedule=toptim.warmup_cosine(2, 6) if sched else None)
+    rng = np.random.default_rng(3)
+    p = p_ref = _t(_tree(rng))
+    st = st_ref = toptim.adamw_init(p)
+    for _ in range(4):
+        g = _t(_tree(rng, scale=3.0))
+        p, st = toptim.adamw_update(cfg, g, st, p)
+        p_ref, st_ref = toptim.adamw_update_ref(cfg, g, st_ref, p_ref)
+        for a, b in zip(tcommon.tree_leaves((p, st)),
+                        tcommon.tree_leaves((p_ref, st_ref))):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _aten_ops(fn):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+    with Count() as c:
+        fn()
+    return c.ops
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_foreach_adamw_ops_do_not_grow_with_the_leaves(wd):
+    cfg = toptim.AdamWConfig(lr=1e-3, weight_decay=wd)
+
+    def ops(n_leaves):
+        p = {f"w{i}": torch.ones(5) for i in range(n_leaves)}
+        st = toptim.adamw_init(p)
+        return _aten_ops(lambda: toptim.adamw_update(cfg, p, st, p))
+    few, many = ops(2), ops(20)
+    assert few == many
+    assert any("_foreach_sqrt" in o for o in few)

@@ -14,6 +14,9 @@ reference.
   host tree sums in float64 and the one-hot kernel adds deltas).
 * ``replay_add/sample/update`` fed the reference's stratified uniforms:
   batch, indices, IS weights, tree and max priority (rtol 1e-6).
+* Every tensor of the replay state keeps its address through add, sample
+  and update (a captured superstep replays them in place), and the
+  sum-tree's per-card skip counter is never made during graph capture.
 
 On the card (skipped without one) the CUDA sum-tree kernels are held
 against the plain versions, bitwise: ``pytest tests/test_torch_replay.py
@@ -206,6 +209,36 @@ def test_replay_add_sample_update_match_jax(prioritized):
                                    np.asarray(js["max_priority"]), rtol=1e-6)
         np.testing.assert_array_equal(ts["add_step"].numpy(),
                                       np.asarray(js["add_step"]))
+
+
+def test_replay_state_is_updated_at_fixed_addresses():
+    cfg = tdev.DeviceReplayConfig(capacity=16, obs_dim=3, act_dim=2)
+    st = tdev.replay_init(cfg)
+    flat = lambda s: [s["store"]["ptr"], s["store"]["count"],
+                      s["max_priority"], s["tree"], s["add_step"],
+                      *s["store"]["data"].values()]
+    before = [t.data_ptr() for t in flat(st)]
+    rng = np.random.default_rng(4)
+    for step, n in ((0, 10), (1, 9), (2, 30)):
+        st = tdev.replay_add(cfg, st, _t(_batch(rng, n)),
+                             step=torch.tensor(step, dtype=torch.int32))
+        _, idx, _ = tdev.replay_sample(cfg, st, torch.rand(4), 4)
+        st = tdev.replay_update(cfg, st, idx, torch.full((4,), 5.0))
+        assert [t.data_ptr() for t in flat(st)] == before
+    assert int(st["store"]["ptr"]) == (10 + 9 + 30) % 16
+    assert int(st["store"]["count"]) == 16
+    assert float(st["max_priority"]) == pytest.approx(5.0 + 1e-6)
+
+
+def test_skip_counter_is_not_made_during_capture(monkeypatch):
+    tree = tops.sumtree_init(8)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    monkeypatch.setattr(tops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(tops, "_check_cuda", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="capturing a CUDA graph"):
+        tops.sumtree_set(tree, torch.tensor([1], dtype=torch.int32),
+                         torch.ones(1))
 
 
 def test_device_replay_wrapper_threads_the_state():

@@ -103,6 +103,28 @@ def test_stack_rejects_bad_config():
         tstack.dense_stack(x, [], [])
 
 
+def test_stream_caches_raise_on_a_miss_during_capture(monkeypatch):
+    """The split counters and the backward's side stream are cached per
+    stream; under CUDA graph capture a miss raises (a warm-up call on the
+    capture stream fills them) and a hit returns the cached object."""
+    dev, key = torch.device("cpu"), -12345
+    monkeypatch.setattr(tstack, "_counter_bufs", {})
+    monkeypatch.setattr(tstack, "_side_streams", {})
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    buf = tstack._tile_counters(10, dev, key)        # filled, not capturing
+    capturing[0] = True
+    assert tstack._tile_counters(10, dev, key) is buf
+    for call in (lambda: tstack._tile_counters(10, dev, key + 1),
+                 lambda: tstack._tile_counters(buf.numel() + 1, dev, key),
+                 lambda: tstack._side_stream(
+                     dev, type("S", (), {"cuda_stream": key})())):
+        with pytest.raises(RuntimeError, match="capture"):
+            call()
+
+
 def test_launch_plan_fills_the_card_at_serving_slots():
     """Serving slots of 1-32 rows get their parallelism from the columns
     and a split of K: the actor's wide layer launches one wave of about 2

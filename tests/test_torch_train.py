@@ -14,7 +14,15 @@
 * ``Experiment.from_spec(...).run(steps)`` on ``device="cpu"`` finishes
   with finite losses, evaluates at multiples of ``eval.every``, returns a
   ``RunResult``; ``Policy.from_experiment`` acts.
-* What the slice does not port raises at once, naming its ROADMAP item.
+* ``execution.loop="scan"`` (``Trainer.chunk_fn``; eager on the CPU):
+  a run in chunks (17 + 23 supersteps) is bitwise one call of 40 and the
+  ``loop="python"`` run, eval at multiples of 10 and srank at multiples of
+  5 in both loops; the eval steps and the number of sranks are the
+  reference's scan loop on the same spec (the values differ: the random
+  streams do, ROADMAP C4). On the card (skipped here) the graph's replays
+  are bitwise the eager supersteps.
+* What the slice does not port raises at once, naming its ROADMAP item;
+  the presets that take the effective rank build a ``Trainer``.
 """
 import jax
 import numpy as np
@@ -28,8 +36,10 @@ from repro_torch.common import tree_leaves
 from repro_torch.rl.envs import EnvState
 from repro_torch.rl.experiment import Experiment, ExperimentSpec as TSpec
 from repro_torch.rl.policy import Policy
+from repro_torch.rl import presets as tpresets
 from repro_torch.rl.runner import (TrainLoopState, Trainer, UnportedError,
-                                   median)
+                                   _copy_into, clone_state, median,
+                                   state_leaves)
 
 _BASE = dict(env="pendulum", num_units=16, num_layers=2, use_ofenet=True,
              ofenet_units=8, ofenet_layers=2, n_core=1, n_env=4,
@@ -158,7 +168,6 @@ def test_experiment_runs_and_serves_on_cpu():
 @pytest.mark.parametrize("over,item", [
     (dict(algo="td3"), "A.1"),
     (dict(replay_backend="host", replay_kernel="xla"), "A.6"),
-    (dict(srank_every=3), "A.9"),
     ({"obs.enabled": True}, "A.5"), ({"guard.enabled": True}, "A.4"),
     ({"execution.mesh_shards": 2, "execution.loop": "scan"}, "A.8")])
 def test_unported_choices_raise_with_their_roadmap_item(over, item):
@@ -177,3 +186,112 @@ def test_save_restore_not_ported_and_device_rule():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             Experiment.from_spec(spec)
+
+
+_SCAN = dict(_BASE, block_backend="fused", eval_every=10, srank_every=5)
+
+
+def _bitwise(a, b, what):
+    la, lb = state_leaves(a), state_leaves(b)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert torch.equal(x, y), f"{what}: state tensor {i} differs"
+    assert torch.equal(a.gen.get_state(), b.gen.get_state()), what
+
+
+def test_scan_chunks_are_bitwise_one_call_and_the_python_loop():
+    def exp(loop):
+        return Experiment.from_spec(TSpec().override(**dict(_SCAN,
+                                                            loop=loop)),
+                                    device="cpu")
+    split, whole, py = exp("scan"), exp("scan"), exp("python")
+    split.run(17)
+    rs = split.run(23, keep_last=True)
+    rw = whole.run(40, keep_last=True)
+    rp = py.run(40, keep_last=True)
+    for other, r, what in ((whole, rw, "one call"), (py, rp, "python")):
+        _bitwise(split._ls, other._ls, what)
+        assert rs.returns == r.returns and rs.sranks == r.sranks, what
+        assert rs.eval_steps == r.eval_steps == [10, 20, 30, 40], what
+        assert rs.metrics == r.metrics, what
+        np.testing.assert_array_equal(rs.last_priorities, r.last_priorities)
+        for k, v in rs.last_batch.items():
+            assert torch.equal(v, r.last_batch[k]), k
+    assert len(rs.sranks) == 8 and all(1 <= s <= 16 for s in rs.sranks)
+
+
+def test_scan_schedule_matches_the_reference_scan_loop():
+    from repro.rl.experiment import Experiment as JExperiment
+    over = dict(_SCAN, loop="scan", num_layers=1, use_ofenet=False,
+                block_backend="jnp", eval_episodes=1)
+    jexp = JExperiment.from_spec(JSpec().override(**over))
+    texp = Experiment.from_spec(TSpec().override(**over), device="cpu")
+    for steps in (17, 23):
+        jr, tr = jexp.run(steps), texp.run(steps, eval_at_end=steps == 23)
+    assert tr.eval_steps == jr.eval_steps == [10, 20, 30, 40]
+    assert len(tr.sranks) == len(jr.sranks) == 8
+    assert all(isinstance(s, int) and s >= 1 for s in tr.sranks)
+
+
+def test_chunk_fn_epilogue_and_state_helpers():
+    spec = TSpec().override(**_SCAN)
+    tr = Trainer(spec, device="cpu")
+    ls = tr.init()
+    ref = clone_state(ls)
+    assert not {t.data_ptr() for t in state_leaves(ls)} & {
+        t.data_ptr() for t in state_leaves(ref)}
+    _bitwise(ls, ref, "clone")
+    ls, out = tr.chunk_fn(3, do_eval=True, do_srank=True)(ls)
+    for _ in range(3):
+        ref, m, batch = tr.step(ref)
+    assert torch.equal(out["eval"], tr.evaluate(ref))   # the same draws
+    _bitwise(ls, ref, "chunk of 3 and eval")
+    from repro_torch.core.effective_rank import effective_rank
+    assert int(out["srank"]) == int(effective_rank(m["q_features"]))
+    assert out["eval"].shape == (spec.eval.episodes,)
+    assert set(out["scal"]) == {k for k, v in m.items() if v.ndim == 0}
+    assert torch.equal(out["last"][1], m["priorities"])
+    assert "srank" not in tr.chunk_fn(1, False, False)(ls)[1]
+    with pytest.raises(ValueError, match="n_steps"):
+        tr.chunk_fn(0, False)
+
+
+def test_copy_into_reads_every_source_before_writing():
+    a, b = torch.arange(3.0), torch.arange(3.0) + 10
+    c = torch.zeros(2, dtype=torch.int32)
+    n = torch.ones(2, dtype=torch.int32)
+    _copy_into([a, b, c], [b, a, n])        # a swap: each reads the old
+    assert a.tolist() == [10, 11, 12] and b.tolist() == [0, 1, 2]
+    assert c.tolist() == [1, 1]
+    with pytest.raises(ValueError):
+        _copy_into([a], [a, b])
+
+
+@pytest.mark.parametrize("name", ["fig1-depth", "fig3-width",
+                                  "fig5-connectivity", "fig6-ofenet",
+                                  "quickstart"])
+def test_presets_with_srank_build_a_trainer(name):
+    spec = tpresets.get(name).override(replay_backend="device")
+    assert spec.eval.srank_every > 0
+    tr = Trainer(spec, device="cpu")
+    assert tr.srank_every == spec.eval.srank_every
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph captures CUDA kernels")
+    return torch.device("cuda")
+
+
+def test_cuda_graph_replays_are_bitwise_eager_supersteps(cuda_device):
+    spec = TSpec().override(**dict(_SCAN, loop="scan"))
+    tr = Trainer(spec, device=cuda_device)
+    ls = tr.init()
+    eager, graph = clone_state(ls), clone_state(ls)
+    for _ in range(6):
+        eager, _, _ = tr.step(eager)
+    graph, _ = tr.chunk_fn(2, False)(graph)       # capture: warm-up + 1
+    graph, _ = tr.chunk_fn(4, False)(graph)
+    _bitwise(graph, eager, "6 replays")
+    assert torch.equal(tr.evaluate(graph), tr.evaluate(eager))
