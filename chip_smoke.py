@@ -93,7 +93,22 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    ``Experiment.run`` in chunks of 17 + 23 supersteps against one call of
    40 and ``loop="python"`` (eval every 10, srank every 5), bitwise on the
    state, returns and sranks; the epilogue's srank against
-   ``effective_rank`` on the CPU over the same features.
+   ``effective_rank`` on the CPU over the same features; checkpoints
+   under the graph, for this spec and the TD3 one: ``run(17); save;
+   Experiment.restore; run(23)`` through a file in a temporary directory
+   against ``run(40)``, bitwise on the state, the generator, returns,
+   eval steps and sranks, with the save and restore seconds and the
+   file's bytes.
+   TD3 training (``phase_td3``, ``[td3]`` lines): the same spec with
+   ``algo="td3"``: the warm-up, one superstep on the card against the CPU
+   plain path, the launches of the warm-up and the captured superstep
+   held to ``expected_launches``' TD3 branch, 20 replays (both parities
+   of the delayed policy update) against 20 eager supersteps, bitwise on
+   every state tensor and the generator, the launches of 40 eager
+   supersteps counted from 0 (each kernel of the path launched, each
+   superstep as ``expected_launches``), both loops' wall in turns, 10
+   eager supersteps and a replay's under the profiler (busy, idle,
+   kernels, by class) and a replay's CUDA-event time.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
    (the fused dense, flash and SSD kernels, which no training or serving
    path runs) with every count set to 0 just before; each row must launch
@@ -122,7 +137,9 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    its dtype (math for float32, flash for bfloat16; named) and the
    memory-efficient backend on K/V repeated to H heads outside the timed
    call; the SSD chunk in float32 and bfloat16.
-7. One JSON line of seven kernel records, then the device line, last.
+7. One JSON line of seven kernel records (the stack and tree records'
+   ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps),
+   then the device line, last.
 """
 from __future__ import annotations
 
@@ -763,24 +780,36 @@ def phase_times(params, gen):
 def expected_launches(tr):
     """Kernel launches of one training superstep, read off the code.
 
-    Stack forwards: collect's ``sample_action`` (phi_s + actor) at the
-    actor pool's rows; ``sac_update``, at the batch's: the aux loss (phi_s
-    + phi_sa), the target's ``sample_action`` (phi_s + actor) and
+    SAC (``sac_update``). Stack forwards: collect's ``sample_action``
+    (phi_s + actor) at the actor pool's rows; at the batch's: the aux loss
+    (phi_s + phi_sa), the target's ``sample_action`` (phi_s + actor) and
     ``q_values`` (phi_s + phi_sa + q1 + q2), the critic loss's, the actor
     loss's and the priorities' ``q_values`` (4 nets each) and the actor
     loss's ``sample_action``: 24 calls, 13*Lo + 11*L layers, of which
     12*Lo + 10*L at the batch (7 phi_s calls, 5 phi_sa, 2 actor, 8
-    critic). ``fwd_<kernel>`` counts launches by the kernel ``plan_fwd``
-    gives each call: one a layer, but one a stack on the whole-stack
-    kernel (phi_s and phi_sa at the batch); the actor and the critics take
-    the register tile at 256 rows, every stack the streaming kernel at 32;
-    ``fwd_t`` counts the register tile's stream^T inits, one per wide
-    stack call (2 actor + 8 critic calls). Stack backwards: aux (phi_sa,
-    phi_s), critic loss (q1, q2), actor loss (q1, q2, phi_sa for dx, the
-    actor for dW): 8. Tree: one sample, two writes (the add, the priority
-    refresh)."""
+    critic). Stack backwards: aux (phi_sa, phi_s), critic loss (q1, q2),
+    actor loss (q1, q2, phi_sa for dx, the actor for dW): 8.
+
+    TD3 (``td3_update``). Stack forwards: collect's ``policy`` (phi_s +
+    actor); at the batch: the aux loss (phi_s + phi_sa), the target
+    policy (phi_s + target actor) and ``q_values`` (4 nets), the critic
+    loss's ``q_values`` (4), the actor loss's ``policy`` (phi_s + actor)
+    and its ``_q1`` (phi_s + phi_sa + q1), the priorities' ``_q1`` (3):
+    22 calls, 13*Lo + 9*L layers (7 phi_s, 5 phi_sa, 2 actor and 6 critic
+    calls at the batch). The actor's gradient and AdamW step run on every
+    superstep (the delay is a select), so both parities launch the same.
+    Stack backwards: aux (phi_sa, phi_s), critic loss (q1, q2), actor
+    loss (q1 for dx, phi_sa for dx, the actor for dW): 7.
+
+    ``fwd_<kernel>`` counts launches by the kernel ``plan_fwd`` gives each
+    call: one a layer, but one a stack on the whole-stack kernel (phi_s
+    and phi_sa at the batch); the actor and the critics take the register
+    tile at 256 rows, every stack the streaming kernel at 32; ``fwd_t``
+    counts the register tile's stream^T inits, one per wide stack call.
+    Tree: one sample, two writes (the add, the priority refresh)."""
     from repro_torch.kernels.dense_block import stack
     acfg = tr.acfg
+    td3 = tr.spec.algo == "td3"
     want = {f"fwd_{k}": 0 for k in stack.FWD_KERNELS}
     want["fwd_t"] = 0
     layers = 0
@@ -802,15 +831,17 @@ def expected_launches(tr):
         for n, m, blk in ((1, tr.n_actors, phi_s), (7, tr.batch_size, phi_s),
                           (5, tr.batch_size, phi_sa)):
             calls(n, m, blk)
+    critic_calls = 6 if td3 else 8
     for n, m, blk in ((1, tr.n_actors, acfg.actor_block()),
                       (2, tr.batch_size, acfg.actor_block()),
-                      (8, tr.batch_size, acfg.critic_block())):
+                      (critic_calls, tr.batch_size, acfg.critic_block())):
         calls(n, m, blk)
-    if layers != 13 * lo + 11 * acfg.num_layers:
+    if layers != 13 * lo + (critic_calls + 3) * acfg.num_layers:
         raise AssertionError(f"expected forward layers do not add up: "
                              f"{layers}, {want}")
     want["fwd"] = sum(want[f"fwd_{k}"] for k in stack.FWD_KERNELS)
-    want.update(bwd=8 if lo else 5, sample=1, set=2)
+    bwd = (7 if lo else 4) if td3 else (8 if lo else 5)
+    want.update(bwd=bwd, sample=1, set=2)
     return want
 
 
@@ -846,7 +877,14 @@ TRAIN_KEYS = ("critic_loss", "actor_loss", "aux_loss", "alpha", "q_mean",
               "td_error", "staleness_mean")
 
 
-def phase_train_parity(spec, exp):
+def train_keys(spec):
+    """``TRAIN_KEYS`` that ``spec``'s algorithm reports (TD3 has no
+    ``alpha``)."""
+    return tuple(k for k in TRAIN_KEYS
+                 if spec.algo == "sac" or k != "alpha")
+
+
+def phase_train_parity(spec, exp, tag="train"):
     """One superstep on the card against the same superstep on the CPU
     plain path, from the same state with the same draws."""
     import torch
@@ -877,7 +915,7 @@ def phase_train_parity(spec, exp):
     if p_max > 2 * lr or p_frac > 1e-4:
         raise AssertionError(f"superstep card != CPU: params max abs err "
                              f"{p_max:.3e}, {p_frac:.2e} of them > 1e-6")
-    for k in TRAIN_KEYS:
+    for k in train_keys(spec):
         ok, err = close_enough(cm[k].cpu(), pm[k], 1e-3)
         if not ok:
             raise AssertionError(f"superstep card != CPU: {k} "
@@ -901,7 +939,7 @@ def phase_train_parity(spec, exp):
         if not ok:
             raise AssertionError(f"superstep card != CPU: store/{k} "
                                  f"{err:.3e}")
-    log(f"[train] one superstep card vs CPU plain path, same state and "
+    log(f"[{tag}] one superstep card vs CPU plain path, same state and "
         f"draws ({time.perf_counter() - t0:.1f}s): grads (AdamW mu) max abs "
         f"err {worst_mu:.2e} (rtol 1e-3 bar), params max abs err "
         f"{p_max:.2e} ({p_frac:.1e} of them > 1e-6; bar 2*lr), priorities "
@@ -1188,25 +1226,12 @@ def superstep_class(key):
     return "other"
 
 
-def phase_graph(spec):
-    """``execution.loop="scan"`` on the card: the superstep captured once
-    as a CUDA graph (``Trainer.chunk_fn``) against the eager superstep, at
-    the training phase's full width."""
-    import gc
+def graph_capture(tr, ls0, want, tag):
+    """Capture ``tr``'s superstep from a copy of ``ls0`` (``chunk_fn(1)``:
+    the warm-up superstep, then the capture) with the wrapper counters
+    read at each, held to ``want``; returns the graph."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.effective_rank import effective_rank
-    from repro_torch.rl.experiment import Experiment
     from repro_torch.rl.runner import clone_state, state_leaves
-    scan = spec.override(loop="scan")
-    exp = Experiment.from_spec(scan)
-    tr = exp.trainer
-    want = expected_launches(tr)
-    exp._ensure_init()
-    ls0 = clone_state(exp._ls)
-
-    # capture: the warm-up superstep, then the captured one; the wrapper
-    # counters see each (replays are invisible to them)
     per_call, step_fn = [], tr.step
 
     def counted(ls, draws=None):
@@ -1218,21 +1243,30 @@ def phase_graph(spec):
     tr.step = counted
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tr.chunk_fn(1, False)(clone_state(ls0))     # warm-up + capture only
-    torch.cuda.synchronize()
+    try:
+        tr.chunk_fn(1, False)(clone_state(ls0))  # warm-up + capture only
+        torch.cuda.synchronize()
+    finally:
+        tr.step = step_fn
     t_cap = time.perf_counter() - t0
-    tr.step = step_fn
     if per_call != [want, want]:
         raise AssertionError(f"launches at warm-up and capture {per_call}, "
                              f"want {want} each")
     graph = tr.graph
-    log(f"[graph] capture of one superstep ({t_cap:.2f}s with the warm-up "
+    log(f"[{tag}] capture of one superstep ({t_cap:.2f}s with the warm-up "
         f"superstep): launches counted at warm-up and at capture, each "
         f"{want} (expected_launches); copy-back "
         f"{graph.copied_bytes / 1e6:.1f} MB a replay ({len(state_leaves(ls0))}"
         f" state tensors in all)")
+    return graph
 
-    # K replays against K eager supersteps, then an eval draw after each
+
+def graph_bitwise(tr, ls0, tag):
+    """``GRAPH_K`` replays against ``GRAPH_K`` eager supersteps from
+    ``ls0``, then an eval draw after each: bitwise on every state tensor
+    and the generator. Returns the two states."""
+    import torch
+    from repro_torch.rl.runner import clone_state, state_leaves
     eager = clone_state(ls0)
     for _ in range(GRAPH_K):
         eager, _, _ = tr.step(eager)
@@ -1250,15 +1284,20 @@ def phase_graph(spec):
                              f" returns {ev_e.tolist()} vs {ev_g.tolist()},"
                              f" state {bad[:8]}")
     n_el = sum(t.numel() for t in state_leaves(eager))
-    log(f"[graph] bitwise: {GRAPH_K} replays == {GRAPH_K} eager supersteps "
-        f"from one state on all {len(state_leaves(eager))} state tensors "
+    log(f"[{tag}] bitwise: {GRAPH_K} replays == {GRAPH_K} eager supersteps "
+        f"from one state (steps {int(ls0.step)}-{int(ls0.step) + GRAPH_K - 1}"
+        f") on all {len(state_leaves(eager))} state tensors "
         f"({n_el} elements: params, AdamW moments and counts, actors, "
         f"replay store, sum-tree, max priority, add steps, step) and the "
         f"generator's state; an eval after each: the same "
         f"{ev_e.numel()} returns (mean {float(ev_e.mean()):.6g}) and "
         f"generator state")
+    return eager, replayed
 
-    # wall per superstep, host clock, eager and graph in turns
+
+def graph_walls(tr, eager, replayed, tag):
+    """Wall per superstep, host clock, eager and graph in turns."""
+    import torch
     walls = []
     for loop in ("eager", "graph", "graph", "eager"):
         torch.cuda.synchronize()
@@ -1270,15 +1309,67 @@ def phase_graph(spec):
             replayed, _ = tr.chunk_fn(GRAPH_TIMED, False)(replayed)
         torch.cuda.synchronize()
         walls.append((loop, 1e3 * (time.perf_counter() - t0) / GRAPH_TIMED))
-    log(f"[graph] wall per superstep, host clock, {GRAPH_TIMED} supersteps "
+    log(f"[{tag}] wall per superstep, host clock, {GRAPH_TIMED} supersteps "
         f"a run, in turns: " + ", ".join(f"{k} {ms:.3f} ms"
                                          for k, ms in walls)
         + f" (eager {np.mean([m for k, m in walls if k == 'eager']):.3f},"
         f" graph {np.mean([m for k, m in walls if k == 'graph']):.3f})")
 
-    # device time of a replay with the host out of its way (CUDA events,
-    # the card held busy first), then the profiler's view of replays
-    reps = 10
+
+def profile_summary(prof, n):
+    """A profile of ``n`` supersteps or replays: ``(device events, summed
+    kernel ms, busy ms as the union of the device intervals or None,
+    {superstep_class: [ms, kernels]})``, each per superstep."""
+    import torch
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    summed = sum(e.self_device_time_total for e in events) / 1e3 / n
+    union = busy_union_ms(prof)
+    classes = {}
+    for e in events:
+        c = classes.setdefault(superstep_class(e.key), [0.0, 0.0])
+        c[0] += e.self_device_time_total / 1e3 / n
+        c[1] += e.count / n
+    return events, summed, None if union is None else union / n, classes
+
+
+def eager_profile(tr, ls, tag, steps=10):
+    """``steps`` eager supersteps from ``ls`` under the profiler: wall per
+    superstep, device busy (union and summed), idle share, device
+    operations and the breakdown by class. Returns the state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ls, _, _ = tr.step(ls)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    events, summed, busy_ms, classes = profile_summary(prof, steps)
+    if not events or busy_ms is None:
+        log(f"[{tag}] the profiler saw no device time in the eager loop: "
+            f"busy share not measured")
+        return ls
+    log(f"[{tag}] eager, {steps} supersteps under the profiler: "
+        f"{wall_ms:.2f} ms wall per superstep, device busy {busy_ms:.3f} ms"
+        f" (union; summed kernel time {summed:.3f}), idle share "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%; "
+        f"{sum(e.count for e in events) / steps:.0f} device ops per "
+        f"superstep")
+    log(f"[{tag}] eager by class, ms/superstep (kernels): " + ", ".join(
+        f"{c} {ms:.3f} ({n:.0f})" for c, (ms, n) in
+        sorted(classes.items(), key=lambda kv: -kv[1][0])))
+    return ls
+
+
+def graph_device_time(graph, tag, prof_tag, reps=10):
+    """A replay's device time with the host out of its way (CUDA events,
+    the card held busy first), then the profiler's view of replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     samples = []
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
@@ -1296,22 +1387,12 @@ def phase_graph(spec):
         graph.replay(reps)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    summed = sum(e.self_device_time_total for e in events) / 1e3 / reps
-    union = busy_union_ms(prof)
-    classes = {}
-    for e in events:
-        c = classes.setdefault(superstep_class(e.key), [0.0, 0.0])
-        c[0] += e.self_device_time_total / 1e3 / reps
-        c[1] += e.count / reps
+    events, summed, busy_ms, classes = profile_summary(prof, reps)
     ev_ms = float(np.median(samples))
-    if events and union is not None:
-        busy_ms = union / reps
+    if events and busy_ms is not None:
         cb, aw = classes.get("copy-back", (0, 0)), classes.get("adamw",
                                                               (0, 0))
-        log(f"[graph-prof] {reps} replays under the profiler: "
+        log(f"[{prof_tag}] {reps} replays under the profiler: "
             f"{wall_ms:.3f} ms wall per superstep, device busy "
             f"{busy_ms:.3f} ms (union of the device intervals; summed "
             f"kernel time {summed:.3f}), idle share "
@@ -1321,18 +1402,91 @@ def phase_graph(spec):
             f"{2 * graph.copied_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms: "
             f"{graph.copied_bytes / 1e6:.1f} MB read and written); AdamW's "
             f"foreach kernels {aw[0]:.4f} ms over {aw[1]:.1f}")
-        log("[graph-prof] by class, ms/replay (kernels): " + ", ".join(
+        log(f"[{prof_tag}] by class, ms/replay (kernels): " + ", ".join(
             f"{c} {ms:.3f} ({n:.0f})" for c, (ms, n) in
             sorted(classes.items(), key=lambda kv: -kv[1][0])))
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"[graph-prof]   {e.self_device_time_total / reps / 1e3:8.3f}"
+            log(f"[{prof_tag}]   "
+                f"{e.self_device_time_total / reps / 1e3:8.3f}"
                 f" ms/replay {e.count / reps:6.1f}x  {e.key[:90]}")
     else:
-        log("[graph-prof] the profiler saw no device time under replay: "
+        log(f"[{prof_tag}] the profiler saw no device time under replay: "
             "busy share, kernels per replay and the copy-back not measured")
-    log(f"[graph] device time per replay (CUDA events, card held busy, "
+    log(f"[{tag}] device time per replay (CUDA events, card held busy, "
         f"{reps} replays, median of 3): {ev_ms:.3f} ms "
         f"({', '.join(f'{x:.3f}' for x in samples)})")
+
+
+def graph_checkpoint(spec, tag, whole=None):
+    """``run(17); save; Experiment.restore; run(23)`` under the graph,
+    through a file in a temporary directory, against ``run(40)`` (eval
+    every 10, srank every 5): bitwise on the state, the generator, the
+    returns, eval steps and sranks. ``whole`` is an uninterrupted run of
+    40 of that spec when one exists already."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    cspec = spec.override(loop="scan", eval_every=10, srank_every=5)
+    if whole is None:
+        whole = Experiment.from_spec(cspec)
+        whole.run(40)
+    first = Experiment.from_spec(cspec)
+    first.run(17)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "run.npz")
+        t0 = time.perf_counter()
+        first.save(path)
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = Experiment.restore(path)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    r = resumed.run(23)
+    torch.cuda.synchronize()
+    w = whole.result()
+    bad = state_diff(resumed._ls, whole._ls)
+    if bad or r.returns != w.returns or r.sranks != w.sranks \
+            or r.eval_steps != w.eval_steps \
+            or w.eval_steps != [10, 20, 30, 40]:
+        raise AssertionError(
+            f"run(17); save; restore; run(23) != run(40): state {bad[:8]}, "
+            f"returns {r.returns} vs {w.returns}, sranks {r.sranks} vs "
+            f"{w.sranks}, eval steps {r.eval_steps} vs {w.eval_steps}")
+    log(f"[{tag}] checkpoint: {spec.algo} loop='scan' run(17); save; "
+        f"Experiment.restore; run(23) == run(40), bitwise on every state "
+        f"tensor and the generator, returns {r.returns}, eval steps "
+        f"{r.eval_steps}, sranks {r.sranks}; save {t_save:.2f}s, restore "
+        f"{t_restore:.2f}s, file {nbytes} bytes ({nbytes / 1e6:.1f} MB)")
+    del resumed, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_graph(spec, ckpt_specs=()):
+    """``execution.loop="scan"`` on the card: the superstep captured once
+    as a CUDA graph (``Trainer.chunk_fn``) against the eager superstep, at
+    the training phase's full width; then checkpoints under the graph for
+    ``spec`` and each of ``ckpt_specs``."""
+    import gc
+    import torch
+    from repro_torch.core.effective_rank import effective_rank
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state
+    scan = spec.override(loop="scan")
+    exp = Experiment.from_spec(scan)
+    tr = exp.trainer
+    want = expected_launches(tr)
+    exp._ensure_init()
+    ls0 = clone_state(exp._ls)
+    graph = graph_capture(tr, ls0, want, "graph")
+    eager, replayed = graph_bitwise(tr, ls0, "graph")
+    graph_walls(tr, eager, replayed, "graph")
+    graph_device_time(graph, "graph", "graph-prof")
     del exp, tr, graph, eager, replayed, ls0
     gc.collect()
     torch.cuda.empty_cache()
@@ -1384,9 +1538,75 @@ def phase_graph(spec):
     log(f"[graph] srank: the epilogue's {cpu} at step 40 == effective_rank "
         f"on the CPU over the same q_features {tuple(feats.shape)} (nearest"
         f" cumulative share {margin:.2e} from 1 - delta)")
+    whole = runs["40"][0]
     del runs, base_e, e, tr40
     gc.collect()
     torch.cuda.empty_cache()
+    graph_checkpoint(spec, "graph", whole)
+    del whole
+    for other in ckpt_specs:
+        graph_checkpoint(other, "graph")
+
+
+def phase_td3(spec):
+    """TD3 training on the card at the training phase's full width: one
+    superstep against the CPU plain path, the launches of the warm-up and
+    the captured superstep against ``expected_launches``, ``GRAPH_K``
+    replays (both delay parities) bitwise against eager supersteps, the
+    launches of ``GRAPH_TIMED`` eager supersteps counted from 0, both
+    loops' wall in turns, a replay's device time and profile. Returns
+    those launches; the eager loop's profile too."""
+    import gc
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state
+    exp = Experiment.from_spec(spec.override(loop="scan"))
+    tr = exp.trainer
+    want = expected_launches(tr)
+    t0 = time.perf_counter()
+    exp._ensure_init()
+    torch.cuda.synchronize()
+    log(f"[td3] fig10-ablation large, algo td3, paper budget: "
+        f"{tr.n_params} params, {tr.n_actors} actors, batch "
+        f"{tr.batch_size}, capacity {tr.dcfg.capacity}; warm-up "
+        f"{int(exp._ls.replay['store']['count'])} transitions in "
+        f"{time.perf_counter() - t0:.2f}s")
+    phase_train_parity(spec, exp, tag="td3")
+    ls0 = clone_state(exp._ls)
+    graph = graph_capture(tr, ls0, want, "td3")
+    eager, replayed = graph_bitwise(tr, ls0, "td3")
+    steps = eager.agent["step"]
+    if int(steps) != GRAPH_K or int(eager.agent["opt"]["actor"]["count"]) \
+            != (GRAPH_K + 1) // 2:
+        raise AssertionError(f"after {GRAPH_K} supersteps: step "
+                             f"{int(steps)}, actor AdamW count "
+                             f"{int(eager.agent['opt']['actor']['count'])}")
+    vals = torch.stack([v for k, v in tr.graph.metrics.items()
+                        if k in train_keys(spec)])
+    if not torch.all(torch.isfinite(vals)):
+        raise AssertionError("TD3 training produced a non-finite loss")
+    # the launches of GRAPH_TIMED eager supersteps, counted from 0 (the
+    # training phase counts SAC's over as many)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(GRAPH_TIMED):
+        eager, _, _ = tr.step(eager)
+    torch.cuda.synchronize()
+    launches = _counts()
+    if any(launches[k] != want[k] * GRAPH_TIMED for k in want) \
+            or not all(launches[k] for k in want if want[k]):
+        raise AssertionError(f"TD3 launches over {GRAPH_TIMED} eager "
+                             f"supersteps {launches}, want {want} each")
+    log(f"[td3] {GRAPH_TIMED} eager supersteps from step "
+        f"{int(eager.step) - GRAPH_TIMED}: launches {launches} = "
+        f"{GRAPH_TIMED} x expected_launches")
+    graph_walls(tr, eager, replayed, "td3")
+    eager_profile(tr, eager, "td3")
+    graph_device_time(graph, "td3", "td3")
+    del exp, tr, graph, eager, replayed, ls0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_fwd_fills(gen):
@@ -2260,7 +2480,9 @@ def main() -> int:
                                replay_kernel="pallas")
     exp, train_launches = phase_train(train_spec)
     profile_classes = phase_train_profile(exp)
-    phase_graph(train_spec)
+    td3_spec = train_spec.override(algo="td3")
+    td3_launches = phase_td3(td3_spec)
+    phase_graph(train_spec, ckpt_specs=(td3_spec,))
     phase_fwd_fills(gen)
     micro_launches = phase_micro()
 
@@ -2279,7 +2501,8 @@ def main() -> int:
         f"actor stack d0=259 U=2048 L=2, M={main_slot} (the serving main "
         f"path's most used slot)",
         launches_by_path={"serve": serve_launches,
-                          "train": train_launches["fwd"]},
+                          "train": train_launches["fwd"],
+                          "train_td3": td3_launches["fwd"]},
         launches_by_kernel={k: train_launches[f"fwd_{k}"]
                             for k in stack.FWD_KERNELS},
         stream_t_inits=train_launches["fwd_t"],
@@ -2292,12 +2515,16 @@ def main() -> int:
                "src/repro_torch/kernels/dense_block/csrc/dense_stack_bwd.cu",
                "src/repro/kernels/dense_block/stack.py:334",
                train_launches["bwd"], bwd["critic"],
-               "critic stack d0=516 U=2048 L=2, M=256: dx + dW + db"),
+               "critic stack d0=516 U=2048 L=2, M=256: dx + dW + db",
+               launches_by_path={"train": train_launches["bwd"],
+                                 "train_td3": td3_launches["bwd"]}),
         record("tree_sample",
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
                "src/repro/kernels/replay_tree/replay_tree.py:36",
                train_launches["sample"], tree["sample"],
                "tree 2^18 nodes (capacity 100,000), B=256",
+               launches_by_path={"train": train_launches["sample"],
+                                 "train_td3": td3_launches["sample"]},
                **{k: tree["sample"][k] for k in TREE_KEYS},
                profile_ms=profile_classes[3]["sample"][0]),
         record("tree_set",
@@ -2305,6 +2532,8 @@ def main() -> int:
                "src/repro/kernels/replay_tree/replay_tree.py:87",
                train_launches["set"], tree["set256"],
                "tree 2^18 nodes, n=256 (the priority refresh)",
+               launches_by_path={"train": train_launches["set"],
+                                 "train_td3": td3_launches["set"]},
                also_replaces="src/repro/kernels/replay_tree/"
                              "replay_tree.py:127",
                **{k: tree["set256"][k] for k in TREE_KEYS},

@@ -7,8 +7,9 @@ It imports neither ``jax`` nor ``repro``.
 
 What is ported so far: serving (``rl.policy.Policy`` over SAC or TD3
 behind the continuous-batching ``launch.serve_policy.PolicyServer``), SAC
-training on the device replay (``rl.experiment.Experiment``), and the
-kernel micro-benchmark ``launch.kernels_micro``. Every Pallas kernel of
+and TD3 training on the device replay with bitwise checkpoint and resume
+(``rl.experiment.Experiment``), and the kernel micro-benchmark
+``launch.kernels_micro``. Every Pallas kernel of
 the reference is a hand-written CUDA kernel here (``kernels/``: the
 DenseNet stack forward and backward, the sum-tree sample and write, the
 fused dense layer, flash attention, the SSD chunk); each one's plain

@@ -4,7 +4,8 @@
 A leaf's key is its path with ``/`` between parts, rendered as the
 reference's ``jax.tree_util.tree_flatten_with_path`` renders it: a dict
 key as itself, a list index as its number, a namedtuple field as
-``.name``. So ``{"loop": LoopTemplate(agent={"params": ...})}`` writes
+``.name``; a ``None`` has no leaves, as in JAX. So
+``{"loop": LoopTemplate(agent={"params": ...})}`` writes
 ``loop/.agent/params/actor/layers/0/dense/w`` exactly as a JAX
 ``Experiment.save`` does, and a checkpoint written by either package loads
 in the other. Metadata rides inside the npz as the ``__meta__json`` uint8
@@ -16,7 +17,7 @@ import json
 import os
 import uuid
 from pathlib import Path
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +43,7 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, join(str(i)))
-    else:
+    elif tree is not None:
         yield prefix, tree
 
 
@@ -58,7 +59,7 @@ def _rebuild(tree: Any, values: Dict[str, Any], prefix: str = "") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, values, join(str(i)))
                           for i, v in enumerate(tree))
-    return values[prefix]
+    return None if tree is None else values[prefix]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -86,20 +87,28 @@ def save(path: str, tree: Any, *, metadata: Optional[dict] = None) -> None:
 
 
 def restore(path: str, template: Any, device: torch.device) -> Any:
-    """Load the leaves ``template`` names (any tensor with a shape, e.g. on
-    the ``meta`` device) onto ``device``, in ``template``'s structure.
-    Entries the template does not name are not read."""
+    """Load the leaves ``template`` names (any tensor with a shape and a
+    dtype, e.g. on the ``meta`` device) onto ``device``, in
+    ``template``'s structure. Entries the template does not name are not
+    read."""
     with np.load(path, allow_pickle=False) as data:
         values = {}
         for key, tmpl in _leaves(template):
             if key not in data.files:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            arr = data[key]
-            if tuple(arr.shape) != tuple(tmpl.shape):
-                raise ValueError(f"shape mismatch for {key}: "
-                                 f"{arr.shape} vs {tuple(tmpl.shape)}")
-            values[key] = torch.from_numpy(arr).to(device)
+            t = torch.from_numpy(data[key])
+            if tuple(t.shape) != tuple(tmpl.shape) or t.dtype != tmpl.dtype:
+                raise ValueError(
+                    f"leaf {key}: {tuple(t.shape)} {t.dtype} in the "
+                    f"checkpoint, {tuple(tmpl.shape)} {tmpl.dtype} expected")
+            values[key] = t.to(device)
     return _rebuild(template, values)
+
+
+def leaf_names(path: str) -> List[str]:
+    """The names of a checkpoint's array entries (its metadata left out)."""
+    with np.load(path, allow_pickle=False) as data:
+        return [k for k in data.files if k != META_KEY]
 
 
 def load_metadata(path: str) -> Optional[dict]:

@@ -9,7 +9,7 @@ explicit ``torch.Generator`` on the tensors' device.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -110,8 +110,11 @@ def tree_update_ratio(new: Any, old: Any, eps: float = 1e-12
     return tree_l2_norm(delta) / (tree_l2_norm(old) + eps)
 
 
-def ema_update(target: Any, online: Any, tau: float) -> Any:
-    """Polyak averaging: target <- tau*online + (1-tau)*target (paper A.1)."""
+def ema_update(target: Any, online: Any,
+               tau: Union[float, torch.Tensor]) -> Any:
+    """Polyak averaging: target <- tau*online + (1-tau)*target (paper A.1).
+    ``tau`` may be a 0-d tensor on the device (TD3's delayed target: 0 on
+    the steps that skip it), with the same arithmetic."""
     return tree_map(lambda t, o: (1.0 - tau) * t + tau * o, target, online)
 
 

@@ -1,3 +1,4 @@
 """RL algorithms, specs and the inference surface: ``sac``/``td3`` (acting
-path), ``experiment`` (the spec tree), ``presets``, ``envs`` (dims) and
-``policy`` (the ``Policy`` handle)."""
+and updates), ``experiment`` (the spec tree and the ``Experiment`` run
+handle), ``runner`` (the superstep), ``presets``, ``envs`` and ``policy``
+(the ``Policy`` handle)."""

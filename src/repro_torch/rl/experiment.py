@@ -13,9 +13,15 @@ effective rank fire at absolute multiples of ``eval.every`` and
 ``execution.loop="python"`` steps one superstep at a time,
 ``execution.loop="scan"`` runs chunks that stop at those multiples
 (``Trainer.chunk_fn``: replays of a CUDA graph of the superstep on the
-card). Any chunking of a run gives the same state, bit for bit. ``save`` and
-``restore`` with the bitwise-resume contract are not ported yet (ROADMAP
-A.2) and raise.
+card). Any chunking of a run gives the same state, bit for bit.
+
+``save(path)`` and ``restore(path)`` round-trip the whole training state
+through ``checkpoint.ckpt`` (one npz, the spec and the eval history in its
+metadata), so ``run(N); save; restore; run(M)`` is bitwise ``run(N + M)``
+under either loop. The leaves carry the reference's names, so a
+checkpoint of the JAX ``Experiment.save`` restores here too (see
+``Experiment.restore`` for its generator); a checkpoint of the port does
+not restore in the reference, which needs per-actor keys (ROADMAP C11).
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
+from repro_torch.checkpoint import ckpt
 from repro_torch.common import ACTIVATIONS
 from repro_torch.core.blocks import BLOCK_BACKENDS, CONNECTIVITIES
 from repro_torch.core.effective_rank import effective_rank
@@ -406,6 +415,15 @@ class ExperimentSpec:
             block_backend=self.network.block_backend)
 
 
+_GEN_LEAF = "loop/.gen"
+
+
+def resume_seed(seed: int, step: int) -> int:
+    """The generator seed of a run resumed at ``step`` from a checkpoint
+    that holds no generator state (the JAX package's)."""
+    return seed + (step << 32)
+
+
 class Experiment:
     """A handle on one training run.
 
@@ -436,16 +454,77 @@ class Experiment:
         return cls(spec, device=device)
 
     @classmethod
-    def restore(cls, path: str, **_kw) -> "Experiment":
-        raise NotImplementedError(
-            "Experiment.restore is not ported yet (ROADMAP A.2: save/restore "
-            "with bitwise resume inside the port)")
+    def restore(cls, path: str, *, device=None) -> "Experiment":
+        """A handle rebuilt from ``save`` output: the spec from the
+        checkpoint's metadata, every state leaf loaded onto ``device``
+        (default: the card), the run's generator included. Under
+        ``loop="scan"`` on the card the first chunk captures its graph
+        from the restored state.
+
+        A checkpoint of the JAX ``Experiment.save`` restores with every
+        leaf the packages share equal. It holds no torch generator state
+        (its ``loop/.key`` and ``loop/.actors/.key`` are JAX keys, which
+        no torch stream matches: ROADMAP C4), so the run's generator is
+        seeded with ``resume_seed(execution.seed, step)``."""
+        meta = ckpt.load_metadata(path)
+        if meta is None or "spec" not in meta:
+            raise FileNotFoundError(
+                f"{path}: no spec-bearing checkpoint metadata — was this "
+                f"saved by Experiment.save?")
+        exp = cls(ExperimentSpec.from_dict(meta["spec"]), device=device)
+        exp._load_payload(path, meta)
+        return exp
+
+    def _load_payload(self, path: str, meta: dict) -> None:
+        """Load a ``save`` checkpoint's state into this handle, replacing
+        what it holds. A live handle's graph takes the loaded state at its
+        next chunk (``StepGraph.load``)."""
+        st = meta["experiment"]
+        tmpl = self.trainer.init_template()
+        gen = tmpl.gen
+        has_gen = _GEN_LEAF in ckpt.leaf_names(path)
+        tree = ckpt.restore(path, {"loop": tmpl._replace(
+            gen=gen.get_state() if has_gen else None)}, self.trainer.device)
+        ls = tree["loop"]
+        if has_gen:
+            gen.set_state(ls.gen.cpu())
+        else:
+            gen.manual_seed(resume_seed(self.spec.execution.seed,
+                                        int(st["step"])))
+        self._ls = ls._replace(gen=gen)
+        self.step = int(st["step"])
+        self.returns = [float(r) for r in st["returns"]]
+        self.eval_steps = [int(s) for s in st["eval_steps"]]
+        self.sranks = [int(s) for s in st["sranks"]]
+        self._rows = [dict(r) for r in st.get("rows", [])]
+        self._last_metrics = dict(st.get("last_metrics", {}))
+        self._wall = float(st.get("wall_time_s", 0.0))
+        self.trainer.n_params = int(st["n_params"])
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "Experiment.save is not ported yet (ROADMAP A.2: save/restore "
-            "with bitwise resume inside the port); rl.policy.save_params "
-            "writes the agent's params")
+        """Write the whole training state and the spec to ``path``.
+
+        One npz through ``ckpt.save`` (committed by ``os.replace``): the
+        ``TrainLoopState`` under the reference's leaf names
+        (``loop/.agent/...``, ``loop/.actors/.q|.qd|.t``,
+        ``loop/.nstep/...``, ``loop/.replay/...``, ``loop/.step``) and the
+        generator's state as the uint8 leaf ``loop/.gen``; the metadata
+        holds the spec and the eval history. The card is drained first;
+        under ``loop="scan"`` the state read is the graph's static state,
+        and nothing is captured anew."""
+        self._ensure_init()
+        dev = self.trainer.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ls = self._ls
+        state = {"step": self.step, "returns": self.returns,
+                 "eval_steps": self.eval_steps, "sranks": self.sranks,
+                 "rows": self._rows, "last_metrics": self._last_metrics,
+                 "wall_time_s": self._wall,
+                 "n_params": int(self.trainer.n_params)}
+        ckpt.save(path, {"loop": ls._replace(gen=ls.gen.get_state())},
+                  metadata={"spec": self.spec.to_dict(),
+                            "experiment": state})
 
     def _ensure_init(self):
         if self._ls is None:

@@ -1,11 +1,11 @@
-"""Training runner: SAC, OFENet, the device replay and the Ape-X actor pool
-glued into one superstep (port of ``repro/rl/runner.py``).
+"""Training runner: SAC or TD3, OFENet, the device replay and the Ape-X
+actor pool glued into one superstep (port of ``repro/rl/runner.py``).
 
 ``Trainer`` builds the pieces of one run from an ``ExperimentSpec``; the
 superstep is the reference's ``_device_step``:
 
     collect (1 env step per actor) -> n-step ring -> replay add ->
-    stratified sample -> sac_update -> priority refresh
+    stratified sample -> sac_update / td3_update -> priority refresh
 
 ``execution.loop="python"`` calls ``Trainer.step`` once a superstep.
 ``execution.loop="scan"`` runs chunks of supersteps through
@@ -20,10 +20,10 @@ the run's device, seeded from ``execution.seed`` and carried in
 feeds the reference's), else draws them from that generator.
 
 Not ported yet, and refused at construction with the ROADMAP item that
-brings it: TD3 training, the host replay, mesh sharding, obs telemetry and
-the guards. On the card the sum-tree runs its CUDA kernels, so
-``replay.kernel`` must be "pallas" there (the reference's "xla" names its
-plain scatter twin, which the port runs only for tensors on the CPU).
+brings it: the host replay, mesh sharding, obs telemetry and the guards.
+On the card the sum-tree runs its CUDA kernels, so ``replay.kernel`` must
+be "pallas" there (the reference's "xla" names its plain scatter twin,
+which the port runs only for tensors on the CPU).
 """
 from __future__ import annotations
 
@@ -39,11 +39,24 @@ from repro_torch.core.effective_rank import effective_rank
 from repro_torch.replay import (DeviceReplayConfig, nstep_emit_flat,
                                 nstep_init, replay_add, replay_init,
                                 replay_sample, replay_update)
-from repro_torch.rl import apex, sac as sac_mod
+from repro_torch.rl import apex, sac as sac_mod, td3 as td3_mod
 from repro_torch.rl.envs import eval_returns, make_env
 from repro_torch.rl.policy import Policy, algo_config
 
 _TRANSITION_FIELDS = ("obs", "act", "rew", "next_obs", "done")
+
+# per algorithm: init, update(state, cfg, batch, draws), and the names of
+# the update's Gaussian draws, each (batch, act_dim), in the order drawn
+_ALGOS = {
+    "sac": (sac_mod.sac_init,
+            lambda st, cfg, b, d: sac_mod.sac_update(st, cfg, b, d["eps1"],
+                                                     d["eps2"]),
+            ("eps1", "eps2")),
+    "td3": (td3_mod.td3_init,
+            lambda st, cfg, b, d: td3_mod.td3_update(st, cfg, b,
+                                                     d["noise"]),
+            ("noise",)),
+}
 
 
 class UnportedError(NotImplementedError):
@@ -56,9 +69,6 @@ def check_ported(spec) -> None:
     as asked (nothing quietly runs something else)."""
     x, r = spec.execution, spec.replay
     missing = []
-    if spec.algo != "sac":
-        missing.append(f"algo={spec.algo!r} training (td3_update: ROADMAP "
-                       f"A.1)")
     if r.backend != "device":
         missing.append("replay.backend='host' (the host NumPy replay: "
                        "ROADMAP A.6); use replay.backend='device'")
@@ -226,6 +236,7 @@ class Trainer:
         self.n_actors = x.n_actors
         self.env = env = make_env(spec.env)
         self.acfg = algo_config(spec, env)
+        self.init_fn, self.update_fn, self.update_draws = _ALGOS[spec.algo]
         self.gamma = self.acfg.gamma
         self.policy0 = Policy.from_spec(spec, env=env, device=self.device)
         self._train_policy = self.policy0.act_fn
@@ -256,16 +267,15 @@ class Trainer:
 
     def draws(self, gen: torch.Generator) -> Dict[str, Any]:
         """One superstep's draws: the collect step's policy noise and
-        resets, the sample's stratified uniforms, the update's two
-        Gaussian draws."""
+        resets, the sample's stratified uniforms, the update's Gaussian
+        draws (SAC: ``eps1``, ``eps2``; TD3: the target smoothing
+        ``noise``)."""
         b, a = self.batch_size, self.env.act_dim
         return {"collect": apex.collect_draws(self.env, 1, self.n_actors,
                                               "normal", gen),
                 "u": torch.rand((b,), generator=gen, device=gen.device),
-                "eps1": torch.randn((b, a), generator=gen,
-                                    device=gen.device),
-                "eps2": torch.randn((b, a), generator=gen,
-                                    device=gen.device)}
+                **{k: torch.randn((b, a), generator=gen, device=gen.device)
+                   for k in self.update_draws}}
 
     # ------------------------------------------------------ the superstep
     def step(self, ls: TrainLoopState,
@@ -283,8 +293,7 @@ class Trainer:
                                             self.batch_size)
         staleness = (ls.step - batch.pop("add_step")).to(torch.float32)
         batch["weight"] = weights
-        agent, metrics = sac_mod.sac_update(ls.agent, self.acfg, batch,
-                                            draws["eps1"], draws["eps2"])
+        agent, metrics = self.update_fn(ls.agent, self.acfg, batch, draws)
         rstate = replay_update(self.dcfg, rstate, idx, metrics["priorities"])
         metrics = dict(metrics, staleness_mean=staleness.mean(),
                        staleness_p50=median(staleness),
@@ -352,7 +361,7 @@ class Trainer:
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(
             self.spec.execution.seed)
-        agent = sac_mod.sac_init(self.acfg, gen, dev)
+        agent = self.init_fn(self.acfg, gen, dev)
         self.n_params = tree_size(agent["params"])
         actors = apex.init_actor_states(
             self.env, self.env.draw_reset(self.n_actors, gen))
@@ -363,6 +372,11 @@ class Trainer:
         return TrainLoopState(agent, actors, nstate,
                               replay_init(self.dcfg, dev), gen,
                               torch.zeros((), dtype=torch.int32, device=dev))
+
+    def init_template(self) -> TrainLoopState:
+        """A state with a live one's structure, shapes and dtypes, but no
+        warm-up run: the template ``Experiment.restore`` loads into."""
+        return self._fresh_state()
 
     def init(self) -> TrainLoopState:
         """Agent/actor/replay init + the random-policy warm-up (paper

@@ -32,9 +32,11 @@ import torch
 from repro.rl.experiment import ExperimentSpec as JSpec
 from repro.rl.runner import Trainer as JTrainer
 from repro_torch import convert
+from repro_torch.checkpoint import ckpt
 from repro_torch.common import tree_leaves
 from repro_torch.rl.envs import EnvState
-from repro_torch.rl.experiment import Experiment, ExperimentSpec as TSpec
+from repro_torch.rl.experiment import (Experiment, ExperimentSpec as TSpec,
+                                      resume_seed)
 from repro_torch.rl.policy import Policy
 from repro_torch.rl import presets as tpresets
 from repro_torch.rl.runner import (TrainLoopState, Trainer, UnportedError,
@@ -75,13 +77,17 @@ def jax_superstep_draws(jtr, key):
         k1, k2, _ = jax.random.split(rk, 3)       # pendulum's reset
         resets.append([float(jax.random.uniform(k1, ())),
                        float(jax.random.uniform(k2, ()))])
-    k1, k2 = jax.random.split(ku)
     f = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
-    return {"collect": {"noise": f(jax.random.normal(k, (n, a)))[None],
-                        "reset": f(resets)[None]},
-            "u": f(jax.random.uniform(ks, (jtr.batch_size,))),
-            "eps1": f(jax.random.normal(k1, (jtr.batch_size, a))),
-            "eps2": f(jax.random.normal(k2, (jtr.batch_size, a)))}
+    draws = {"collect": {"noise": f(jax.random.normal(k, (n, a)))[None],
+                         "reset": f(resets)[None]},
+             "u": f(jax.random.uniform(ks, (jtr.batch_size,)))}
+    if jtr.spec.algo == "td3":          # td3_update: normal(ku, a.shape)
+        draws["noise"] = f(jax.random.normal(ku, (jtr.batch_size, a)))
+    else:                               # sac_update: k1, k2 = split(ku)
+        k1, k2 = jax.random.split(ku)
+        draws["eps1"] = f(jax.random.normal(k1, (jtr.batch_size, a)))
+        draws["eps2"] = f(jax.random.normal(k2, (jtr.batch_size, a)))
+    return draws
 
 
 def _close(a, b, rtol, what):
@@ -91,9 +97,13 @@ def _close(a, b, rtol, what):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("backend,n_step", [("fused", 1), ("jnp", 3)])
-def test_superstep_matches_jax_device_step(backend, n_step):
-    over = dict(_BASE, block_backend=backend, n_step=n_step)
+@pytest.mark.parametrize("backend,n_step,algo", [
+    pytest.param("fused", 1, "sac", id="fused-1"),
+    pytest.param("jnp", 3, "sac", id="jnp-3"),
+    pytest.param("fused", 3, "td3", id="td3-fused-3"),
+    pytest.param("jnp", 1, "td3", id="td3-jnp-1")])
+def test_superstep_matches_jax_device_step(backend, n_step, algo):
+    over = dict(_BASE, block_backend=backend, n_step=n_step, algo=algo)
     jtr = JTrainer(JSpec().override(**over))
     jls = jtr.init()
     tls = _port_state(jls, n_step)
@@ -165,27 +175,38 @@ def test_experiment_runs_and_serves_on_cpu():
     assert Policy.from_experiment(exp).params is exp._ls.agent["params"]
 
 
+# ids as they were when td3 (A.1, now ported) was the first case
 @pytest.mark.parametrize("over,item", [
-    (dict(algo="td3"), "A.1"),
     (dict(replay_backend="host", replay_kernel="xla"), "A.6"),
     ({"obs.enabled": True}, "A.5"), ({"guard.enabled": True}, "A.4"),
-    ({"execution.mesh_shards": 2, "execution.loop": "scan"}, "A.8")])
+    ({"execution.mesh_shards": 2, "execution.loop": "scan"}, "A.8")],
+    ids=["over1-A.6", "over2-A.5", "over3-A.4", "over4-A.8"])
 def test_unported_choices_raise_with_their_roadmap_item(over, item):
     spec = TSpec().override(**dict(_BASE, **over))
     with pytest.raises(UnportedError, match=item):
         Experiment.from_spec(spec, device="cpu")
 
 
+def test_td3_trains_on_cpu():
+    spec = TSpec().override(**dict(_BASE, algo="td3", block_backend="fused"))
+    res = Experiment.from_spec(spec, device="cpu").run(6, keep_last=True)
+    assert res.eval_steps == [3, 6] and all(np.isfinite(res.returns))
+    for k in ("critic_loss", "actor_loss", "aux_loss", "q_mean",
+              "staleness_mean"):
+        assert np.isfinite(res.metrics[k]), k
+    assert "alpha" not in res.metrics
+    assert int(res.state["step"]) == 6
+    assert int(res.state["opt"]["actor"]["count"]) == 3      # steps 0, 2, 4
+    assert int(res.state["opt"]["critics"]["count"]) == 6
+
+
 def test_save_restore_not_ported_and_device_rule():
     spec = TSpec().override(**_BASE)
-    exp = Experiment.from_spec(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        exp.save("x.npz")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        Experiment.restore("x.npz")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             Experiment.from_spec(spec)
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            Experiment.from_spec(spec, device="cuda")
 
 
 _SCAN = dict(_BASE, block_backend="fused", eval_every=10, srank_every=5)
@@ -199,11 +220,10 @@ def _bitwise(a, b, what):
     assert torch.equal(a.gen.get_state(), b.gen.get_state()), what
 
 
-def test_scan_chunks_are_bitwise_one_call_and_the_python_loop():
+def _chunks_are_bitwise_one_call_and_the_python_loop(algo):
     def exp(loop):
-        return Experiment.from_spec(TSpec().override(**dict(_SCAN,
-                                                            loop=loop)),
-                                    device="cpu")
+        return Experiment.from_spec(TSpec().override(**dict(
+            _SCAN, loop=loop, algo=algo)), device="cpu")
     split, whole, py = exp("scan"), exp("scan"), exp("python")
     split.run(17)
     rs = split.run(23, keep_last=True)
@@ -218,6 +238,73 @@ def test_scan_chunks_are_bitwise_one_call_and_the_python_loop():
         for k, v in rs.last_batch.items():
             assert torch.equal(v, r.last_batch[k]), k
     assert len(rs.sranks) == 8 and all(1 <= s <= 16 for s in rs.sranks)
+
+
+def test_scan_chunks_are_bitwise_one_call_and_the_python_loop():
+    _chunks_are_bitwise_one_call_and_the_python_loop("sac")
+
+
+def test_td3_scan_chunks_are_bitwise_one_call_and_the_python_loop():
+    _chunks_are_bitwise_one_call_and_the_python_loop("td3")
+
+
+@pytest.mark.parametrize("n_step", [1, 3])
+@pytest.mark.parametrize("loop", ["scan", "python"])
+@pytest.mark.parametrize("algo", ["sac", "td3"])
+def test_save_restore_mid_period_is_bitwise_the_uninterrupted_run(
+        tmp_path, algo, loop, n_step):
+    spec = TSpec().override(**dict(_SCAN, algo=algo, loop=loop,
+                                   n_step=n_step))
+    first = Experiment.from_spec(spec, device="cpu")
+    first.run(17)
+    path = str(tmp_path / "run.npz")
+    first.save(path)
+    names = ckpt.leaf_names(path)
+    assert "loop/.gen" in names and "loop/.step" in names
+    assert ("loop/.nstep/t" in names) == (n_step > 1)
+    resumed = Experiment.restore(path, device="cpu")
+    assert resumed.spec == spec and resumed.step == 17
+    assert resumed._ls.gen.device.type == "cpu"
+    _bitwise(resumed._ls, first._ls, "restored")
+    rr = resumed.run(23, keep_last=True)
+    whole = Experiment.from_spec(spec, device="cpu")
+    rw = whole.run(40, keep_last=True)
+    _bitwise(resumed._ls, whole._ls, "17 + save/restore + 23 vs 40")
+    assert rr.returns == rw.returns and rr.eval_steps == rw.eval_steps \
+        == [10, 20, 30, 40]
+    assert rr.sranks == rw.sranks and len(rr.sranks) == 8
+    assert rr.metrics == rw.metrics and rr.param_count == rw.param_count
+    assert list(resumed.metrics()) == list(whole.metrics())
+
+
+@pytest.mark.parametrize("algo,n_step", [("sac", 3), ("td3", 1)])
+def test_jax_checkpoint_restores_with_every_shared_leaf_equal(
+        tmp_path, algo, n_step):
+    from repro.rl.experiment import Experiment as JExperiment
+    over = dict(_BASE, algo=algo, n_step=n_step, block_backend="jnp")
+    jexp = JExperiment.from_spec(JSpec().override(**over))
+    jexp.run(4)
+    path = str(tmp_path / "jax.npz")
+    jexp.save(path)
+    texp = Experiment.restore(path, device="cpu")
+    assert texp.spec.to_dict() == jexp.spec.to_dict()
+    assert texp.step == 4 and texp.returns == jexp.returns
+    assert texp.eval_steps == jexp.eval_steps == [3]
+    with np.load(path) as data:
+        saved = {k: data[k] for k in data.files}
+    got = dict(ckpt._leaves({"loop": texp._ls._replace(gen=None)}))
+    jax_only = {k for k in saved if k.endswith(".key")} | {ckpt.META_KEY}
+    assert set(got) == set(saved) - jax_only
+    assert {"loop/.key", "loop/.actors/.key"} <= jax_only
+    for k, t in got.items():
+        np.testing.assert_array_equal(t.numpy(), saved[k], err_msg=k)
+        assert t.numpy().dtype == saved[k].dtype, k
+    seeded = torch.Generator().manual_seed(
+        resume_seed(texp.spec.execution.seed, 4))
+    assert torch.equal(texp._ls.gen.get_state(), seeded.get_state())
+    res = texp.run(2)
+    assert texp.step == 6 and res.eval_steps == [3, 6]
+    assert np.isfinite(res.metrics["critic_loss"])
 
 
 def test_scan_schedule_matches_the_reference_scan_loop():
@@ -295,3 +382,30 @@ def test_cuda_graph_replays_are_bitwise_eager_supersteps(cuda_device):
     graph, _ = tr.chunk_fn(4, False)(graph)
     _bitwise(graph, eager, "6 replays")
     assert torch.equal(tr.evaluate(graph), tr.evaluate(eager))
+
+
+def test_cuda_td3_graph_replays_and_a_restore_under_the_graph(cuda_device,
+                                                               tmp_path):
+    spec = TSpec().override(**dict(_SCAN, loop="scan", algo="td3"))
+    tr = Trainer(spec, device=cuda_device)
+    ls = tr.init()
+    eager, graph = clone_state(ls), clone_state(ls)
+    for _ in range(6):                  # both delay parities, three times
+        eager, _, _ = tr.step(eager)
+    graph, _ = tr.chunk_fn(2, False)(graph)
+    graph, _ = tr.chunk_fn(4, False)(graph)
+    _bitwise(graph, eager, "6 td3 replays")
+    path = str(tmp_path / "run.npz")
+    whole = Experiment.from_spec(spec, device=cuda_device)
+    rw = whole.run(40)
+    first = Experiment.from_spec(spec, device=cuda_device)
+    first.run(17)
+    first.save(path)
+    resumed = Experiment.restore(path, device=cuda_device)
+    first.run(5)                        # moves on; then loads the file into
+    first._load_payload(path, ckpt.load_metadata(path))   # its live graph
+    for exp in (resumed, first):
+        r = exp.run(23)
+        _bitwise(exp._ls, whole._ls, "17 + save/restore + 23 vs 40")
+        assert r.returns == rw.returns and r.sranks == rw.sranks
+        assert r.eval_steps == rw.eval_steps
