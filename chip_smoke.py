@@ -109,6 +109,26 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    superstep as ``expected_launches``), both loops' wall in turns, 10
    eager supersteps and a replay's under the profiler (busy, idle,
    kernels, by class) and a replay's CUDA-event time.
+   Obs and the guard (``phase_obs_guard``, ``[obs]``, ``[guard]``,
+   ``[serve-watch]`` lines), at the same SAC spec: 40 supersteps under the
+   graph with obs on (jsonl, every step, a profiler trace of the first
+   chunk; chunks of 10) against obs off, bitwise on the state; the
+   jsonl's train rows against the eager loop's per-step metrics, bitwise;
+   the path's launches counted from 0 (warm-up and capture:
+   ``expected_launches`` each); the trace ``done`` with its
+   ``repro.chunk_dispatch`` span; a TD3 run's stream keys (the
+   reference's: no ``alpha``); the wall per superstep in chunks of 5 with
+   both off, obs (jsonl, every 5th step, grad-norm taps on and off) and
+   the guard (policy skip), in turns, all ending in one state, bitwise;
+   ``arm_nan_step(at_step=10)`` halting at step 11 under the graph; a
+   rollback from a ``DurableStore`` of the full state against
+   ``Experiment.restore`` + ``fold_in(gen, 1)`` + the rest of the run,
+   bitwise, with the store's save and verify seconds;
+   ``PolicyServer.watch`` adopting that run's next checkpoint while 4
+   clients are served, each response within 1e-4 of the plain path under
+   its stamped generation; ``python -m repro_torch.guard.supervise smoke``
+   on the card with ``kill-in-save@6`` (saves every 3), resumed from
+   step 3 to the uninterrupted card run's ``params_sha256``.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
    (the fused dense, flash and SSD kernels, which no training or serving
    path runs) with every count set to 0 just before; each row must launch
@@ -2391,6 +2411,395 @@ def phase_new_times(gen):
     return rows
 
 
+OBS_STEPS = 40      # supersteps of the observed runs held bitwise
+WALL_CHUNKS = 8     # chunks of 5 a timed run (run(5) each)
+
+
+def _free():
+    """Give the card's memory of runs already dropped back."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _obs_spec(spec, log_dir, **kw):
+    return spec.override(**{"obs.enabled": True, "obs.sinks": ("jsonl",),
+                            "obs.log_dir": log_dir, **kw})
+
+
+def obs_bitwise(spec, tmp, want):
+    """40 supersteps under the graph with obs on (jsonl, every step, a
+    trace of the first chunk; chunks of 10, srank at their ends) against
+    obs off: bitwise on the state; the jsonl's train rows against the
+    eager loop's per-step metrics (memory sink), bitwise; the kernels of
+    the path counted from 0 (the warm-up and the capture launch them, the
+    replays do not pass the wrappers); the trace's status and its chunk
+    span."""
+    import torch
+    from repro_torch.obs.report import load_rows
+    from repro_torch.rl.experiment import Experiment
+    cspec = spec.override(loop="scan", srank_every=10)
+    off = Experiment.from_spec(cspec)
+    off.run(OBS_STEPS)
+    run_dir = os.path.join(tmp, "obs")
+    on = Experiment.from_spec(_obs_spec(cspec, run_dir, **{
+        "obs.log_every": 1, "obs.trace": 1}))
+    on._ensure_init()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    on.run(OBS_STEPS)
+    torch.cuda.synchronize()
+    t_on = time.perf_counter() - t0
+    launches = _counts()
+    on.close()
+    if launches != {k: 2 * v for k, v in want.items()} \
+            or not all(launches[k] for k in ("fwd", "bwd", "sample", "set")):
+        raise AssertionError(f"observed run's launches {launches}, want 2 x "
+                             f"{want} (warm-up and capture)")
+    bad = state_diff(off._ls, on._ls)
+    if bad or on.sranks != off.sranks:
+        raise AssertionError(f"obs on != obs off after {OBS_STEPS} "
+                             f"supersteps: state {bad[:8]}, sranks "
+                             f"{on.sranks} vs {off.sranks}")
+    del off
+    _free()
+    eager = Experiment.from_spec(cspec.override(
+        loop="python", **{"obs.enabled": True, "obs.sinks": ("memory",),
+                          "obs.log_every": 1}))
+    eager.run(OBS_STEPS)
+    eager.close()
+    rows = load_rows(run_dir)
+    train = [r for r in rows if r["kind"] == "train"]
+    want_rows = [r for r in eager.obs.rows if r["kind"] == "train"]
+    if train != want_rows or len(train) != OBS_STEPS:
+        diff = [(a["step"], k) for a, b in zip(train, want_rows)
+                for k in a if a[k] != b.get(k)]
+        raise AssertionError(f"jsonl train rows != the eager loop's per-step"
+                             f" metrics ({len(train)} vs {len(want_rows)} "
+                             f"rows; first differences {diff[:6]})")
+    trace = on.obs.trace
+    text = open(trace.path).read() if trace.path else ""
+    if trace.status != "done" or "repro.chunk_dispatch" not in text:
+        raise AssertionError(f"trace status {trace.status!r}, file "
+                             f"{trace.path}, chunk span "
+                             f"{'repro.chunk_dispatch' in text}")
+    keys = sorted(k for k in train[0] if k not in ("kind", "step"))
+    log(f"[obs] {OBS_STEPS} supersteps under the graph with obs on (jsonl, "
+        f"log_every 1, trace 1; {t_on:.2f}s with the capture and the "
+        f"trace) == obs off, bitwise on every state tensor and the "
+        f"generator, sranks {on.sranks}; the jsonl's {len(train)} train "
+        f"rows == the eager loop's per-step metrics, bitwise ({len(keys)} "
+        f"keys: {', '.join(keys)}); launches at warm-up and capture "
+        f"{launches} = 2 x expected_launches; trace {trace.status}, "
+        f"{os.path.getsize(trace.path)} bytes with repro.chunk_dispatch")
+    del on, eager
+    _free()
+
+
+def td3_stream_keys(spec, tmp):
+    """The stream's keys of a TD3 run under the graph: the reference's
+    (no ``alpha``; the grad-norm and update-ratio taps of all three
+    nets)."""
+    from repro_torch.rl.experiment import Experiment
+    exp = Experiment.from_spec(spec.override(
+        algo="td3", loop="scan", **{"obs.enabled": True, "obs.log_every": 1,
+                                    "obs.sinks": ("memory",)}))
+    exp.run(5)
+    exp.close()
+    train = [r for r in exp.obs.rows if r["kind"] == "train"]
+    keys = {k for k in train[0] if k not in ("kind", "step")}
+    want = {"critic_loss", "actor_loss", "aux_loss", "q_mean", "td_error",
+            "staleness_mean", "staleness_p50", "staleness_max",
+            *(f"{p}_{n}" for p in ("grad_norm", "update_ratio")
+              for n in ("actor", "critics", "ofenet"))}
+    vals = np.array([[r[k] for k in sorted(keys)] for r in train])
+    if keys != want or len(train) != 5 or not np.all(np.isfinite(vals)):
+        raise AssertionError(f"TD3 stream keys {sorted(keys)} (want "
+                             f"{sorted(want)}), {len(train)} rows, finite "
+                             f"{bool(np.all(np.isfinite(vals)))}")
+    log(f"[obs] td3 under the graph: 5 train rows, keys == the reference's "
+        f"({len(keys)}: no alpha), all finite")
+    del exp
+    _free()
+
+
+def obs_guard_walls(spec, tmp):
+    """Wall per superstep under the graph in chunks of 5 (``run(5)``, no
+    eval or srank inside), host clock, in turns: obs and guard off; obs on
+    (jsonl, log_every 5; the grad-norm taps on, the default); obs on with
+    the taps off; the guard on (policy skip: a state clone and a
+    finiteness pass a chunk)."""
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    cspec = spec.override(loop="scan")
+    kinds = {
+        "off": cspec,
+        "obs": _obs_spec(cspec, os.path.join(tmp, "w1"),
+                         **{"obs.log_every": 5}),
+        "obs-no-taps": _obs_spec(cspec, os.path.join(tmp, "w2"),
+                                 **{"obs.log_every": 5,
+                                    "obs.grad_norms": False}),
+        "guard": cspec.override(**{"guard.enabled": True,
+                                   "guard.policy": "skip"}),
+    }
+    exps = {}
+    for k, s in kinds.items():
+        exps[k] = Experiment.from_spec(s)
+        exps[k].run(5)                      # warm-up + capture
+    torch.cuda.synchronize()
+    walls = {k: [] for k in kinds}
+    order = list(kinds)
+    for k in order + order[::-1]:
+        exp = exps[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WALL_CHUNKS):
+            exp.run(5)
+        torch.cuda.synchronize()
+        walls[k].append(1e3 * (time.perf_counter() - t0)
+                        / (5 * WALL_CHUNKS))
+    for exp in exps.values():
+        exp.close()
+    base = np.mean(walls["off"])
+    log(f"[obs] wall per superstep under the graph, run(5) x "
+        f"{WALL_CHUNKS} a timing, in turns: " + "; ".join(
+            f"{k} {', '.join(f'{w:.3f}' for w in v)} ms (mean "
+            f"{np.mean(v):.3f}, {100 * (np.mean(v) / base - 1):+.1f}%)"
+            for k, v in walls.items() if k != "guard"))
+    log(f"[guard] wall per superstep under the graph, policy skip, the same"
+        f" turns: {', '.join(f'{w:.3f}' for w in walls['guard'])} ms (mean "
+        f"{np.mean(walls['guard']):.3f}, "
+        f"{100 * (np.mean(walls['guard']) / base - 1):+.1f}% against off "
+        f"{base:.3f})")
+    n = exps["guard"].step
+    if any(e.step != n for e in exps.values()) \
+            or state_diff(exps["off"]._ls, exps["guard"]._ls) \
+            or state_diff(exps["off"]._ls, exps["obs"]._ls):
+        raise AssertionError("timed runs with obs or the guard on left "
+                             "another state than the run with both off")
+    log(f"[guard] after {n} supersteps each: obs on, the guard on and both "
+        f"off end in the same state, bitwise")
+    del exps, exp
+    _free()
+
+
+def guard_halt(spec):
+    """``arm_nan_step(at_step=10)`` under the graph: the guard halts and
+    names step 11, the first superstep whose params are NaN."""
+    from repro_torch.guard import GuardViolation, chaos
+    from repro_torch.rl.experiment import Experiment
+    exp = Experiment.from_spec(spec.override(
+        loop="scan", **{"guard.enabled": True, "guard.policy": "halt"}))
+    chaos.arm_nan_step(exp.trainer, at_step=10)
+    try:
+        exp.run(20)
+    except GuardViolation as gv:
+        steps = sorted({v.step for v in gv.violations})
+        reasons = sorted({v.reason for v in gv.violations})
+    else:
+        raise AssertionError("a NaN at agent step 10 did not halt the run")
+    if steps[0] != 11 or "nonfinite_stream" not in reasons \
+            or exp.trainer.captures != 1:
+        raise AssertionError(f"halt at steps {steps} ({reasons}), "
+                             f"{exp.trainer.captures} captures")
+    log(f"[guard] arm_nan_step(at_step=10) under the graph: halt, "
+        f"violations at steps {steps} ({', '.join(reasons)})")
+    del exp
+    _free()
+
+
+def guard_rollback(spec, tmp):
+    """A rollback from a ``DurableStore`` holding the full state against
+    its reconstruction (``Experiment.restore`` + ``fold_in(gen, 1)`` +
+    the rest of the run), bitwise; the store's save and sha256 seconds.
+    Returns the run's store and spec (the watcher's checkpoints)."""
+    import torch
+    from repro_torch.guard import DurableStore, chaos, fold_in
+    from repro_torch.rl.experiment import Experiment
+    gspec = spec.override(loop="scan", eval_every=10, **{
+        "guard.enabled": True, "guard.policy": "rollback"})
+    store = DurableStore(os.path.join(tmp, "ckpts"), keep=2)
+    exp = Experiment.from_spec(gspec)
+    exp.attach_guard(store)
+    exp.run(10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = store.save(lambda p: exp.save(p), exp.step)
+    t_save = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    t0 = time.perf_counter()
+    store.verify(path)
+    t_verify = time.perf_counter() - t0
+    chaos.poison_params(exp)
+    t0 = time.perf_counter()
+    exp.run(10)                      # detect at 11, roll back to 10, rerun
+    torch.cuda.synchronize()
+    t_rb = time.perf_counter() - t0
+    if exp._monitor.recoveries != 1 or exp.step != 20:
+        raise AssertionError(f"rollback: {exp._monitor.recoveries} "
+                             f"recoveries, step {exp.step}")
+    ref = Experiment.restore(DurableStore.payload(path))
+    fold_in(ref._ls.gen, 1)
+    ref.run(10)
+    torch.cuda.synchronize()
+    bad = state_diff(exp._ls, ref._ls)
+    if bad or exp.returns != ref.returns:
+        raise AssertionError(f"rollback != restore + fold_in + rerun: state "
+                             f"{bad[:8]}, returns {exp.returns} vs "
+                             f"{ref.returns}")
+    log(f"[guard] rollback from a DurableStore of the full state (step 10, "
+        f"{nbytes / 1e6:.1f} MB): == Experiment.restore + fold_in(gen, 1) + "
+        f"run(10), bitwise on every state tensor and the generator, "
+        f"returns {exp.returns}; DurableStore.save {t_save:.2f}s (npz + "
+        f"sha256 manifest + rename), verify {t_verify:.2f}s, the rolled "
+        f"back run(10) {t_rb:.2f}s")
+    del ref
+    _free()
+    return exp, store
+
+
+def guard_supervisor(tmp):
+    """``python -m repro_torch.guard.supervise smoke`` on the card with
+    ``kill-in-save@6`` (saves every 3: the worker dies committing step 6
+    and resumes from step 3) against an uninterrupted in-process card run
+    of the same spec: the same ``params_sha256``."""
+    from repro_torch.guard import supervise
+    from repro_torch.rl import presets
+    from repro_torch.rl.experiment import Experiment
+    run_dir = os.path.join(tmp, "sup")
+    over = ["replay.backend=device", "replay.kernel=pallas"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.guard.supervise", "smoke",
+           "--dir", run_dir, "--steps", "12", "--save-every", "3",
+           "--retries", "2", "--backoff", "0.1", "--chaos", "kill-in-save@6"]
+    for o in over:
+        cmd += ["--override", o]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"supervise exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(os.path.join(run_dir, "result.json")) as f:
+        res = json.load(f)
+    with open(os.path.join(run_dir, "incident.json")) as f:
+        inc = json.load(f)
+    ref = Experiment.from_spec(presets.get("smoke").override(**{
+        o.split("=")[0]: o.split("=")[1] for o in over}))
+    ref.run(12)
+    digest = supervise._digest(ref._ls.agent["params"])
+    att = inc["attempts"]
+    if res["params_sha256"] != digest or res["step"] != 12 \
+            or att[0].get("signal") != "SIGKILL" or len(att) != 2 \
+            or res["resumed_from"] != 3 \
+            or res["returns"] != [float(r) for r in ref.returns]:
+        raise AssertionError(f"supervised run {res} (attempts {att}) != "
+                             f"uninterrupted card run {digest}, returns "
+                             f"{ref.returns}")
+    log(f"[guard] supervise smoke on the card, kill-in-save@6: attempt 0 "
+        f"{att[0]['signal']} after {att[0]['wall_s']:.2f}s, attempt 1 "
+        f"resumed from step {res['resumed_from']} and finished in "
+        f"{att[1]['wall_s']:.2f}s (the resume: a new worker process, its "
+        f"card context, the restore and 9 supersteps); {wall:.1f}s in all;"
+        f" params_sha256 {res['params_sha256'][:16]}... == the "
+        f"uninterrupted card run's, returns {res['returns']} equal")
+    del ref
+    _free()
+
+
+def serve_watch(exp, store):
+    """``PolicyServer.watch`` on the rollback run's store: 4 clients served
+    while the run commits a new checkpoint (step 20, the full state); the
+    watcher verifies it and swaps it in between ticks. Every response
+    equals the plain path under the generation stamped on it (1e-4)."""
+    from repro_torch.launch.serve_policy import PolicyServer, ServeConfig
+    from repro_torch.rl.policy import Policy, load_params
+    path = store.checkpoints()[-1]
+    spec, params = load_params(store.payload(path))
+    pol = Policy.from_spec(spec, params)
+    server = PolicyServer(pol, ServeConfig(max_batch=32, poll_s=0.05))
+    server.start().watch(store, spec, seen_step=store.step_of(path))
+    rng = np.random.default_rng(2)
+    obs = rng.standard_normal((4, 64, pol.obs_dim)).astype(np.float32)
+    out = [[] for _ in range(4)]
+    stop = threading.Event()
+
+    def client(c):
+        i = 0
+        while not stop.is_set() or i < 64:
+            t = server.submit_async(obs[c][i % 64])
+            out[c].append((i % 64, t.result(timeout=120.0), t.generation))
+            i += 1
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    time.sleep(0.2)
+    new_params = {k: v for k, v in exp._ls.agent["params"].items()}
+    t0 = time.perf_counter()
+    store.save(lambda p: exp.save(p), exp.step)
+    t_commit = time.perf_counter() - t0
+    deadline = time.perf_counter() + 120.0
+    while server.generation != 1:
+        if time.perf_counter() > deadline:
+            raise AssertionError("the watcher did not adopt the checkpoint")
+        time.sleep(0.01)
+    t_adopt = time.perf_counter() - t0
+    time.sleep(0.2)
+    stop.set()
+    for t in threads:
+        t.join(timeout=300.0)
+        if t.is_alive():
+            raise AssertionError("client thread hung")
+    server.close()
+    cpu = {g: pol.with_params(p).to("cpu") for g, p in
+           ((0, params), (1, new_params))}
+    want = {(g, c): cpu[g].act_deterministic(obs[c]).numpy()
+            for g in cpu for c in range(4)}
+    gens, err = set(), 0.0
+    for c in range(4):
+        seen = [g for _, _, g in out[c]]
+        if seen != sorted(seen):
+            raise AssertionError(f"client {c}: generations went back")
+        for i, a, g in out[c]:
+            gens.add(g)
+            err = max(err, float(np.abs(a - want[(g, c)][i]).max()))
+    if gens != {0, 1} or err > 1e-4 or server.stats["swaps"] != 1 \
+            or server.stats["bad_checkpoints"]:
+        raise AssertionError(f"watch: generations {gens}, max abs err "
+                             f"{err:.3e} vs the plain path under each "
+                             f"response's generation, {server.stats['swaps']}"
+                             f" swaps, {server.stats['bad_checkpoints']} bad")
+    n = sum(len(o) for o in out)
+    log(f"[serve-watch] {n} requests from 4 clients while the run committed"
+        f" step {exp.step} ({t_commit:.2f}s: npz + sha256 + rename); the "
+        f"watcher verified and adopted it {t_adopt:.2f}s after the commit "
+        f"began; every response within {err:.1e} of the plain path under "
+        f"its stamped generation (0 and 1), none mixed; "
+        f"{server.stats['ticks']} ticks, 1 swap")
+    del exp, pol, server
+    _free()
+
+
+def phase_obs_guard(spec):
+    """The slice's path: obs and the guard around the graph's training, at
+    the training phase's full width (SAC; TD3 once for the stream's keys),
+    then the supervisor at the smoke preset and the checkpoint watcher."""
+    import tempfile
+    from repro_torch.rl.experiment import Experiment
+    want = expected_launches(Experiment.from_spec(spec).trainer)
+    with tempfile.TemporaryDirectory() as tmp:
+        obs_bitwise(spec, tmp, want)
+        td3_stream_keys(spec, tmp)
+        obs_guard_walls(spec, tmp)
+        guard_halt(spec)
+        serve_watch(*guard_rollback(spec, tmp))
+        guard_supervisor(tmp)
+
+
 def build_all():
     """Build the six kernel libraries and the latency probe, one nvcc
     each, all at once."""
@@ -2483,6 +2892,7 @@ def main() -> int:
     td3_spec = train_spec.override(algo="td3")
     td3_launches = phase_td3(td3_spec)
     phase_graph(train_spec, ckpt_specs=(td3_spec,))
+    phase_obs_guard(train_spec)
     phase_fwd_fills(gen)
     micro_launches = phase_micro()
 

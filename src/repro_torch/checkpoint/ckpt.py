@@ -22,6 +22,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import annotate
+
 META_KEY = "__meta__json"
 
 
@@ -69,21 +71,22 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(path: str, tree: Any, *, metadata: Optional[dict] = None) -> None:
-    arrays = {k: _to_numpy(v) for k, v in _leaves(tree)}
-    if metadata is not None:
-        arrays[META_KEY] = np.frombuffer(
-            json.dumps(metadata).encode("utf-8"), dtype=np.uint8)
-    p = Path(path)
-    p.parent.mkdir(parents=True, exist_ok=True)
-    # unique staging name; np.savez keeps a name that ends in ".npz"
-    tag = f".{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp.npz"
-    tmp = str(p) + tag
-    np.savez(tmp, **arrays)
-    os.replace(tmp, str(p))                      # THE commit point
-    if metadata is not None:
-        side_tmp = str(p) + ".meta.json" + tag
-        Path(side_tmp).write_text(json.dumps(metadata, indent=1))
-        os.replace(side_tmp, str(p) + ".meta.json")
+    with annotate("repro.ckpt.save"):
+        arrays = {k: _to_numpy(v) for k, v in _leaves(tree)}
+        if metadata is not None:
+            arrays[META_KEY] = np.frombuffer(
+                json.dumps(metadata).encode("utf-8"), dtype=np.uint8)
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        # unique staging name; np.savez keeps a name that ends in ".npz"
+        tag = f".{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp.npz"
+        tmp = str(p) + tag
+        np.savez(tmp, **arrays)
+        os.replace(tmp, str(p))                      # THE commit point
+        if metadata is not None:
+            side_tmp = str(p) + ".meta.json" + tag
+            Path(side_tmp).write_text(json.dumps(metadata, indent=1))
+            os.replace(side_tmp, str(p) + ".meta.json")
 
 
 def restore(path: str, template: Any, device: torch.device) -> Any:
@@ -91,7 +94,8 @@ def restore(path: str, template: Any, device: torch.device) -> Any:
     dtype, e.g. on the ``meta`` device) onto ``device``, in
     ``template``'s structure. Entries the template does not name are not
     read."""
-    with np.load(path, allow_pickle=False) as data:
+    with annotate("repro.ckpt.restore"), \
+            np.load(path, allow_pickle=False) as data:
         values = {}
         for key, tmpl in _leaves(template):
             if key not in data.files:

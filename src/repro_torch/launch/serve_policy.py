@@ -1,6 +1,5 @@
-"""Continuous-batching policy server with double-buffered hot-swap (port of
-``repro/launch/serve_policy.py``; the checkpoint watcher and the CLI need
-the durable store and come with the guard slice).
+"""Continuous-batching policy server with double-buffered hot-swap and a
+checkpoint watcher (port of ``repro/launch/serve_policy.py``).
 
 * **Bounded request queue.** ``submit(obs)`` blocks for the action;
   ``submit_async(obs)`` returns a ticket. A full queue blocks submitters.
@@ -14,9 +13,27 @@ the durable store and come with the guard slice).
   the policy's device and materialized on the caller's thread); the
   batcher adopts them and bumps the generation BETWEEN ticks. Every
   response carries the generation whose params computed it.
+* **Checkpoint watcher.** ``server.watch(store)`` polls a
+  ``repro_torch.guard.DurableStore`` for new checkpoints, takes only ones
+  that VERIFY (``store.verify``: torn or bit-flipped checkpoints are
+  skipped and reported through ``on_bad``), restores their
+  ``agent/params`` subtree through ``rl.policy.load_params`` and pushes
+  it. A live learner (or ``repro_torch.guard.supervise``) committing
+  checkpoints into the store upgrades the server without pausing it.
+
+CLI::
+
+    python -m repro_torch.launch.serve_policy <preset> --ckpt-dir runs/x/ckpts
+
+serves the newest verified checkpoint in the store (``--train N`` first
+trains the preset for N steps and commits a checkpoint, so the command is
+self-contained), watches the store for more, fires a synthetic concurrent
+client load and prints latency/throughput stats. It runs on the CUDA card
+unless ``--device cpu`` is passed.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import queue
 import threading
@@ -39,10 +56,12 @@ class ServerClosed(RuntimeError):
 class ServeConfig:
     """``max_batch`` bounds a tick's batch; ``max_wait_ms`` how long the
     first request of a tick waits for company; ``queue_size`` admission
-    (backpressure)."""
+    (backpressure); ``poll_s`` the checkpoint watcher's store-poll
+    cadence."""
     max_batch: int = 32
     max_wait_ms: float = 2.0
     queue_size: int = 1024
+    poll_s: float = 0.25
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -125,12 +144,14 @@ class PolicyServer:
         self._staged: Optional[tuple] = None      # (params, meta) shadow
         self._closing = False
         self._batcher: Optional[threading.Thread] = None
+        self._watcher: Optional[threading.Thread] = None
+        self._watch_stop = threading.Event()
         # test seam: called with the incoming generation right before the
         # flip; raising ABORTS the swap (old generation keeps serving)
         self._pre_flip_hook: Optional[Callable[[int], None]] = None
         self.stats: Dict[str, Any] = {
             "requests": 0, "ticks": 0, "swaps": 0, "swap_aborts": 0,
-            "batch_hist": {}, "latencies_ms": [],
+            "bad_checkpoints": 0, "batch_hist": {}, "latencies_ms": [],
         }
 
     # ------------------------------------------------------------ lifecycle
@@ -154,6 +175,10 @@ class PolicyServer:
                         ServerClosed("server closed without drain"))
                 except queue.Empty:
                     break
+        self._watch_stop.set()
+        if self._watcher is not None:
+            self._watcher.join()
+            self._watcher = None
         if self._batcher is not None:
             self._batcher.join()
             self._batcher = None
@@ -221,6 +246,48 @@ class PolicyServer:
         self._generation += 1
         self.stats["swaps"] += 1
 
+    # -------------------------------------------------------------- watcher
+    def watch(self, store, spec=None, seen_step: int = -1,
+              on_bad: Optional[Callable] = None) -> "PolicyServer":
+        """Poll ``store`` (a ``repro_torch.guard.DurableStore``) and
+        hot-swap onto each NEW checkpoint that verifies. Corrupt or torn
+        checkpoints are counted, reported through ``on_bad`` and skipped —
+        the server keeps serving the last good generation. ``seen_step``:
+        the checkpoint step already being served."""
+        if self._watcher is not None:
+            raise RuntimeError("watcher already running")
+        from repro_torch.rl.policy import load_params
+        dev = self._policy.device
+
+        def loop():
+            seen = seen_step
+            while not self._watch_stop.is_set():
+                path = None
+                try:
+                    cks = store.checkpoints()
+                    if cks and store.step_of(cks[-1]) > seen:
+                        path = cks[-1]
+                        store.verify(path)
+                except Exception as bad:
+                    if path is not None:
+                        seen = store.step_of(path)   # don't re-verify it
+                        self.stats["bad_checkpoints"] += 1
+                        if on_bad is not None:
+                            on_bad(bad)
+                    path = None
+                if path is not None:
+                    step = store.step_of(path)
+                    _, params = load_params(store.payload(path), spec,
+                                            device=dev)
+                    self.push_params(params, {"step": step})
+                    seen = step
+                self._watch_stop.wait(self.config.poll_s)
+
+        self._watcher = threading.Thread(target=loop, name="serve-watcher",
+                                         daemon=True)
+        self._watcher.start()
+        return self
+
     # -------------------------------------------------------------- batcher
     def _coalesce(self) -> List[_Ticket]:
         """Up to ``max_batch`` requests: block for the first, then hold the
@@ -273,3 +340,106 @@ class PolicyServer:
                 # the error, later ticks run as usual
                 for t in batch:
                     t._fail(err)
+
+
+# ------------------------------------------------------------------- CLI
+
+def _percentile(xs: List[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve_policy",
+        description="Serve a trained policy with continuous batching and "
+                    "checkpoint hot-swap, then drive a synthetic client "
+                    "load against it.")
+    p.add_argument("preset", help="preset name (repro_torch.rl.presets)")
+    p.add_argument("--ckpt-dir", required=True,
+                   help="DurableStore directory to serve from (and watch)")
+    p.add_argument("--train", type=int, default=0, metavar="STEPS",
+                   help="train the preset this many steps and commit a "
+                        "checkpoint first (self-contained demo)")
+    p.add_argument("--override", action="append", default=[],
+                   metavar="K=V", help="spec override for --train "
+                                       "(repeatable)")
+    p.add_argument("--requests", type=int, default=256,
+                   help="synthetic client requests to fire")
+    p.add_argument("--clients", type=int, default=8,
+                   help="concurrent client threads")
+    p.add_argument("--max-batch", type=int, default=32)
+    p.add_argument("--max-wait-ms", type=float, default=2.0)
+    p.add_argument("--device", default=None,
+                   help="serving (and --train) device (default: the card)")
+    args = p.parse_args(argv)
+
+    from repro_torch.guard import DurableStore
+    from repro_torch.rl import presets
+    from repro_torch.rl.experiment import parse_overrides
+    from repro_torch.rl.policy import Policy, load_params
+
+    spec = presets.get(args.preset)
+    if args.override:
+        spec = spec.override(**parse_overrides(args.override))
+    store = DurableStore(args.ckpt_dir)
+
+    if args.train:
+        from repro_torch.rl.experiment import Experiment
+        exp = Experiment.from_spec(spec, device=args.device)
+        exp.run(args.train)
+        store.save(exp.save, step=args.train)
+        exp.close()
+        print(f"trained {args.train} steps -> committed checkpoint "
+              f"step-{args.train}")
+
+    good = store.restore_latest(on_bad=lambda bad: print(f"skipping {bad}"))
+    if good is None:
+        print(f"no verified checkpoint under {args.ckpt_dir} "
+              f"(hint: --train N)")
+        return 2
+    spec_ck, params = load_params(store.payload(good), device=args.device)
+    policy = Policy.from_spec(spec_ck, params, device=args.device)
+    cfg = ServeConfig(max_batch=args.max_batch,
+                      max_wait_ms=args.max_wait_ms)
+    server = PolicyServer(policy, cfg).start().watch(
+        store, spec_ck, seen_step=store.step_of(good))
+    print(f"serving {spec_ck.algo}/{spec_ck.env} from {good.name} on "
+          f"{policy.device} (slots {cfg.batch_slots})")
+
+    rng = np.random.default_rng(0)
+    all_obs = rng.standard_normal(
+        (args.requests, policy.obs_dim)).astype(np.float32)
+    idx = iter(range(args.requests))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = next(idx, None)
+            if i is None:
+                return
+            server.submit(all_obs[i], timeout=30.0)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client)
+               for _ in range(args.clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    server.close()
+
+    lat = server.stats["latencies_ms"]
+    print(f"{args.requests} requests / {args.clients} clients in "
+          f"{wall:.3f}s -> {args.requests / wall:.0f} req/s")
+    print(f"latency ms: p50={_percentile(lat, 50):.2f} "
+          f"p99={_percentile(lat, 99):.2f}")
+    print(f"ticks={server.stats['ticks']} "
+          f"batch_hist={dict(sorted(server.stats['batch_hist'].items()))} "
+          f"generation={server.generation} swaps={server.stats['swaps']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -3,8 +3,8 @@
 
 A spec crosses between the packages as ``to_dict()`` JSON — the form both
 write into checkpoint metadata — so every section, field, default and
-validation rule here is the reference's, including a copy of
-``repro.guard.monitor.GuardSpec``.
+validation rule here is the reference's (``GuardSpec`` lives in
+``repro_torch.guard.monitor``, as the reference's does).
 
 ``Experiment.from_spec(spec).run(steps)`` trains on the card (or on the
 CPU with ``device="cpu"``) through ``runner.Trainer``: evaluation and the
@@ -22,9 +22,18 @@ under either loop. The leaves carry the reference's names, so a
 checkpoint of the JAX ``Experiment.save`` restores here too (see
 ``Experiment.restore`` for its generator); a checkpoint of the port does
 not restore in the reference, which needs per-actor keys (ROADMAP C11).
+
+With ``obs.enabled`` a run streams what it does (``repro_torch.obs``):
+per-step train rows, eval rows and events into the spec's sinks, and a
+profiler trace of its first chunks. With ``guard.enabled`` it watches the
+same stream and its params (``repro_torch.guard``) and halts, skips the
+segment or rolls back to a ``DurableStore`` checkpoint on a violation.
+Neither changes what is trained: runs with obs or guard on or off end in
+the same state, bit for bit, as long as no violation fires.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 import time
 import warnings
@@ -37,6 +46,10 @@ from repro_torch.common import ACTIVATIONS
 from repro_torch.core.blocks import BLOCK_BACKENDS, CONNECTIVITIES
 from repro_torch.core.effective_rank import effective_rank
 from repro_torch.core.ofenet import OFENetConfig
+from repro_torch.guard.monitor import (GuardSpec, GuardViolation, Monitor,
+                                       fold_in)
+from repro_torch.obs.stream import ObsRun
+from repro_torch.obs.trace import annotate
 from repro_torch.rl.envs import ENVS
 
 ALGOS = ("sac", "td3")
@@ -44,7 +57,6 @@ REPLAY_BACKENDS = ("host", "device")
 REPLAY_KERNELS = ("xla", "pallas")
 LOOPS = ("python", "scan")
 SINKS = ("jsonl", "csv", "memory")
-GUARD_POLICIES = ("halt", "skip", "rollback")
 
 _SPEC_VERSION = 1
 
@@ -75,12 +87,6 @@ def _boolean(spec: str, field: str, value) -> None:
         raise SpecError(f"{spec}.{field}={value!r} must be a bool")
 
 
-def _number(spec: str, field: str, value) -> None:
-    if not isinstance(value, (int, float)) or isinstance(value, bool) \
-            or value < 0:
-        raise SpecError(f"{spec}.{field}={value!r} must be a number >= 0")
-
-
 def _sub_from_dict(cls, name: str, d: dict):
     if not isinstance(d, dict):
         raise SpecError(f"spec section {name!r} must be a dict, got "
@@ -91,7 +97,14 @@ def _sub_from_dict(cls, name: str, d: dict):
         warnings.warn(f"ExperimentSpec.from_dict: ignoring unknown "
                       f"{name} keys {unknown} (forward compat)", SpecWarning,
                       stacklevel=3)
-    return cls(**{k: v for k, v in d.items() if k in known})
+    try:
+        return cls(**{k: v for k, v in d.items() if k in known})
+    except SpecError:
+        raise
+    except ValueError as e:
+        # GuardSpec lives in repro_torch.guard, which never imports
+        # repro_torch.rl: its plain ValueError becomes a SpecError here
+        raise SpecError(str(e)) from e
 
 
 # --------------------------------------------------------------- sub-specs
@@ -224,34 +237,6 @@ class ObsSpec:
                 f"obs.log_dir is required by {sorted(set(needs_dir))}: "
                 f"file sinks and profiler traces need a directory to "
                 f"write into (obs.log_dir='runs/exp0').")
-
-
-@dataclasses.dataclass(frozen=True)
-class GuardSpec:
-    """In-loop health guards (copy of ``repro.guard.monitor.GuardSpec``)."""
-    enabled: bool = False
-    policy: str = "halt"
-    check_params: bool = True
-    spike_factor: float = 0.0
-    spike_key: str = "critic_loss"
-    spike_window: int = 64
-    srank_collapse: float = 0.0
-    max_recoveries: int = 3
-
-    def __post_init__(self):
-        _boolean("guard", "enabled", self.enabled)
-        _choice("guard", "policy", self.policy, GUARD_POLICIES)
-        _boolean("guard", "check_params", self.check_params)
-        if not self.spike_key or not isinstance(self.spike_key, str):
-            raise SpecError(f"guard.spike_key={self.spike_key!r} must be "
-                            f"a non-empty metric-stream key")
-        _number("guard", "spike_factor", self.spike_factor)
-        _number("guard", "srank_collapse", self.srank_collapse)
-        if self.srank_collapse >= 1.0:
-            raise SpecError(f"guard.srank_collapse={self.srank_collapse!r} "
-                            f"must be < 1 (a fraction of the peak)")
-        _positive("guard", "spike_window", self.spike_window, minimum=2)
-        _positive("guard", "max_recoveries", self.max_recoveries, minimum=0)
 
 
 # flat legacy field -> dotted spec path, used by override()
@@ -415,6 +400,31 @@ class ExperimentSpec:
             block_backend=self.network.block_backend)
 
 
+def parse_overrides(pairs: List[str]) -> Dict[str, Any]:
+    """CLI ``--override key=value`` pairs -> an ``override()`` kwargs dict
+    (copy of the reference's).
+
+    Values parse as Python literals when possible (``True``, ``3``,
+    ``0.5``), with shell-style ``true``/``false`` accepted as bools, and
+    fall back to strings (``device``, ``scan``) — bool-typed spec fields
+    reject leftover strings at validation, so a typo'd flag can never run
+    the wrong experiment silently."""
+    out: Dict[str, Any] = {}
+    for s in pairs:
+        key, sep, val = s.partition("=")
+        if not sep or not key:
+            raise SpecError(f"override {s!r} must be key=value "
+                            f"(e.g. replay.backend=device)")
+        if val.lower() in ("true", "false"):
+            out[key] = val.lower() == "true"
+            continue
+        try:
+            out[key] = ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            out[key] = val
+    return out
+
+
 _GEN_LEAF = "loop/.gen"
 
 
@@ -422,6 +432,10 @@ def resume_seed(seed: int, step: int) -> int:
     """The generator seed of a run resumed at ``step`` from a checkpoint
     that holds no generator state (the JAX package's)."""
     return seed + (step << 32)
+
+
+def _scalars(metrics) -> Dict[str, float]:
+    return {k: float(v) for k, v in metrics.items() if v.ndim == 0}
 
 
 class Experiment:
@@ -438,6 +452,9 @@ class Experiment:
         from repro_torch.rl.runner import Trainer
         self.spec = spec
         self.trainer = Trainer(spec, device)
+        self._obs = ObsRun(spec.obs)
+        self._monitor = Monitor(spec.guard) if spec.guard.enabled else None
+        self._guard_store = None       # DurableStore via attach_guard()
         self._ls = None
         self.step = 0
         self.returns: List[float] = []
@@ -473,12 +490,15 @@ class Experiment:
                 f"saved by Experiment.save?")
         exp = cls(ExperimentSpec.from_dict(meta["spec"]), device=device)
         exp._load_payload(path, meta)
+        exp._obs.log_event("restore", step=exp.step, path=str(path))
+        exp._obs.drain()
         return exp
 
     def _load_payload(self, path: str, meta: dict) -> None:
         """Load a ``save`` checkpoint's state into this handle, replacing
-        what it holds. A live handle's graph takes the loaded state at its
-        next chunk (``StepGraph.load``)."""
+        what it holds (``restore``'s workhorse, and the rollback's). A live
+        handle's graph takes the loaded state at its next chunk
+        (``StepGraph.load``)."""
         st = meta["experiment"]
         tmpl = self.trainer.init_template()
         gen = tmpl.gen
@@ -500,6 +520,9 @@ class Experiment:
         self._last_metrics = dict(st.get("last_metrics", {}))
         self._wall = float(st.get("wall_time_s", 0.0))
         self.trainer.n_params = int(st["n_params"])
+        # dispatch accounting continues across the resume
+        self.trainer.dispatches = int(st.get("dispatches", 0))
+        self._obs.load_state(st.get("obs"))
 
     def save(self, path: str) -> None:
         """Write the whole training state and the spec to ``path``.
@@ -509,22 +532,29 @@ class Experiment:
         (``loop/.agent/...``, ``loop/.actors/.q|.qd|.t``,
         ``loop/.nstep/...``, ``loop/.replay/...``, ``loop/.step``) and the
         generator's state as the uint8 leaf ``loop/.gen``; the metadata
-        holds the spec and the eval history. The card is drained first;
-        under ``loop="scan"`` the state read is the graph's static state,
-        and nothing is captured anew."""
+        holds the spec, the eval history and the obs stream's cursor. The
+        card is drained first, and the obs sinks with it; under
+        ``loop="scan"`` the state read is the graph's static state, and
+        nothing is captured anew."""
         self._ensure_init()
         dev = self.trainer.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        self._obs.drain()
         ls = self._ls
         state = {"step": self.step, "returns": self.returns,
                  "eval_steps": self.eval_steps, "sranks": self.sranks,
                  "rows": self._rows, "last_metrics": self._last_metrics,
                  "wall_time_s": self._wall,
-                 "n_params": int(self.trainer.n_params)}
-        ckpt.save(path, {"loop": ls._replace(gen=ls.gen.get_state())},
-                  metadata={"spec": self.spec.to_dict(),
-                            "experiment": state})
+                 "n_params": int(self.trainer.n_params),
+                 "dispatches": int(self.trainer.dispatches),
+                 "obs": self._obs.state()}
+        with annotate("repro.ckpt_save"):
+            ckpt.save(path, {"loop": ls._replace(gen=ls.gen.get_state())},
+                      metadata={"spec": self.spec.to_dict(),
+                                "experiment": state})
+        self._obs.log_event("save", step=self.step, path=str(path))
+        self._obs.drain()
 
     def _ensure_init(self):
         if self._ls is None:
@@ -538,9 +568,15 @@ class Experiment:
         multiples of ``eval.every`` and ``eval.srank_every`` wherever calls
         start and stop (eval also at this call's end with
         ``eval_at_end``); ``keep_last`` keeps the final sampled batch and
-        its priorities."""
+        its priorities.
+
+        With ``spec.obs.enabled`` the call also streams: the scan loop
+        flushes each chunk's per-step stream and a timing event, the python
+        loop logs per step; the sinks are drained before returning. With
+        ``spec.guard.enabled`` each chunk (the python loop: each step) is
+        checked and a violation handled by ``guard.policy``."""
         t0 = time.time()
-        ev = self.spec.eval
+        ev, obs, mon = self.spec.eval, self._obs, self._monitor
         every, srank_every = ev.every, ev.srank_every
         if steps is None:
             steps = self.spec.execution.total_steps
@@ -557,11 +593,35 @@ class Experiment:
                 stop = min(stops)
                 do_eval = stop % every == 0 or (eval_at_end and stop == end)
                 do_srank = bool(srank_every) and stop % srank_every == 0
-                ls, out = trainer.chunk_fn(stop - step, do_eval,
-                                           do_srank)(ls)
+                snap = (self._guard_snapshot(ls, step)
+                        if mon is not None else None)
+                obs.trace.begin()
+                tc = time.time()
+                with annotate("repro.chunk_dispatch"):
+                    ls, out = trainer.chunk_fn(stop - step, do_eval,
+                                               do_srank)(ls)
+                stream = out.get("stream")
+                if mon is not None:
+                    viol = mon.check_stream(step, stream)
+                    viol += mon.check_params(stop, ls.agent["params"])
+                    if viol:
+                        obs.trace.end()
+                        ls, step = self._guard_recover(viol, snap)
+                        continue
+                if stream is not None:
+                    obs.flush_chunk(step, stream)
+                    obs.chunk_event(step, stop, time.time() - tc)
+                obs.trace.end()
                 step = stop
                 if do_srank:
-                    self.sranks.append(int(out["srank"]))
+                    srank = int(out["srank"])
+                    self.sranks.append(srank)
+                    obs.log_event("srank", step=step, srank=srank)
+                    if mon is not None:
+                        viol = mon.check_srank(step, self.sranks)
+                        if viol:
+                            ls, step = self._guard_recover(viol, snap)
+                            continue
                 if keep_last and stop == end:
                     self._last_batch, self._last_priorities = out["last"]
                 if do_eval:
@@ -571,23 +631,59 @@ class Experiment:
                         progress)
         else:
             metrics = batch = None
+            snap = (self._guard_snapshot(ls, step)
+                    if mon is not None else None)
             while step < end:
                 step += 1
                 ls, metrics, batch = trainer.step(ls)
+                trainer.dispatches += 1
+                if mon is not None:
+                    # the python loop is the debug path: it pays a host
+                    # read per step for exact detection
+                    viol = mon.check_scalars(step, _scalars(metrics))
+                    viol += mon.check_params(step, ls.agent["params"])
+                    if viol:
+                        ls, step = self._guard_recover(viol, snap)
+                        snap = self._guard_snapshot(ls, step)
+                        continue
+                if obs.enabled and step % obs.log_every == 0:
+                    obs.log_train(step, _scalars(metrics))
                 if srank_every and step % srank_every == 0:
-                    self.sranks.append(int(effective_rank(
-                        metrics["q_features"])))
+                    with annotate("repro.srank"):
+                        srank = int(effective_rank(metrics["q_features"]))
+                    self.sranks.append(srank)
+                    obs.log_event("srank", step=step, srank=srank)
+                    if mon is not None:
+                        viol = mon.check_srank(step, self.sranks)
+                        if viol:
+                            ls, step = self._guard_recover(viol, snap)
+                            snap = self._guard_snapshot(ls, step)
+                            continue
                 if step % every == 0 or (eval_at_end and step == end):
-                    rets = trainer.evaluate(ls).cpu().numpy()
-                    self._record_eval(
-                        step, float(rets.mean()),
-                        {k: float(v) for k, v in metrics.items()
-                         if v.ndim == 0}, progress)
+                    with annotate("repro.eval"):
+                        rets = trainer.evaluate(ls).cpu().numpy()
+                    self._record_eval(step, float(rets.mean()),
+                                      _scalars(metrics), progress)
+                    if mon is not None:
+                        # eval points are the segment boundaries the skip
+                        # policy rewinds to
+                        snap = self._guard_snapshot(ls, step)
             if keep_last and metrics is not None:
                 self._last_batch = batch
                 self._last_priorities = metrics["priorities"]
         self._ls, self.step = ls, end
-        self._wall += time.time() - t0
+        wall = time.time() - t0
+        self._wall += wall
+        if obs.enabled:
+            obs.log_event(
+                "run", step=end, steps=steps, wall_s=wall,
+                steps_per_sec=steps / wall if wall > 0 else 0.0,
+                host_dispatches=trainer.dispatches,
+                chunk_compiles=trainer.captures)
+            if obs.trace.n_chunks:
+                obs.log_event("trace", step=end, status=obs.trace.status,
+                              dir=obs.trace.trace_dir)
+            obs.drain()
         return self.result(include_state=keep_last)
 
     def _record_eval(self, step, ret, scalars, progress):
@@ -595,12 +691,107 @@ class Experiment:
         self.eval_steps.append(step)
         self._last_metrics = scalars
         self._rows.append({"step": step, "return": ret, **scalars})
+        self._obs.log_eval(step, ret, scalars)
         if progress:
             progress(step, ret, scalars)
 
+    # ------------------------------------------------------------- guarding
+    def attach_guard(self, store) -> None:
+        """Attach a ``repro_torch.guard.store.DurableStore``: the
+        checkpoint source for guard policy='rollback' (the supervisor
+        attaches the store it saves into)."""
+        self._guard_store = store
+
+    def _guard_snapshot(self, ls, step: int) -> dict:
+        """Pre-segment snapshot for the skip policy: a copy of the state
+        (``clone_state``: the graph mutates its static state in place, and
+        the replay is updated in place on either device), the history list
+        lengths and the obs cursor."""
+        from repro_torch.rl.runner import clone_state
+        return {"ls": clone_state(ls), "step": step,
+                "obs": self._obs.state(),
+                "hist": (len(self.returns), len(self.eval_steps),
+                         len(self.sranks), len(self._rows))}
+
+    def _guard_recover(self, violations, snap):
+        """Apply ``guard.policy`` to a non-empty violation list; returns the
+        (state, step) the loop continues from. Raises ``GuardViolation``
+        for halt, a spent recovery budget, or an impossible rollback."""
+        mon, obs = self._monitor, self._obs
+        for v in violations:
+            obs.log_event("guard_violation", **v.as_dict())
+        try:
+            if mon.spec.policy == "halt":
+                raise GuardViolation(
+                    f"guard: halt on {violations[0].reason} at step "
+                    f"{violations[0].step}", violations, mon.recoveries)
+            ordinal = mon.spend_recovery(violations)
+            if mon.spec.policy == "skip":
+                ls, step = self._guard_skip(snap, ordinal)
+            else:
+                ls, step = self._guard_rollback(violations, ordinal)
+        except GuardViolation:
+            obs.drain()
+            raise
+        obs.log_event("guard_" + mon.spec.policy, step=step,
+                      recovery=ordinal, detected=violations[0].step,
+                      reason=violations[0].reason)
+        obs.drain()
+        return ls, step
+
+    def _guard_skip(self, snap, ordinal):
+        """Discard the offending segment: rewind to the pre-segment
+        snapshot and perturb the generator with the recovery ordinal
+        (``guard.monitor.fold_in``), so the re-run explores a new
+        trajectory instead of replaying the same divergence. The snapshot
+        is handed on as is: the next chunk copies it into the graph's
+        static state."""
+        r0, e0, s0, w0 = snap["hist"]
+        del self.returns[r0:], self.eval_steps[e0:]
+        del self.sranks[s0:], self._rows[w0:]
+        self._obs.load_state(snap["obs"])
+        ls = snap["ls"]
+        fold_in(ls.gen, ordinal)
+        self._ls = ls
+        return ls, snap["step"]
+
+    def _guard_rollback(self, violations, ordinal):
+        """Restore the newest GOOD checkpoint from the attached
+        ``DurableStore`` (falling back past corrupt ones) and perturb the
+        generator with the recovery ordinal."""
+        store, mon = self._guard_store, self._monitor
+        if store is None:
+            raise GuardViolation(
+                "guard.policy='rollback' needs a DurableStore — call "
+                "Experiment.attach_guard(store) (the supervisor does this "
+                "automatically)", violations, mon.recoveries)
+        path = store.restore_latest(
+            on_bad=lambda bad: self._obs.log_event(
+                "guard_bad_checkpoint", step=self.step,
+                path=str(bad.path), reason=bad.reason))
+        if path is None:
+            raise GuardViolation(
+                f"guard rollback: no good checkpoint in {store.dir}",
+                violations, mon.recoveries)
+        payload = store.payload(path)
+        self._load_payload(payload, ckpt.load_metadata(payload))
+        fold_in(self._ls.gen, ordinal)
+        return self._ls, self.step
+
+    # ------------------------------------------------------------ results
     def metrics(self):
         """The eval rows recorded so far (step, return, scalar metrics)."""
         return iter([dict(r) for r in self._rows])
+
+    @property
+    def obs(self) -> ObsRun:
+        """The observability engine: sinks (``obs.rows`` for the memory
+        sink), stream counters, and the profiler trace's status."""
+        return self._obs
+
+    def close(self) -> None:
+        """Stop a still-active profiler capture and close the obs sinks."""
+        self._obs.close()
 
     def policy(self):
         """The run's current inference handle (``rl.policy.Policy``)."""

@@ -19,8 +19,15 @@ the run's device, seeded from ``execution.seed`` and carried in
 ``step`` takes the superstep's draws as an argument when given (a test
 feeds the reference's), else draws them from that generator.
 
+With ``obs.enabled`` or ``guard.enabled`` (``Trainer.obs_stream``) every
+superstep also records its scalar metrics: under the graph the graph
+itself writes them into a row of a device buffer, and the chunk's
+epilogue copies the chunk's rows to the host once (``out["stream"]``).
+Recording reads what the superstep computed and writes nothing it reads,
+so it is bitwise-invisible to training.
+
 Not ported yet, and refused at construction with the ROADMAP item that
-brings it: the host replay, mesh sharding, obs telemetry and the guards.
+brings it: the host replay and mesh sharding.
 On the card the sum-tree runs its CUDA kernels, so ``replay.kernel`` must
 be "pallas" there (the reference's "xla" names its plain scatter twin,
 which the port runs only for tensors on the CPU).
@@ -28,7 +35,7 @@ which the port runs only for tensors on the CPU).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.common import tree_leaves, tree_map, tree_size
 from repro_torch.core.effective_rank import effective_rank
+from repro_torch.obs.trace import annotate
 from repro_torch.replay import (DeviceReplayConfig, nstep_emit_flat,
                                 nstep_init, replay_add, replay_init,
                                 replay_sample, replay_update)
@@ -75,10 +83,6 @@ def check_ported(spec) -> None:
     if x.mesh_shards > 0:
         missing.append("execution.mesh_shards>0 (sharded replay on "
                        "torch.distributed: ROADMAP A.8)")
-    if spec.obs.enabled:
-        missing.append("obs.enabled (the obs slice: ROADMAP A.5)")
-    if spec.guard.enabled:
-        missing.append("guard.enabled (the guard slice: ROADMAP A.4)")
     if missing:
         raise UnportedError("the port cannot train this spec yet: "
                             + "; ".join(missing))
@@ -175,25 +179,56 @@ class StepGraph:
     warm-up is a real superstep of the run: ``warm`` holds its metrics and
     batch. ``metrics`` and ``batch`` are the graph's static outputs, which
     every replay overwrites; ``copied_bytes`` is what each replay's
-    copy-back writes."""
+    copy-back writes.
 
-    def __init__(self, trainer: "Trainer", ls: TrainLoopState):
+    With ``rows`` > 0 (the trainer's ``obs_stream``) the graph also records
+    each superstep's scalar metrics (``keys``, sorted) into the static
+    ``(rows, len(keys))`` float32 buffer ``scalars``, at the row the
+    device-side step counter picks (``ls.step % rows``, read before the
+    copy-back advances it): one ``torch.stack`` and one ``index_copy_``,
+    after the superstep and reading only what it computed. The warm-up
+    writes its row the same way. ``read_rows`` is the chunk epilogue's one
+    copy to the host."""
+
+    def __init__(self, trainer: "Trainer", ls: TrainLoopState,
+                 rows: int = 0):
         dev = trainer.device
         self.state = ls
         self._dst = state_leaves(ls)
+        self.keys: Tuple[str, ...] = ()
+        self.scalars: Optional[torch.Tensor] = None
         self.stream = torch.cuda.Stream(dev)
         main = torch.cuda.current_stream(dev)
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
             nxt, metrics, batch = trainer.step(ls)
+            if rows:
+                self.keys = scalar_keys(metrics)
+                self.scalars = torch.zeros((rows, len(self.keys)),
+                                           dtype=torch.float32, device=dev)
+                self._at = torch.arange(rows, device=dev)
+                self._record(ls.step, metrics)
             _copy_into(self._dst, state_leaves(nxt))
         self.warm = (metrics, batch)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(ls.gen)
         with torch.cuda.graph(self.graph, stream=self.stream):
             nxt, self.metrics, self.batch = trainer.step(ls)
+            if rows:
+                self._record(ls.step, self.metrics)
             self.copied_bytes = _copy_into(self._dst, state_leaves(nxt))
         main.wait_stream(self.stream)
+
+    def _record(self, step: torch.Tensor, metrics) -> None:
+        row = (step.long() % self.scalars.shape[0]).reshape(1)
+        self.scalars.index_copy_(0, row, scalar_row(metrics, self.keys)[None])
+
+    def read_rows(self, n: int) -> np.ndarray:
+        """The ``(n, len(keys))`` rows of the last ``n`` supersteps on the
+        static state, in step order, as one copy to the host."""
+        idx = (self.state.step.long() - n + self._at[:n]) \
+            % self.scalars.shape[0]
+        return self.scalars.index_select(0, idx).cpu().numpy()
 
     def load(self, ls: TrainLoopState) -> None:
         """Copy the tensors and the generator state of ``ls`` into the
@@ -206,6 +241,18 @@ class StepGraph:
         """``n`` supersteps on the static state, on the current stream."""
         for _ in range(n):
             self.graph.replay()
+
+
+def scalar_keys(metrics) -> Tuple[str, ...]:
+    """The names of a superstep's scalar metrics, sorted: the stream's
+    columns, in the reference's order."""
+    return tuple(sorted(k for k, v in metrics.items() if v.ndim == 0))
+
+
+def scalar_row(metrics, keys) -> torch.Tensor:
+    """One superstep's row of the stream: ``metrics[k]`` for ``keys``, as
+    one float32 tensor on the metrics' device."""
+    return torch.stack([metrics[k].float() for k in keys])
 
 
 def median(x: torch.Tensor) -> torch.Tensor:
@@ -246,6 +293,15 @@ class Trainer:
             uniform=not r.prioritized, n_step=r.n_step)
         self.n_params = 0
         self.graph: Optional[StepGraph] = None   # captured at first chunk
+        # the guard reads the stream obs writes: record it for either
+        self.obs_stream = spec.obs.enabled or spec.guard.enabled
+        # the longest chunk Experiment.run asks for: chunks stop at every
+        # eval and every srank point
+        self.stream_rows = min(spec.eval.every,
+                               spec.eval.srank_every or spec.eval.every) \
+            if self.obs_stream else 0
+        self.dispatches = 0     # supersteps dispatched: replays + eager
+        self.captures = 0       # StepGraph captures
 
     def policy(self, params=None) -> Policy:
         """The run's inference handle, bound to ``params`` when given."""
@@ -315,7 +371,11 @@ class Trainer:
         scalar metrics (``"scal"``) and ``(batch, priorities)``
         (``"last"``), with ``do_srank`` its ``q_features``' effective rank
         (``"srank"``, an int32 tensor on the device) and with ``do_eval``
-        the eval returns (``"eval"``).
+        the eval returns (``"eval"``). With ``obs_stream`` it also holds
+        ``"stream"``: every scalar metric of every superstep of the chunk,
+        one ``(n_steps,)`` float32 host array a metric (sorted names, the
+        reference's keys), copied to the host once; a chunk longer than
+        ``stream_rows`` raises.
 
         On the card the supersteps are replays of one ``StepGraph``,
         captured at the first chunk (whose first superstep is the graph's
@@ -326,16 +386,28 @@ class Trainer:
         supersteps."""
         if n_steps < 1:
             raise ValueError(f"a chunk runs n_steps >= 1, got {n_steps}")
+        if self.obs_stream and n_steps > self.stream_rows:
+            raise ValueError(
+                f"a chunk of {n_steps} supersteps is longer than the "
+                f"stream's {self.stream_rows} rows (min of eval.every and "
+                f"eval.srank_every)")
         do_srank = do_srank and bool(self.srank_every)
 
         def chunk(ls: TrainLoopState):
             n = n_steps
+            self.dispatches += n
             if self.device.type == "cpu":
+                keys, rows = (), []
                 for _ in range(n):
                     ls, metrics, batch = self.step(ls)
+                    if self.obs_stream:
+                        keys = scalar_keys(metrics)
+                        rows.append(scalar_row(metrics, keys))
+                stream = torch.stack(rows).numpy() if rows else None
             else:
                 if self.graph is None:
-                    self.graph = StepGraph(self, ls)
+                    self.graph = StepGraph(self, ls, self.stream_rows)
+                    self.captures += 1
                     metrics, batch = self.graph.warm
                     n -= 1
                 elif ls is not self.graph.state:
@@ -344,14 +416,21 @@ class Trainer:
                     self.graph.replay(n)
                     metrics, batch = self.graph.metrics, self.graph.batch
                 ls = self.graph.state
+                keys = self.graph.keys
+                stream = self.graph.read_rows(n_steps) if keys else None
             out = {"scal": {k: v.clone() for k, v in metrics.items()
                             if v.ndim == 0},
                    "last": (tree_map(torch.clone, batch),
                             metrics["priorities"].clone())}
+            if stream is not None:
+                out["stream"] = {k: stream[:, j] for j, k in
+                                 enumerate(keys)}
             if do_srank:
-                out["srank"] = effective_rank(metrics["q_features"])
+                with annotate("repro.srank"):
+                    out["srank"] = effective_rank(metrics["q_features"])
             if do_eval:
-                out["eval"] = self.evaluate(ls)
+                with annotate("repro.eval"):
+                    out["eval"] = self.evaluate(ls)
             return ls, out
 
         return chunk

@@ -1,12 +1,15 @@
 """The port's continuous-batching policy server (ported from
-``tests/test_serve.py``, minus the checkpoint watcher).
+``tests/test_serve.py``).
 
 Responses equal a direct ``Policy.act_deterministic`` call; a burst
 coalesces into batched ticks padded to the slot set; a hot-swap lands
 atomically between ticks (every response consistent with its stamped
 generation, zero drops), also when the flip faults; ``close()`` drains or
-fails pending requests. The policy runs on the CPU here (plain stack); the
-server is the same on the card.
+fails pending requests; the checkpoint watcher adopts a verified
+checkpoint of a ``DurableStore``, skips a corrupt one and keeps the old
+generation serving when the flip faults (waits have deadlines, never
+fixed sleeps); the CLI trains, commits and serves. The policy runs on
+the CPU here (plain stack); the server is the same on the card.
 """
 import threading
 import time
@@ -249,3 +252,90 @@ def test_probe_serve_load_answers_every_request_per_round():
     for r in rows:
         assert r["req_s"] > 0 and 0 < r["p50_ms"] <= r["p99_ms"]
         assert 24 // ServeConfig().max_batch <= r["ticks"] <= 24
+
+
+# ------------------------------------------------- the checkpoint watcher
+
+def _wait_for(cond, what, deadline_s=30.0):
+    """Poll ``cond`` until it holds or the deadline passes (no fixed
+    sleep: the watcher's cadence is the server's business)."""
+    end = time.monotonic() + deadline_s
+    while not cond():
+        assert time.monotonic() < end, f"timed out waiting for {what}"
+        time.sleep(0.005)
+
+
+def _store_with(tmp_path, pol):
+    from repro_torch.guard import DurableStore
+    from repro_torch.rl.policy import save_params
+    spec = ExperimentSpec().override(**_BASE)
+    store = DurableStore(str(tmp_path / "ckpts"))
+
+    def commit(params, step):
+        store.save(lambda p: save_params(p, spec, params), step)
+    return spec, store, commit
+
+
+def test_watcher_adopts_verified_and_skips_corrupt(tmp_path):
+    from repro_torch.guard import chaos
+    pol = _policy()
+    gens = _gen_policies(pol)
+    gens[2] = pol.with_params(tree_map(lambda t: t - 0.25, pol.params))
+    spec, store, commit = _store_with(tmp_path, pol)
+    obs = _obs_batch(6, pol.obs_dim)
+    bad = []
+    server = PolicyServer(pol, ServeConfig(max_batch=4, poll_s=0.01)) \
+        .start().watch(store, spec, seen_step=0, on_bad=bad.append)
+    commit(gens[1].params, 1)
+    _wait_for(lambda: server.generation == 1, "generation 1")
+    # a checkpoint that commits corrupt (bit-flipped after its checksums)
+    store._pre_commit_hook = lambda staging: chaos.corrupt_checkpoint(
+        staging)
+    commit(gens[2].params, 2)
+    store._pre_commit_hook = None
+    _wait_for(lambda: server.stats["bad_checkpoints"] == 1, "the skip")
+    tickets = [server.submit_async(o) for o in obs]
+    got = np.stack([t.result(timeout=30.0) for t in tickets])
+    assert {t.generation for t in tickets} == {1}
+    np.testing.assert_allclose(got, _direct(gens[1], obs), **TOL)
+    assert len(bad) == 1 and "checksum" in str(bad[0])
+    commit(gens[2].params, 3)
+    _wait_for(lambda: server.generation == 2, "generation 2")
+    got = np.stack([server.submit(o, timeout=30.0) for o in obs])
+    server.close()
+    np.testing.assert_allclose(got, _direct(gens[2], obs), **TOL)
+    assert server.stats["swaps"] == 2 and server._watcher is None
+
+
+def test_watcher_swap_fault_keeps_old_generation_serving(tmp_path):
+    from repro_torch.guard import chaos
+    pol = _policy()
+    gens = _gen_policies(pol)
+    spec, store, commit = _store_with(tmp_path, pol)
+    obs = _obs_batch(8, pol.obs_dim)
+    server = PolicyServer(pol, ServeConfig(max_batch=4, poll_s=0.01))
+    latch = chaos.arm_swap_fault(server, fires=1)
+    server.start().watch(store, spec)
+    commit(gens[1].params, 1)
+    _wait_for(lambda: server.stats["swap_aborts"] == 1, "the fault")
+    got = np.stack([server.submit(o, timeout=30.0) for o in obs])
+    assert latch.count == 1 and server.generation == 0
+    np.testing.assert_allclose(got, _direct(gens[0], obs), **TOL)
+    commit(gens[1].params, 2)                     # the fault healed
+    _wait_for(lambda: server.generation == 1, "generation 1")
+    got = np.stack([server.submit(o, timeout=30.0) for o in obs])
+    server.close()
+    np.testing.assert_allclose(got, _direct(gens[1], obs), **TOL)
+
+
+def test_serve_cli_trains_commits_and_serves_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import serve_policy
+    rc = serve_policy.main([
+        "smoke", "--ckpt-dir", str(tmp_path / "ckpts"), "--train", "3",
+        "--override", "replay.backend=device", "--requests", "16",
+        "--clients", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "committed checkpoint step-3" in out
+    assert "16 requests / 2 clients" in out and "generation=0" in out
+    assert serve_policy.main(["smoke", "--ckpt-dir", str(tmp_path / "no"),
+                              "--device", "cpu"]) == 2
