@@ -129,6 +129,28 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    its stamped generation; ``python -m repro_torch.guard.supervise smoke``
    on the card with ``kill-in-save@6`` (saves every 3), resumed from
    step 3 to the uninterrupted card run's ``params_sha256``.
+   Vmapped fleets (``phase_fleet``, ``[fleet-tree]``, ``[fleet]``,
+   ``[fleet-smoke]``, ``[fleet-guard]`` lines): the sum-tree kernels with a
+   member axis (E=5 trees of 2^18 nodes, B=256 targets a member, writes
+   of n=32 and 256 with repeats) as one launch, bitwise 5 solo launches
+   and the plain versions over the member axis, a write outside the
+   leaves skipped and counted, and their hot and cold times beside 5 solo
+   launches' and, at E=1, beside the solo entry's; the paper's widest
+   Fig. 3 row (``fig3-width`` at the paper budget, 2048 units) as a fleet
+   of 5 seeds (``rl.sweep.Fleet``) on the card, its warm-up vmapped, its
+   superstep ``torch.func.vmap`` of the solo one captured once as a CUDA
+   graph (the wrapper launches of the warm-up and the captured superstep:
+   one member-axis sample, two member-axis writes), with the counts set
+   to 0 first and read over the fleet run; member 0 against a solo
+   ``Experiment`` of seed 0 after 1 and 40 supersteps (the reference's
+   ``SOLO_PARITY`` tolerance; the largest difference per leaf printed);
+   20 replays bitwise 20 eager vmapped supersteps; ``run(17); save;
+   Fleet.restore; run(23)`` bitwise ``run(40)``; member 2 frozen for a
+   chunk while the others stay bitwise an unmasked run, and resuming bit
+   for bit; fleet and solo walls in turns, CUDA-event time, idle share
+   and kernels per replay, also for ``fleet-smoke`` at E=8; a fleet
+   rollback of a poisoned member from a ``DurableStore``, its neighbours
+   bitwise.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
    (the fused dense, flash and SSD kernels, which no training or serving
    path runs) with every count set to 0 just before; each row must launch
@@ -158,8 +180,9 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    memory-efficient backend on K/V repeated to H heads outside the timed
    call; the SSD chunk in float32 and bfloat16.
 7. One JSON line of seven kernel records (the stack and tree records'
-   ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps),
-   then the device line, last.
+   ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
+   the tree records' also the fleet run's; their ``fleet`` entries the
+   member-axis launches' times), then the device line, last.
 """
 from __future__ import annotations
 
@@ -2800,6 +2823,484 @@ def phase_obs_guard(spec):
         guard_supervisor(tmp)
 
 
+FLEET_E = 5          # the paper's seeds a width (benchmarks/fig3_width.py)
+FLEET_SMOKE_E = 8
+FLEET_STEPS = 40
+
+
+def fleet_state_diff(a, b):
+    """``state_diff`` of two fleet states: every tensor and every member's
+    generator."""
+    import torch
+    bad = [(name, float((x.double() - y.double()).abs().max()))
+           for (name, x), (_, y) in zip(_state_names(a), _state_names(b))
+           if not torch.equal(x, y)]
+    bad += [(f"gen[{m}]", float("nan")) for m, (g, h) in
+            enumerate(zip(a.gen, b.gen))
+            if not torch.equal(g.get_state(), h.get_state())]
+    return bad
+
+
+def member_diff(a, b, members):
+    """``fleet_state_diff`` restricted to the slices of ``members``."""
+    import torch
+    bad = []
+    for (name, x), (_, y) in zip(_state_names(a), _state_names(b)):
+        for m in members:
+            if not torch.equal(x[m], y[m]):
+                bad.append((f"{name}[{m}]", float(
+                    (x[m].double() - y[m].double()).abs().max())))
+    bad += [(f"gen[{m}]", float("nan")) for m in members
+            if not torch.equal(a.gen[m].get_state(), b.gen[m].get_state())]
+    return bad
+
+
+def phase_fleet_tree(gen, e=FLEET_E, capacity=100_000, b=256):
+    """The sum-tree kernels with a member axis: E full trees of capacity
+    100,000 (2^18 nodes each), B=256 targets a member (edge targets 0 and
+    total), writes of n=32 and 256 a member with repeats. One batched
+    launch against E solo launches and against the plain versions over the
+    member axis, bitwise; a batched write with indices outside the leaves
+    in one member skips and counts exactly those. Then times, hot and
+    cold: the batched launch against E solo launches, and at E=1 the
+    member entry against the solo one, each beside the bytes bound (the
+    solo bound times E). Returns ``{"sample": .., "set32": ..,
+    "set256": ..}`` records for the kernel line's ``fleet`` entries."""
+    import torch
+    from repro_torch.kernels.replay_tree import ops, ref
+    from repro_torch.launch.bwd_sweep import l2_flusher, time_per_call_us
+    trees = torch.stack([tree_case(gen, capacity) for _ in range(e)])
+    depth = trees.shape[1].bit_length() - 1
+    t = torch.rand((e, b), generator=gen, device="cuda") * trees[:, 1:2]
+    t[:, 0], t[:, 1] = 0.0, trees[:, 1]
+    before = ops.launch_count("sample")
+    leaf, pri = ops.sumtree_sample_members(trees, t, capacity=capacity)
+    if ops.launch_count("sample") - before != 1:
+        raise AssertionError("tree_sample_members did not launch once")
+    solo = [ops.sumtree_sample(trees[m], t[m], capacity=capacity)
+            for m in range(e)]
+    want = ref.tree_sample_members_ref(trees, t, capacity=capacity)
+    if not (torch.equal(leaf, torch.stack([s[0] for s in solo]))
+            and torch.equal(pri, torch.stack([s[1] for s in solo]))
+            and torch.equal(leaf, want)
+            and torch.equal(pri, ref.tree_get_members_ref(trees, want))):
+        raise AssertionError("tree_sample_members != E solo launches / "
+                             "plain")
+    writes = {}
+    for n in (32, 256):
+        idx = torch.randint(0, capacity, (e, n), generator=gen,
+                            device="cuda")
+        idx[:, n // 2:] = idx[:, :n - n // 2]          # every index twice
+        val = torch.rand((e, n), generator=gen, device="cuda") * 2
+        got = trees.clone()
+        before = ops.launch_count("set")
+        ops.sumtree_set_members(got, idx, val)
+        if ops.launch_count("set") - before != 1:
+            raise AssertionError("tree_set_members did not launch once")
+        solo_t = trees.clone()
+        for m in range(e):
+            ops.sumtree_set(solo_t[m], idx[m], val[m])
+        want_t = ref.tree_set_members_ref(trees.clone(), idx, val)
+        if not (torch.equal(got, solo_t) and torch.equal(got, want_t)):
+            raise AssertionError(f"tree_set_members n={n} != E solo "
+                                 f"launches / plain")
+        writes[n] = (idx.to(torch.int32).contiguous(), val)
+    half = trees.shape[1] // 2
+    idx = torch.randint(0, capacity, (e, 64), generator=gen, device="cuda")
+    idx[3, ::16] = torch.tensor([-1, half, 1 << 30, -half], device="cuda")
+    valid = (idx >= 0) & (idx < half)
+    val = torch.rand(idx.shape, generator=gen, device="cuda")
+    before = ops.skipped_writes("cuda")
+    got = ops.sumtree_set_members(trees.clone(), idx, val)
+    skipped = ops.skipped_writes("cuda") - before
+    want_t = trees.clone()
+    for m in range(e):
+        ref.tree_set_ref(want_t[m], idx[m][valid[m]], val[m][valid[m]])
+    if skipped != int((~valid).sum()) or not torch.equal(got, want_t):
+        raise AssertionError(f"tree_set_members with {int((~valid).sum())} "
+                             f"indices outside the leaves: {skipped} "
+                             f"skipped")
+    log(f"[fleet-tree] E={e} trees of 2^{depth} nodes: tree_sample_members "
+        f"(B={b} a member, edge targets 0 and total) and tree_set_members "
+        f"(n=32 and 256 a member, each index twice: keep-last) are one "
+        f"launch each, bitwise {e} solo launches and the plain versions "
+        f"over the member axis; {skipped} indices outside the leaves in "
+        f"member 3 skipped and counted")
+
+    flush = l2_flusher("cuda")
+    one_t = trees[:1].contiguous()
+
+    def timed(fn):
+        hot, host = time_ms(fn, [0])
+        return dict(ms=hot, host_ms=host,
+                    hot_call_ms=time_per_call_us(lambda: fn(0)) / 1e3,
+                    cold_ms=time_per_call_us(lambda: fn(0), flush) / 1e3)
+    sample_bytes = 4 * b * (depth - 1) + 4 * b + 8 * b
+    out = {}
+    r = {"batched": timed(lambda _: ops.sumtree_sample_members(
+             trees, t, capacity=capacity)),
+         "solo_x_e": timed(lambda _: [ops.sumtree_sample(
+             trees[m], t[m], capacity=capacity) for m in range(e)]),
+         "e1_members": timed(lambda _: ops.sumtree_sample_members(
+             one_t, t[:1], capacity=capacity)),
+         "e1_solo": timed(lambda _: ops.sumtree_sample(
+             one_t[0], t[0], capacity=capacity))}
+    out["sample"] = dict(r, E=e, B=b, bound_ms=1e3 * e * sample_bytes
+                         / HBM_BYTES_PER_S, bound_by="bytes")
+    for n, (idx, val) in writes.items():
+        work, one = trees.clone(), trees[:1].clone()
+        touched = sum(_tree_nodes(trees[m], idx[m]) for m in range(e))
+        r = {"batched": timed(lambda _: ops.sumtree_set_members(
+                 work, idx, val)),
+             "solo_x_e": timed(lambda _: [ops.sumtree_set(
+                 work[m], idx[m], val[m]) for m in range(e)]),
+             "e1_members": timed(lambda _: ops.sumtree_set_members(
+                 one, idx[:1], val[:1])),
+             "e1_solo": timed(lambda _: ops.sumtree_set(
+                 one[0], idx[0], val[0]))}
+        out[f"set{n}"] = dict(r, E=e, n=n, bound_ms=1e3 * (
+            8 * n * e + 4 * touched) / HBM_BYTES_PER_S, bound_by="bytes")
+    for name, rec in out.items():
+        log(f"[fleet-tree] {name} E={e}: " + "; ".join(
+            f"{k} hot {rec[k]['ms'] * 1e3:.2f} us (per call "
+            f"{rec[k]['hot_call_ms'] * 1e3:.2f}), cold "
+            f"{rec[k]['cold_ms'] * 1e3:.2f} us"
+            for k in ("batched", "solo_x_e", "e1_members", "e1_solo"))
+            + f"; bytes bound {rec['bound_ms'] * 1e6:.1f} ns (the solo "
+              f"bound x {e})")
+    return out
+
+
+def fleet_spec():
+    """The paper's widest Fig. 3 row as a fleet: ``fig3-width`` at the
+    paper budget, 2048 units, the device replay on its kernels, the scan
+    loop."""
+    from repro_torch.rl import presets
+    return presets.get("fig3-width").override(
+        **PAPER_BUDGET, num_units=2048, replay_backend="device",
+        replay_kernel="pallas", loop="scan")
+
+
+def param_rel_diff(fleet_params, solo_params, m=0):
+    """``(worst, ratio, top)``: over the param leaves, the largest
+    ``max|member - solo| / max|solo|``; the largest elementwise ``|member -
+    solo| / (atol + rtol |solo|)`` at the reference's member-vs-solo
+    tolerance (<= 1 passes); the three worst leaves as ``(name, rel, max
+    abs diff, max|solo|)``."""
+    from repro_torch.rl.sweep import SOLO_PARITY_ATOL, SOLO_PARITY_RTOL
+    worst, ratio, rows = 0.0, 0.0, []
+    for (name, f), s in zip(_named(fleet_params), _leaves(solo_params)):
+        d = (f[m].double() - s.double()).abs()
+        mx = float(s.abs().max())
+        rel = float(d.max()) / max(mx, 1e-30)
+        worst = max(worst, rel)
+        rows.append((name, rel, float(d.max()), mx))
+        ratio = max(ratio, float((d / (SOLO_PARITY_ATOL + SOLO_PARITY_RTOL
+                                       * s.double().abs())).max()))
+    top = [f"{n} {r:.2e} ({a:.2e} of {x:.2e})" for n, r, a, x in
+           sorted(rows, key=lambda r: -r[1])[:3]]
+    return worst, ratio, top
+
+
+def _named(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named(tree[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def walls_in_turns(graphs, tag, reps=GRAPH_TIMED):
+    """Host wall per replay of each named graph, in turns (a b b a)."""
+    import torch
+    order = list(graphs) + list(graphs)[::-1]
+    walls = []
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphs[name].replay(reps)
+        torch.cuda.synchronize()
+        walls.append((name, 1e3 * (time.perf_counter() - t0) / reps))
+    log(f"[{tag}] wall per replay, host clock, {reps} replays a run, in "
+        f"turns: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in walls))
+    return {k: float(np.mean([ms for n, ms in walls if n == k]))
+            for k in graphs}
+
+
+def fleet_training(gen):
+    """The ``fig3-width`` U=2048 fleet of ``FLEET_E`` seeds under one CUDA
+    graph against a solo ``Experiment`` of seed 0, its replays against
+    eager vmapped supersteps, resume at a split, the done mask, and the
+    walls beside the solo run's. Returns the wrapper launches counted over
+    the fleet run (init, 40 supersteps, the eval at the end)."""
+    import tempfile
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state, member_state, \
+        state_leaves
+    from repro_torch.rl.sweep import Fleet
+    spec = fleet_spec()
+    specs = [spec.override(seed=s) for s in range(FLEET_E)]
+    _reset_counts()
+    launches = {k: 0 for k in _counts()}
+
+    def fleet_call(fn, *args, **kw):
+        """``fn`` with the wrappers' launches added to the fleet path's."""
+        b = _counts()
+        out = fn(*args, **kw)
+        for k, v in _counts().items():
+            launches[k] += v - b[k]
+        return out
+    t0 = time.perf_counter()
+    fl = Fleet(specs)
+    tr = fl.trainer
+    fleet_call(fl._ensure_init)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    fls0 = clone_state(fl._fls)
+    nbytes = sum(t.numel() * t.element_size() for t in state_leaves(fls0))
+    t0 = time.perf_counter()
+    exp = Experiment.from_spec(specs[0])
+    exp._ensure_init()
+    torch.cuda.synchronize()
+    t_solo = time.perf_counter() - t0
+    init_bad = state_diff(member_state(fls0, 0), exp._ls)
+    log(f"[fleet] fig3-width U=2048 x {FLEET_E} seeds: init + the vmapped "
+        f"warm-up ({spec.execution.warmup_steps} collect steps a member) "
+        f"{t_init:.1f}s, the solo init + warm-up {t_solo:.1f}s; the fleet's "
+        f"state {nbytes / 1e9:.3f} GB ({len(state_leaves(fls0))} tensors); "
+        f"member 0 after init vs the solo run: "
+        + (f"bitwise" if not init_bad else f"{len(init_bad)} tensors "
+           f"differ, first {init_bad[:4]}"))
+
+    per_call, fstep = [], tr.fleet_step
+
+    def counted(fls, draws=None):
+        b = _counts()
+        out = fstep(fls, draws)
+        a = _counts()
+        per_call.append({k: a[k] - b[k] for k in ("sample", "set", "fwd",
+                                                  "bwd")})
+        return out
+    tr.fleet_step = counted
+    t0 = time.perf_counter()
+    try:
+        fleet_call(fl.run, 1)
+        torch.cuda.synchronize()
+    finally:
+        del tr.fleet_step
+    t_cap = time.perf_counter() - t0
+    want = {"sample": 1, "set": 2, "fwd": 0, "bwd": 0}
+    if per_call != [want, want] or fl.graph is None:
+        raise AssertionError(f"fleet launches at warm-up and capture "
+                             f"{per_call}, want {want} each")
+    exp.run(1)
+    rel1, ratio1, top1 = param_rel_diff(fl._fls.agent["params"],
+                                        exp._ls.agent["params"])
+    rest = [(n, d) for n, d in state_diff(member_state(fl._fls, 0),
+                                          exp._ls)
+            if not n.startswith("agent/")]
+    log(f"[fleet] member 0 vs solo after one superstep: largest |diff| / "
+        f"max|leaf| {rel1:.3e}, worst leaves {top1}; largest |diff| / "
+        f"(atol + rtol |solo|) {ratio1:.3f} at SOLO_PARITY (<= 1); other "
+        f"state tensors that differ (max abs) {rest[:6]}")
+    if ratio1 > 1.0:
+        raise AssertionError(f"member 0 after one superstep outside "
+                             f"SOLO_PARITY (ratio {ratio1:.3f})")
+    log(f"[fleet] capture of the vmapped superstep {t_cap:.2f}s (with its "
+        f"eager warm-up superstep); wrapper launches at warm-up and at "
+        f"capture {want} each (one member-axis sample, two member-axis "
+        f"writes; jnp blocks); copy-back {fl.graph.copied_bytes / 1e6:.1f}"
+        f" MB a replay")
+    fleet_call(fl.run, 19)
+    s20 = clone_state(fl._fls)
+    fleet_call(fl.run, FLEET_STEPS - 20, eval_at_end=True)
+    exp.run(FLEET_STEPS - 1, eval_at_end=True)
+    torch.cuda.synchronize()
+    if launches["sample"] < 1 or launches["set"] < 1:
+        raise AssertionError(f"the fleet run launched no tree kernel: "
+                             f"{launches}")
+    w40 = clone_state(fl._fls)
+    rel40, ratio, top40 = param_rel_diff(fl._fls.agent["params"],
+                                         exp._ls.agent["params"])
+    if ratio > 1.0 or fl.eval_steps[0] != [FLEET_STEPS]:
+        raise AssertionError(f"member 0 after {FLEET_STEPS} supersteps "
+                             f"outside SOLO_PARITY (ratio {ratio:.3f}), "
+                             f"eval steps {fl.eval_steps[0]}")
+    log(f"[fleet] after {FLEET_STEPS} supersteps under the graph and the "
+        f"eval at the end: member 0 vs solo largest |diff| / max|leaf| "
+        f"{rel40:.3e} (worst {top40}), largest |diff| / (atol + rtol "
+        f"|solo|) {ratio:.3f} at SOLO_PARITY (<= 1); eval returns fleet {fl.returns[0]} vs solo "
+        f"{exp.returns}; all members' returns "
+        f"{[r[-1] for r in fl.returns]}; wrapper launches over the fleet "
+        f"run, counted from 0 (the init's add, the warm-up and capture "
+        f"supersteps; replays pass no wrapper) sample {launches['sample']},"
+        f" set {launches['set']}")
+
+    eager = clone_state(s20)
+    for _ in range(GRAPH_K):
+        eager, _, _ = tr.fleet_step(eager)
+    fl.graph.load(clone_state(s20))
+    fl.graph.replay(GRAPH_K)
+    torch.cuda.synchronize()
+    bad = fleet_state_diff(eager, fl.graph.state)
+    if bad:
+        raise AssertionError(f"{GRAPH_K} fleet replays != {GRAPH_K} eager "
+                             f"vmapped supersteps: {bad[:8]}")
+    log(f"[fleet] bitwise: {GRAPH_K} replays == {GRAPH_K} eager vmapped "
+        f"supersteps from one fleet state (steps 20-39), on all "
+        f"{len(state_leaves(eager))} state tensors and the {FLEET_E} "
+        f"generators")
+    del eager
+    _free()
+
+    with tempfile.TemporaryDirectory() as d:
+        fa = Fleet(specs)
+        fa._fls = clone_state(fls0)
+        fa.run(17)
+        path = os.path.join(d, "fleet.npz")
+        t0 = time.perf_counter()
+        fa.save(path)
+        t_save = time.perf_counter() - t0
+        del fa
+        _free()
+        t0 = time.perf_counter()
+        fb = Fleet.restore(path)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        fsize = os.path.getsize(path)
+    fb.run(FLEET_STEPS - 17, eval_at_end=True)
+    torch.cuda.synchronize()
+    bad = fleet_state_diff(fb._fls, w40)
+    if bad or fb.returns != fl.returns:
+        raise AssertionError(f"fleet run(17); save; restore; run(23) != "
+                             f"run(40): {bad[:8]}, returns {fb.returns} vs "
+                             f"{fl.returns}")
+    log(f"[fleet] resume: run(17); save; Fleet.restore; run(23) == "
+        f"run(40), bitwise on every state tensor, the {FLEET_E} generators "
+        f"and the returns; save {t_save:.2f}s, restore {t_restore:.2f}s, "
+        f"file {fsize / 1e6:.1f} MB")
+    del fb
+    _free()
+
+    fm = Fleet(specs)
+    fm._fls = clone_state(fls0)
+    fm.run(10)
+    s10 = clone_state(fm._fls)
+    fm.set_done([2])
+    fm.run(10)
+    torch.cuda.synchronize()
+    others = [m for m in range(FLEET_E) if m != 2]
+    bad = member_diff(fm._fls, s10, [2]) + member_diff(fm._fls, s20,
+                                                       others)
+    fm.set_done([2], False)
+    fm.run(10)
+    torch.cuda.synchronize()
+    s30_2 = member_diff(fm._fls, s20, [2])
+    if bad:
+        raise AssertionError(f"done mask: {bad[:8]}")
+    log(f"[fleet] done mask: member 2 frozen for steps 10-20 kept its "
+        f"step-10 state and generator bitwise, members {others} equal the "
+        f"unmasked run at step 20 bitwise; unfrozen, member 2 after 10 "
+        f"more supersteps vs the unmasked run at step 20: "
+        + ("bitwise" if not s30_2 else f"{s30_2[:4]}"))
+    if s30_2:
+        raise AssertionError(f"member 2 did not resume bit for bit: "
+                             f"{s30_2[:8]}")
+    del fm, s10, s20, w40, fls0
+    _free()
+
+    exp_g = exp.trainer.graph
+    walls = walls_in_turns({"fleet": fl.graph, "solo": exp_g}, "fleet")
+    log(f"[fleet] per member-superstep: fleet {walls['fleet'] / FLEET_E:.3f}"
+        f" ms, solo {walls['solo']:.3f} ms (x{walls['solo'] * FLEET_E / walls['fleet']:.2f})")
+    graph_device_time(fl.graph, "fleet", "fleet-prof")
+    graph_device_time(exp_g, "fleet-solo", "fleet-solo-prof")
+    del fl, exp, exp_g
+    _free()
+    return launches
+
+
+def fleet_smoke_walls():
+    """``fleet-smoke`` at E=8 (per-kernel latency, not arithmetic, is what
+    batching amortises there) against its solo run: capture, walls in
+    turns, CUDA-event time and the profiler's view of each."""
+    import torch
+    from repro_torch.rl import presets
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.sweep import Fleet
+    spec = presets.get("fleet-smoke").override(replay_kernel="pallas")
+    fl = Fleet([spec.override(seed=s) for s in range(FLEET_SMOKE_E)])
+    fl.run(1)
+    exp = Experiment.from_spec(spec)
+    exp.run(1)
+    torch.cuda.synchronize()
+    walls = walls_in_turns({"fleet": fl.graph, "solo": exp.trainer.graph},
+                           "fleet-smoke")
+    log(f"[fleet-smoke] E={FLEET_SMOKE_E}, U=16: per member-superstep "
+        f"fleet {walls['fleet'] / FLEET_SMOKE_E:.4f} ms, solo "
+        f"{walls['solo']:.4f} ms (x{walls['solo'] * FLEET_SMOKE_E / walls['fleet']:.2f})")
+    graph_device_time(fl.graph, "fleet-smoke", "fleet-smoke-prof")
+    graph_device_time(exp.trainer.graph, "fleet-smoke-solo",
+                      "fleet-smoke-solo-prof")
+    del fl, exp
+    _free()
+
+
+def fleet_guard(tmp):
+    """A fleet rollback on the card at ``fleet-smoke`` size (3 seeds,
+    prioritized replay on the member-axis tree kernels): ``poison_params
+    (fleet, member=1)`` after a durable save is detected and rolled back
+    from the store, and members 0 and 2 stay bitwise an unpoisoned run."""
+    import torch
+    from repro_torch.guard import DurableStore, chaos
+    from repro_torch.rl import presets
+    from repro_torch.rl.sweep import Fleet
+    spec = presets.get("fleet-smoke").override(
+        replay_kernel="pallas", prioritized=True, eval_every=8, **{
+            "guard.enabled": True, "guard.policy": "rollback"})
+    specs = [spec.override(seed=s) for s in range(3)]
+    store = DurableStore(os.path.join(tmp, "fleet-ckpts"), keep=2)
+    fl, clean = Fleet(specs), Fleet(specs)
+    fl.attach_guard(store)
+    fl.run(8)
+    clean.run(8)
+    store.save(lambda p: fl.save(p), fl.step)
+    chaos.poison_params(fl, member=1)
+    fl.run(8)
+    clean.run(8)
+    torch.cuda.synchronize()
+    bad = member_diff(fl._fls, clean._fls, [0, 2])
+    finite = all(bool(torch.isfinite(t[1]).all()) for t in
+                 _leaves(fl._fls.agent["params"]))
+    if fl._guard.recoveries != 1 or bad or not finite:
+        raise AssertionError(f"fleet rollback: {fl._guard.recoveries} "
+                             f"recoveries, neighbours {bad[:8]}, member 1 "
+                             f"finite {finite}")
+    log(f"[fleet-guard] poison_params(fleet, member=1) after a durable save "
+        f"at step 8: detected and rolled back (1 recovery; member 1 finite "
+        f"again), members 0 and 2 bitwise an unpoisoned run at step 16")
+    del fl, clean
+    _free()
+
+
+def phase_fleet(gen):
+    """Vmapped fleets on the card (``rl.sweep``): the member-axis tree
+    kernels, the fig3-width U=2048 x 5 fleet under one CUDA graph, the
+    fleet-smoke walls at E=8 and a fleet rollback. Returns the tree
+    records and the fleet run's launches."""
+    import tempfile
+    tree = phase_fleet_tree(gen)
+    launches = fleet_training(gen)
+    fleet_smoke_walls()
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet_guard(tmp)
+    return tree, launches
+
+
 def build_all():
     """Build the six kernel libraries and the latency probe, one nvcc
     each, all at once."""
@@ -2850,6 +3351,18 @@ def record(name, source, replaces, launches, r, shape, **extra):
             **{k: r[k] for k in keys}, "shape": shape, **extra}
 
 
+def fleet_record(r):
+    """A member-axis tree record for the kernel line: the batched launch's
+    times beside E solo launches' and, at E=1, the member entry's beside
+    the solo one's."""
+    out = {"E": r["E"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"]}
+    for k in ("batched", "solo_x_e", "e1_members", "e1_solo"):
+        for t in ("ms", "hot_call_ms", "cold_ms"):
+            out[f"{k}_{t}"] = r[k][t]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2893,6 +3406,7 @@ def main() -> int:
     td3_launches = phase_td3(td3_spec)
     phase_graph(train_spec, ckpt_specs=(td3_spec,))
     phase_obs_guard(train_spec)
+    fleet_tree, fleet_launches = phase_fleet(gen)
     phase_fwd_fills(gen)
     micro_launches = phase_micro()
 
@@ -2934,8 +3448,10 @@ def main() -> int:
                train_launches["sample"], tree["sample"],
                "tree 2^18 nodes (capacity 100,000), B=256",
                launches_by_path={"train": train_launches["sample"],
-                                 "train_td3": td3_launches["sample"]},
+                                 "train_td3": td3_launches["sample"],
+                                 "fleet": fleet_launches["sample"]},
                **{k: tree["sample"][k] for k in TREE_KEYS},
+               fleet=fleet_record(fleet_tree["sample"]),
                profile_ms=profile_classes[3]["sample"][0]),
         record("tree_set",
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
@@ -2943,7 +3459,10 @@ def main() -> int:
                train_launches["set"], tree["set256"],
                "tree 2^18 nodes, n=256 (the priority refresh)",
                launches_by_path={"train": train_launches["set"],
-                                 "train_td3": td3_launches["set"]},
+                                 "train_td3": td3_launches["set"],
+                                 "fleet": fleet_launches["set"]},
+               fleet=fleet_record(fleet_tree["set256"]),
+               fleet_by_n={32: fleet_record(fleet_tree["set32"])},
                also_replaces="src/repro/kernels/replay_tree/"
                              "replay_tree.py:127",
                **{k: tree["set256"][k] for k in TREE_KEYS},

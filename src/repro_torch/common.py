@@ -133,7 +133,13 @@ def value_and_grad(fn: Callable[[Any], Any], tree: Any, *,
     ``fn`` touches stays constant (and a fused stack whose weights are such
     constants skips their dW). Returns ``(value, grads)`` or, with
     ``has_aux``, ``((value, aux), grads)``; value and aux come back
-    detached, and a leaf ``fn`` never used gets a zero gradient."""
+    detached, and a leaf ``fn`` never used gets a zero gradient.
+
+    Under ``torch.func.vmap`` (a fleet's member-batched superstep, where
+    ``torch.autograd.grad`` cannot run) the same contract goes through
+    ``torch.func.grad_and_value`` (``value_and_grad_func``)."""
+    if is_batched(tree):
+        return value_and_grad_func(fn, tree, has_aux=has_aux)
     var = tree_map(lambda t: t.detach().requires_grad_(True), tree)
     with torch.enable_grad():
         out = fn(var)
@@ -145,4 +151,27 @@ def value_and_grad(fn: Callable[[Any], Any], tree: Any, *,
     value = loss.detach()
     if has_aux:
         value = (value, tree_map(lambda t: t.detach(), aux))
+    return value, tree_unflatten(tree, grads)
+
+
+def is_batched(tree: Any) -> bool:
+    """Whether any leaf of ``tree`` is a ``torch.func.vmap``-batched
+    tensor (the body of a fleet's member-batched superstep)."""
+    return any(torch._C._functorch.is_batchedtensor(t)
+               for t in tree_leaves(tree))
+
+
+def value_and_grad_func(fn: Callable[[Any], Any], tree: Any, *,
+                        has_aux: bool = False) -> Tuple[Any, Any]:
+    """``value_and_grad``'s contract through ``torch.func.grad_and_value``
+    (the route ``vmap`` accepts): unused leaves get zeros, and every
+    tensor ``fn`` closes over stays constant."""
+    def flat(leaves):
+        return fn(tree_unflatten(tree, leaves))
+    grads, out = torch.func.grad_and_value(flat, has_aux=has_aux)(
+        tree_leaves(tree))
+    if has_aux:
+        value = (out[0].detach(), tree_map(lambda t: t.detach(), out[1]))
+    else:
+        value = out.detach()
     return value, tree_unflatten(tree, grads)

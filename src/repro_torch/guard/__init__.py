@@ -1,6 +1,6 @@
 """repro_torch.guard — fault tolerance for long training runs (port of
-``repro.guard`` for a solo run; per-member fleet rollback waits for the
-fleets, ROADMAP A.7).
+``repro.guard``, for solo runs and for fleets: a fleet rolls back only the
+violating members, ``repro_torch.rl.sweep``).
 
 Large-network RL runs are unstable: divergence, rank collapse and long
 runs on lost machines are the failure modes the paper's method exists to
@@ -34,5 +34,6 @@ uninterrupted one; a skip or rollback is a documented function of
 (restored state, recovery ordinal), pinned by tests/test_torch_guard.py.
 """
 from repro_torch.guard.monitor import (GuardSpec, GuardViolation, Monitor,
-                                       Violation, all_finite, fold_in)
+                                       Violation, all_finite, fold_in,
+                                       member_finite)
 from repro_torch.guard.store import CheckpointCorrupt, DurableStore

@@ -1,6 +1,5 @@
 """Deterministic, step-addressed fault injection for the guard test matrix
-(port of ``repro/guard/chaos.py`` for a solo run; the fleet member poke
-waits for the fleets, ROADMAP A.7).
+(port of ``repro/guard/chaos.py``).
 
 Every recovery path in ``repro_torch.guard`` is exercised by INJECTED
 faults, not trusted: tests (and the supervisor's ``--chaos`` flag) arm one
@@ -10,9 +9,10 @@ point, never by wall clock — so a failing chaos test replays exactly.
 
 Faults:
 
-* ``poison_params(exp)`` — host-side one-shot: writes NaN into the live
-  agent params of an ``Experiment`` between ``run()`` calls (in place: on
-  the card under ``loop="scan"`` they are the graph's static state). The
+* ``poison_params(handle, member=None)`` — host-side one-shot: writes NaN
+  into the live agent params of an ``Experiment`` (or of one member of a
+  ``Fleet``) between ``run()`` calls (in place: on the card under
+  ``loop="scan"`` they are the graph's static state). The
   next chunk's stream/param checks detect it; because the poke is not part
   of the superstep, a skip/rollback recovery replays CLEAN.
 * ``arm_nan_step(trainer, at_step)`` — persistent fault inside the
@@ -74,13 +74,23 @@ class OneShot:
 
 # ---------------------------------------------------------------- divergence
 
-def poison_params(exp) -> None:
-    """One-shot host poke: NaN the live params of an ``Experiment`` between
-    ``run()`` calls, in place. Raises if the run has no state yet."""
-    if exp._ls is None:
-        raise RuntimeError("poison_params: experiment not initialized")
+def poison_params(handle, member: Optional[int] = None) -> None:
+    """One-shot host poke: NaN the live params of an ``Experiment`` (or of
+    ``Fleet`` member ``member``) between ``run()`` calls, in place. Raises
+    if the handle has no state yet."""
+    if hasattr(handle, "_fls"):                     # Fleet
+        if handle._fls is None:
+            raise RuntimeError("poison_params: fleet not initialized")
+        if member is None:
+            raise RuntimeError("poison_params: fleet poke needs member=")
+        leaves = [x[member] for x in
+                  tree_leaves(handle._fls.agent["params"])]
+    else:                                           # Experiment
+        if handle._ls is None:
+            raise RuntimeError("poison_params: experiment not initialized")
+        leaves = tree_leaves(handle._ls.agent["params"])
     with torch.no_grad():
-        for x in tree_leaves(exp._ls.agent["params"]):
+        for x in leaves:
             if x.is_floating_point():
                 x.fill_(float("nan"))
 

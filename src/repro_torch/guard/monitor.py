@@ -1,6 +1,6 @@
 """In-loop health guards: detect divergence, decide halt / skip / rollback
-(port of ``repro/guard/monitor.py`` for a solo run; the per-member checks
-wait for the fleets, ROADMAP A.7).
+(port of ``repro/guard/monitor.py``; a fleet keeps one ``Monitor`` a member
+and checks its member-stacked params with ``check_member_params``).
 
 ``GuardSpec`` is the ``guard`` section of ``ExperimentSpec``. When enabled,
 the loops record the per-step scalar stream (the one obs writes; recording
@@ -99,10 +99,13 @@ class Violation:
     reason: str                    # nonfinite_stream|nonfinite_params|
                                    # spike|srank_collapse
     detail: str = ""
+    member: Optional[int] = None   # fleet member index (None: solo)
     value: Optional[float] = None
 
     def as_dict(self) -> Dict[str, Any]:
         d = {"step": self.step, "reason": self.reason, "detail": self.detail}
+        if self.member is not None:
+            d["member"] = self.member
         if self.value is not None and np.isfinite(self.value):
             d["value"] = float(self.value)
         return d
@@ -143,6 +146,19 @@ def all_finite(tree) -> bool:
     return bool(torch.isfinite(total))
 
 
+def member_finite(tree) -> np.ndarray:
+    """Per-member all-finite over a member-stacked tree: ``(E,)`` bool,
+    reducing every axis of each floating leaf but the leading member axis
+    (one device pass a leaf, one host read)."""
+    leaves = [x for x in tree_leaves(tree)
+              if torch.is_tensor(x) and x.is_floating_point()]
+    if not leaves:
+        raise ValueError("member_finite: tree has no floating leaves")
+    ok = torch.stack([torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=1)
+                      for x in leaves]).all(dim=0)
+    return ok.cpu().numpy()
+
+
 def fold_in(gen: torch.Generator, ordinal: int) -> None:
     """Perturb ``gen`` in place as the ``ordinal``-th guard recovery does
     (the port's twin of ``jax.random.fold_in(key, ordinal)``).
@@ -178,7 +194,8 @@ class Monitor:
 
     # ------------------------------------------------------------ checks
     def check_stream(self, start_step: int,
-                     stream: Mapping[str, np.ndarray]) -> List[Violation]:
+                     stream: Mapping[str, np.ndarray],
+                     member: Optional[int] = None) -> List[Violation]:
         """Scan one segment's per-step scalar stream (host arrays covering
         absolute steps ``start_step+1 .. start_step+n``) for non-finite
         values and spikes."""
@@ -190,7 +207,8 @@ class Monitor:
                 i = int(np.argmax(bad))
                 out.append(Violation(
                     step=start_step + i + 1, reason="nonfinite_stream",
-                    detail=f"{key} is {v[i]!r}", value=float(v[i])))
+                    detail=f"{key} is {v[i]!r}", member=member,
+                    value=float(v[i])))
         spec = self.spec
         if spec.spike_factor and spec.spike_key in stream:
             vals = np.abs(np.asarray(stream[spec.spike_key], np.float64))
@@ -204,27 +222,43 @@ class Monitor:
                             step=start_step + i + 1, reason="spike",
                             detail=f"{spec.spike_key}={v:.4g} > "
                                    f"{spec.spike_factor:g} x median "
-                                   f"{med:.4g}", value=float(v)))
+                                   f"{med:.4g}", member=member,
+                            value=float(v)))
                         continue   # a spike does not poison the window
                 self._spike_hist.append(v)
         return out
 
-    def check_scalars(self, step: int,
-                      scalars: Mapping[str, float]) -> List[Violation]:
+    def check_scalars(self, step: int, scalars: Mapping[str, float],
+                      member: Optional[int] = None) -> List[Violation]:
         """Single-step variant (python loop): the same checks over one row
         of scalars."""
         return self.check_stream(
-            step - 1, {k: np.asarray([v]) for k, v in scalars.items()})
+            step - 1, {k: np.asarray([v]) for k, v in scalars.items()},
+            member=member)
 
-    def check_params(self, step: int, params) -> List[Violation]:
+    def check_params(self, step: int, params,
+                     member: Optional[int] = None) -> List[Violation]:
         if not self.spec.check_params:
             return []
         if not all_finite(params):
             return [Violation(step=step, reason="nonfinite_params",
-                              detail="non-finite value in agent params")]
+                              detail="non-finite value in agent params",
+                              member=member)]
         return []
 
-    def check_srank(self, step: int, sranks) -> List[Violation]:
+    def check_member_params(self, step: int, params) -> List[Violation]:
+        """Fleet variant: one violation per member with non-finite params
+        (params stacked on a leading member axis)."""
+        if not self.spec.check_params:
+            return []
+        ok = member_finite(params)
+        return [Violation(step=step, reason="nonfinite_params",
+                          detail="non-finite value in agent params",
+                          member=int(m))
+                for m in np.nonzero(~ok)[0]]
+
+    def check_srank(self, step: int, sranks,
+                    member: Optional[int] = None) -> List[Violation]:
         frac = self.spec.srank_collapse
         if not frac or len(sranks) < 2:
             return []
@@ -232,7 +266,8 @@ class Monitor:
         if peak > 0 and last < frac * peak:
             return [Violation(step=step, reason="srank_collapse",
                               detail=f"srank {last} < {frac:g} x peak "
-                                     f"{peak}", value=float(last))]
+                                     f"{peak}", member=member,
+                              value=float(last))]
         return []
 
     # ---------------------------------------------------------- recovery

@@ -1,11 +1,10 @@
 """Crash-safe supervisor: ``python -m repro_torch.guard.supervise <preset>``
-(port of ``repro/guard/supervise.py`` for a solo run; ``--seeds N > 1``,
-a fleet, waits for ROADMAP A.7 and raises ``UnportedError``).
+(port of ``repro/guard/supervise.py``).
 
-Runs an ``Experiment`` in SEGMENTS with a durable checkpoint after each
-one, inside a worker SUBPROCESS that a parent supervisor restarts after any
-crash — SIGKILL, OOM, preemption, a guard halt — with bounded retries and
-exponential backoff. Auto-resume rides the bitwise resume contract: each
+Runs an ``Experiment`` (or, with ``--seeds N``, a ``Fleet``) in SEGMENTS
+with a durable checkpoint after each one, inside a worker SUBPROCESS that
+a parent supervisor restarts after any crash — SIGKILL, OOM, preemption, a
+guard halt — with bounded retries and exponential backoff. Auto-resume rides the bitwise resume contract: each
 attempt restores the newest GOOD checkpoint from the ``DurableStore``
 (checksum-verified, falling back past torn/corrupt ones) and replays from
 there, so a supervised run that crashed K times ends with the same params
@@ -31,10 +30,11 @@ Deterministic fault injection (``--chaos``, repeatable)::
                      rename short of commit (torn-commit window)
     corrupt-latest@K bit-flip the newest committed checkpoint right after
                      the first save at a boundary >= K
-    nan@K            NaN-poison the live params right AFTER the first save
-                     at a boundary >= K — the next segment's guard detects
-                     it; with guard.policy=rollback the run recovers
-                     in-process from the checkpoint it just wrote
+    nan@K[:m]        NaN-poison the live params right AFTER the first save
+                     at a boundary >= K (member m in a fleet) — the next
+                     segment's guard detects it; with guard.policy=rollback
+                     the run recovers in-process from the checkpoint it
+                     just wrote
 
 Exit codes: 0 = run completed; 2 = retry budget spent (see incident.json).
 Worker-internal: 3 = ``GuardViolation`` (halt policy or recovery budget).
@@ -68,6 +68,7 @@ class Fault:
     """One parsed ``--chaos`` entry + its cross-attempt latch."""
     kind: str                  # kill | kill-in-save | corrupt-latest | nan
     at: int
+    member: int
     latch: chaos.OneShot
 
     def due(self, step: int) -> bool:
@@ -78,11 +79,15 @@ def _parse_chaos(spec: str, run_dir: Path) -> Fault:
     kind, sep, rest = spec.partition("@")
     if not sep:
         raise SystemExit(f"--chaos {spec!r}: expected <fault>@<step>")
+    member = 0
+    if ":" in rest:
+        rest, _, mstr = rest.partition(":")
+        member = int(mstr)
     kinds = ("kill", "kill-in-save", "corrupt-latest", "nan")
     if kind not in kinds:
         raise SystemExit(f"--chaos {spec!r}: fault must be one of {kinds}")
-    name = spec.replace("@", "-at-")
-    return Fault(kind, int(rest), chaos.OneShot(str(run_dir), name))
+    name = spec.replace("@", "-at-").replace(":", "-m")
+    return Fault(kind, int(rest), member, chaos.OneShot(str(run_dir), name))
 
 
 def _keystr(path) -> str:
@@ -125,7 +130,7 @@ def _parse(argv) -> argparse.Namespace:
     ap.add_argument("--save-every", type=int, default=0,
                     help="durable-save cadence (default: eval.every)")
     ap.add_argument("--seeds", type=int, default=1,
-                    help=">1: a fleet of this many seeds (ROADMAP A.7)")
+                    help=">1: run a Fleet of this many seeds")
     ap.add_argument("--keep", type=int, default=3,
                     help="durable checkpoints retained (keep-last-K)")
     ap.add_argument("--retries", type=int, default=3,
@@ -148,6 +153,7 @@ def _worker(args) -> int:
     # heavy imports only in the worker: the parent stays a thin respawner
     from repro_torch.rl import presets
     from repro_torch.rl.experiment import Experiment, parse_overrides
+    from repro_torch.rl.sweep import Fleet
 
     run_dir = Path(args.dir)
     spec = presets.get(args.preset)
@@ -164,44 +170,57 @@ def _worker(args) -> int:
         on_bad=lambda b: bad.append({"path": str(b.path),
                                      "reason": b.reason}))
     resumed_from = DurableStore.step_of(path) if path is not None else None
-    exp = (Experiment.restore(store.payload(path), device=args.device)
-           if path is not None
-           else Experiment.from_spec(spec, device=args.device))
-    exp.attach_guard(store)
+    fleet = args.seeds > 1
+    if fleet:
+        handle = (Fleet.restore(store.payload(path), device=args.device)
+                  if path is not None
+                  else Fleet([spec.override(seed=spec.execution.seed + i)
+                              for i in range(args.seeds)],
+                             device=args.device))
+    else:
+        handle = (Experiment.restore(store.payload(path), device=args.device)
+                  if path is not None
+                  else Experiment.from_spec(spec, device=args.device))
+    handle.attach_guard(store)
     note = {"resumed_from": resumed_from, "bad_checkpoints": bad}
 
     try:
-        while exp.step < total:
-            target = min(total, (exp.step // save_every + 1) * save_every)
-            exp.run(target - exp.step)
+        while handle.step < total:
+            target = min(total,
+                         (handle.step // save_every + 1) * save_every)
+            handle.run(target - handle.step)
             for f in faults:                       # pre-save: lost segment
-                if f.kind == "kill" and f.due(exp.step) and f.latch.fire():
+                if f.kind == "kill" and f.due(handle.step) \
+                        and f.latch.fire():
                     chaos.kill_now()
             for f in faults:                       # torn-commit window
-                if f.kind == "kill-in-save" and f.due(exp.step) \
+                if f.kind == "kill-in-save" and f.due(handle.step) \
                         and f.latch.fire():
                     chaos.arm_kill_mid_save(store)
-            store.save(lambda p: exp.save(p), exp.step)
+            store.save(lambda p: handle.save(p), handle.step)
             for f in faults:                       # post-save faults
-                if not f.due(exp.step):
+                if not f.due(handle.step):
                     continue
                 if f.kind == "corrupt-latest" and f.latch.fire():
                     chaos.corrupt_checkpoint(store.checkpoints()[-1])
                 elif f.kind == "nan" and f.latch.fire():
-                    chaos.poison_params(exp)
+                    chaos.poison_params(handle,
+                                        member=f.member if fleet else None)
     except GuardViolation as gv:
         (run_dir / WORKER_INCIDENT).write_text(json.dumps(dict(
-            note, step=int(exp.step), error=str(gv),
+            note, step=int(handle.step), error=str(gv),
             recoveries=gv.recoveries,
             violations=[v.as_dict() for v in gv.violations]), indent=1))
         return EXIT_GUARD
     finally:
-        exp.close()
+        handle.close()
 
-    mon = exp._monitor
+    params = (handle._fls.agent["params"] if fleet
+              else handle._ls.agent["params"])
+    mon = handle._guard if fleet else handle._monitor
     (run_dir / RESULT).write_text(json.dumps(dict(
-        note, step=int(exp.step), returns=list(exp.returns),
-        params_sha256=_digest(exp._ls.agent["params"]),
+        note, step=int(handle.step), returns=list(handle.returns),
+        params_sha256=_digest(params),
         recoveries=mon.recoveries if mon is not None else 0), indent=1))
     return 0
 
@@ -211,7 +230,8 @@ def _worker(args) -> int:
 def _worker_argv(args) -> List[str]:
     argv = [sys.executable, "-m", "repro_torch.guard.supervise",
             args.preset, "--dir", args.dir, "--steps", str(args.steps),
-            "--save-every", str(args.save_every), "--keep", str(args.keep)]
+            "--save-every", str(args.save_every),
+            "--seeds", str(args.seeds), "--keep", str(args.keep)]
     if args.device is not None:
         argv += ["--device", args.device]
     for o in args.override:
@@ -264,10 +284,6 @@ def _supervise(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parse(argv)
-    if args.seeds > 1:
-        from repro_torch.rl.runner import UnportedError
-        raise UnportedError(f"--seeds {args.seeds}: a supervised fleet "
-                            f"needs the fleets (ROADMAP A.7)")
     return _worker(args) if args.worker else _supervise(args)
 
 

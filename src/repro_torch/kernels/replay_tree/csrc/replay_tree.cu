@@ -50,6 +50,13 @@
 // written: it adds one to a device counter the caller reads off the hot
 // path (raising here would cost a host sync per write).
 //
+// Both kernels take a leading member axis (a vmapped experiment fleet):
+// E trees of 2^depth nodes one after another, and each member's targets,
+// indices, values and outputs at member x their count. The sample puts
+// the member on blockIdx.y, so every block stays within one tree (its top
+// levels are staged in shared memory); the write runs one block a member.
+// At E = 1 the launch is the solo one.
+//
 // Each launch shape is fixed at build time by -D flags: ops.py passes the
 // card sweep's picks, and launch/bwd_sweep.py builds its candidates from
 // this source the same way. SAMPLE_K levels a round, SAMPLE_LANES lanes a
@@ -134,6 +141,11 @@ tree_sample_kernel(const float* __restrict__ tree, int depth, int capacity,
   extern __shared__ float stage[];
   pdl_trigger();
   pdl_wait();
+  const size_t member = blockIdx.y;          // this block's tree
+  tree += member << depth;
+  targets += member * b;
+  leaf_out += member * b;
+  pri_out += member * b;
   const int staged = kTop < depth ? kTop : depth;  // levels 0 .. staged-1
   if (staged > 0)
     for (int i = threadIdx.x; i < (1 << staged); i += kSampleThreads)
@@ -211,6 +223,10 @@ tree_set_kernel(float* tree, int depth, const int* __restrict__ idx,
   __shared__ int hkey[kHash], hpos[kHash];  // leaf, its last position
   pdl_trigger();
   pdl_wait();
+  const size_t member = blockIdx.x;          // one block a tree
+  tree += member << depth;
+  idx += member * n;
+  val += member * n;
   const int tid = threadIdx.x, half = 1 << (depth - 1);
   for (int i = tid; i < kHash; i += kSetThreads) hkey[i] = hpos[i] = -1;
   for (int base = 0; base < n; base += kSetThreads) {
@@ -248,37 +264,56 @@ tree_set_kernel(float* tree, int depth, const int* __restrict__ idx,
 
 }  // namespace
 
-// leaf (b,) int32 and priority (b,) float32 of each target. Returns the
-// CUDA error of the launch (0 on success).
-extern "C" int tree_sample(const float* tree, int depth, int capacity,
-                           const float* targets, int b, int* leaf,
-                           float* pri, void* stream) {
+// leaf (members, b) int32 and priority (members, b) float32 of each
+// member's targets (members, b) in its tree (members trees of 2^depth nodes,
+// one after another). Returns the CUDA error of the launch (0 on success).
+extern "C" int tree_sample_members(const float* tree, int depth,
+                                   int capacity, const float* targets, int b,
+                                   int members, int* leaf, float* pri,
+                                   void* stream) {
   if (depth < 2 || depth > 30 || capacity < 1 ||
-      capacity > (1 << (depth - 1)) || b < 0)
+      capacity > (1 << (depth - 1)) || b < 0 || members < 0 ||
+      members > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (b == 0) return 0;
+  if (b == 0 || members == 0) return 0;
   const long long threads = static_cast<long long>(b) * kSampleLanes;
   const int blocks =
       static_cast<int>((threads + kSampleThreads - 1) / kSampleThreads);
   const int staged = kTop < depth ? kTop : depth;
-  return launch(tree_sample_kernel, dim3(blocks), dim3(kSampleThreads),
-                staged > 0 ? 4 << staged : 0,
+  return launch(tree_sample_kernel, dim3(blocks, members),
+                dim3(kSampleThreads), staged > 0 ? 4 << staged : 0,
                 static_cast<cudaStream_t>(stream), tree, depth, capacity,
                 targets, b, leaf, pri);
 }
 
-// tree[half + idx[i]] = val[i] (the last i wins for a repeated index), then
-// the ancestors' sums, in place. Entries whose index lies outside [0, half)
+// The solo sample: one tree, leaf (b,) and priority (b,).
+extern "C" int tree_sample(const float* tree, int depth, int capacity,
+                           const float* targets, int b, int* leaf,
+                           float* pri, void* stream) {
+  return tree_sample_members(tree, depth, capacity, targets, b, 1, leaf, pri,
+                             stream);
+}
+
+// In each of `members` trees, tree[half + idx[i]] = val[i] over that
+// member's n entries (the last i wins for a repeated index), then the
+// ancestors' sums, in place. Entries whose index lies outside [0, half)
 // are skipped, and each adds one to the int32 `*skipped` (checking them on
 // the host would cost a device sync per write). Returns the CUDA error of
 // the launch (0 on success).
+extern "C" int tree_set_members(float* tree, int depth, const int* idx,
+                                const float* val, int n, int members,
+                                int* skipped, void* stream) {
+  if (depth < 2 || depth > 30 || n < 0 || members < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || members == 0) return 0;
+  return launch(tree_set_kernel, dim3(members), dim3(kSetThreads), 0,
+                static_cast<cudaStream_t>(stream), tree, depth, idx, val, n,
+                skipped);
+}
+
+// The solo write: one tree.
 extern "C" int tree_set(float* tree, int depth, const int* idx,
                         const float* val, int n, int* skipped,
                         void* stream) {
-  if (depth < 2 || depth > 30 || n < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  return launch(tree_set_kernel, dim3(1), dim3(kSetThreads), 0,
-                static_cast<cudaStream_t>(stream), tree, depth, idx, val, n,
-                skipped);
+  return tree_set_members(tree, depth, idx, val, n, 1, skipped, stream);
 }

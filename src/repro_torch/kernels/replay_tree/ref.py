@@ -3,7 +3,10 @@ the path for CPU tensors, and the reference the CUDA kernels are held
 against on the card.
 
 Layout: a flat float32 tensor of ``2**depth`` nodes, root at 1, leaves at
-``size // 2 ..``; ``depth = ceil(log2(capacity)) + 1``.
+``size // 2 ..``; ``depth = ceil(log2(capacity)) + 1``. The ``*_members``
+versions take a leading member axis (``(E, 2**depth)`` trees, ``(E, n)``
+indices, values and targets: a vmapped fleet's) and run the solo plain
+version member by member.
 """
 from __future__ import annotations
 
@@ -76,3 +79,26 @@ def tree_sample_ref(tree: torch.Tensor, targets: torch.Tensor, *,
         node = torch.where(go_right, left + 1, left)
     leaf = torch.clamp(node - tree.shape[0] // 2, 0, capacity - 1)
     return leaf.to(torch.int32)
+
+
+def tree_set_members_ref(tree: torch.Tensor, idx: torch.Tensor,
+                         value: torch.Tensor) -> torch.Tensor:
+    """``tree_set_ref`` in each of ``E`` trees ``(E, size)``, member ``m``
+    taking ``idx[m]`` and ``value[m]``; in place, returns ``tree``."""
+    for m in range(tree.shape[0]):
+        tree_set_ref(tree[m], idx[m], value[m])
+    return tree
+
+
+def tree_sample_members_ref(tree: torch.Tensor, targets: torch.Tensor, *,
+                            capacity: int) -> torch.Tensor:
+    """``tree_sample_ref`` in each of ``E`` trees: ``(E, B)`` leaves."""
+    return torch.stack([tree_sample_ref(tree[m], targets[m],
+                                        capacity=capacity)
+                        for m in range(tree.shape[0])])
+
+
+def tree_get_members_ref(tree: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """``tree_get_ref`` in each of ``E`` trees: ``(E, n)`` priorities."""
+    return torch.gather(tree, 1, idx.long() + tree.shape[1] // 2)

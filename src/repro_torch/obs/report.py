@@ -1,6 +1,5 @@
 """Run-report CLI: summarize a run directory's metric stream (copy of
-``repro/obs/report.py`` for a solo run; a fleet's member directories wait
-for the fleets, ROADMAP A.7).
+``repro/obs/report.py``).
 
     python -m repro_torch.obs.report <run_dir> [--json]
 
@@ -39,29 +38,42 @@ from repro_torch.obs.writers import METRICS_JSONL
 SPIKE_FACTOR = 10.0          # value > factor x run median => instability flag
 SRANK_COLLAPSE = 0.5         # final srank < this fraction of peak => flag
 
-_NON_METRIC = ("kind", "step", "event")
+_NON_METRIC = ("kind", "step", "event", "member")
 
 
 def load_rows(run_dir: str) -> List[dict]:
     """Parse the directory's metric stream, validating the schema (kind +
-    step per row) and deduplicating replayed steps (last occurrence wins)."""
-    path = Path(run_dir) / METRICS_JSONL
-    if not path.exists():
+    step per row) and deduplicating replayed steps (last occurrence wins,
+    keyed per fleet member when rows carry a ``member`` tag).
+
+    Accepts a solo run directory (``<run_dir>/metrics.jsonl``) or a fleet
+    sweep directory (``<run_dir>/<member>/metrics.jsonl``, as either
+    package's ``rl.sweep`` writes it): the member streams are merged and
+    kept apart by their ``member`` field."""
+    paths = [Path(run_dir) / METRICS_JSONL]
+    if not paths[0].exists():
+        paths = sorted(Path(run_dir).glob(f"*/{METRICS_JSONL}"))
+    if not paths:
         raise FileNotFoundError(
-            f"{path}: no metric stream here — was the run configured with "
+            f"{Path(run_dir) / METRICS_JSONL}: no metric stream here (nor "
+            f"any member subdir streams) — was the run configured with "
             f"the jsonl sink (ObsSpec(sinks=('jsonl',), log_dir=...))?")
     rows: Dict[tuple, dict] = {}
-    for ln, line in enumerate(path.read_text().splitlines(), 1):
-        if not line.strip():
-            continue
-        try:
-            row = json.loads(line)
-        except json.JSONDecodeError as e:
-            raise ValueError(f"{path}:{ln}: not valid JSONL: {e}") from e
-        if not isinstance(row, dict) or "kind" not in row \
-                or "step" not in row:
-            raise ValueError(f"{path}:{ln}: row missing kind/step: {row!r}")
-        rows[(row["kind"], row["step"], row.get("event"))] = row
+    for path in paths:
+        for ln, line in enumerate(path.read_text().splitlines(), 1):
+            if not line.strip():
+                continue
+            try:
+                row = json.loads(line)
+            except json.JSONDecodeError as e:
+                raise ValueError(f"{path}:{ln}: not valid JSONL: {e}") from e
+            if not isinstance(row, dict) or "kind" not in row \
+                    or "step" not in row:
+                raise ValueError(
+                    f"{path}:{ln}: row missing kind/step: {row!r}")
+            member = row.get("member", path.parent.name
+                             if path.parent != Path(run_dir) else None)
+            rows[(row["kind"], row["step"], row.get("event"), member)] = row
     return sorted(rows.values(), key=lambda r: (r["step"], r["kind"]))
 
 

@@ -1,6 +1,5 @@
 """The in-loop metric stream: chunk flush, downsampling, counters, events
-(port of ``repro/obs/stream.py`` for a solo run; a fleet member's label
-waits for the fleets, ROADMAP A.7).
+(port of ``repro/obs/stream.py``).
 
 ``ObsRun`` is the per-``Experiment`` observability engine. The scan loop
 hands it whole chunks at a time — the per-step scalar stream the chunk
@@ -19,6 +18,13 @@ queue and is called by ``Experiment.save`` once the card is drained.
 ``state()`` / ``load_state`` round-trip the stream cursor through
 checkpoint metadata so a resumed run continues the stream where it left
 off.
+
+Fleet demux (``repro_torch.rl.sweep``): a fleet's chunk stream comes back
+with a member axis; the fleet slices it per member and hands each member's
+``(n_steps,)`` view to that member's own ``ObsRun``, made with
+``member=<label>`` and a per-member ``log_dir`` subdirectory. Every row an
+``ObsRun`` with a member label writes carries a ``"member"`` field, and
+``repro_torch.obs.report`` accepts the sweep directory and merges them.
 """
 from __future__ import annotations
 
@@ -36,10 +42,14 @@ class ObsRun:
     """Owns the sinks, the downsampling cursor, counters and the trace hook
     for one experiment. Constructed from an ``ObsSpec``-shaped object
     (``enabled``/``log_every``/``sinks``/``trace``/``log_dir``); when
-    ``enabled`` is False every method is a cheap no-op."""
+    ``enabled`` is False every method is a cheap no-op.
 
-    def __init__(self, spec):
+    ``member`` tags every row this run writes with a fleet member label;
+    a solo run leaves it None and its rows are unchanged."""
+
+    def __init__(self, spec, member: Optional[str] = None):
         self.spec = spec
+        self.member = member
         self.enabled = bool(spec.enabled)
         self.log_every = int(spec.log_every)
         self.rows_written = 0
@@ -65,6 +75,9 @@ class ObsRun:
 
     def _emit(self, rows: Sequence[Row]) -> None:
         if self._writer is not None and rows:
+            if self.member is not None:
+                for r in rows:
+                    r.setdefault("member", self.member)
             self._writer.write(rows)
 
     def drain(self) -> None:

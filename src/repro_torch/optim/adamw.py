@@ -13,7 +13,9 @@ all leaves at once (on the card a few launches an op, not about ten a
 leaf); ``adamw_update_ref``, the plain version, loops over the leaves. The
 two are bitwise equal: the foreach version does the same operations in the
 same order and uses no fused form (``alpha=``, ``addcmul``, ``lerp``),
-which could contract to an FMA and change the last bit.
+which could contract to an FMA and change the last bit. Under
+``torch.func.vmap`` (a fleet's member-batched superstep), which has no rule
+for the foreach ops, ``adamw_update`` takes ``adamw_update_ref``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.common import (is_batched, tree_leaves, tree_map,
+                                tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +83,10 @@ def _new_trees(params: Any, new_p, mu, nu, count) -> Tuple[Any, Any]:
 def adamw_update(cfg: AdamWConfig, grads: Any, state: Any, params: Any
                  ) -> Tuple[Any, Any]:
     """Returns ``(new_params, new_state)``; nothing is updated in place.
-    ``adamw_update_ref``'s arithmetic as foreach ops over all leaves."""
+    ``adamw_update_ref``'s arithmetic as foreach ops over all leaves
+    (under ``vmap``: ``adamw_update_ref`` itself)."""
+    if is_batched(params) or is_batched(grads):
+        return adamw_update_ref(cfg, grads, state, params)
     ps, gs = tree_leaves(params), tree_leaves(grads)
     if cfg.grad_clip_norm is not None:
         gs = torch._foreach_mul(gs, _clip_scale(global_norm(gs),

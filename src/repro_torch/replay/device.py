@@ -9,7 +9,10 @@ stratified proportional sampling, ``(|p| + eps) ** alpha`` priorities,
 ``(N * p) ** -beta`` importance weights normalized by the batch max.
 Randomness comes in as an argument: ``replay_sample`` takes its ``(B,)``
 uniform draws. Operations update the state in place, every tensor at its
-address (so a captured superstep can replay them), and return it.
+address (so a captured superstep can replay them), and return it. The
+same code runs under ``torch.func.vmap`` on a fleet's member-stacked
+state: the writes batch in place and the sum-tree ops take their
+member-axis launches.
 """
 from __future__ import annotations
 
@@ -65,9 +68,11 @@ def replay_add(cfg: DeviceReplayConfig, state: ReplayState,
     ``step`` (scalar learner step) stamps the written rows."""
     _, idx = store_add(state["store"], batch)
     if step is not None:
-        stamp = torch.as_tensor(step, dtype=torch.int32,
-                                device=idx.device)
-        state["add_step"].index_copy_(0, idx.long(), stamp.expand(idx.shape))
+        stamp = (step.to(torch.int32) if isinstance(step, torch.Tensor)
+                 else torch.tensor(step, dtype=torch.int32,
+                                   device=idx.device))
+        state["add_step"].index_put_((idx.long(),),
+                                     stamp.expand(idx.shape))
     if cfg.uniform:
         return state
     if priorities is None:
@@ -128,7 +133,7 @@ def replay_update(cfg: DeviceReplayConfig, state: ReplayState,
         return state
     pr = torch.abs(priorities.to(torch.float32)) + cfg.eps
     mp = state["max_priority"]
-    torch.maximum(mp, torch.max(pr), out=mp)
+    mp.copy_(torch.maximum(mp, torch.max(pr)))
     sumtree_set(state["tree"], idx, pr ** cfg.alpha)
     return state
 

@@ -4,7 +4,9 @@
 The store is a dict of preallocated ``(capacity, ...)`` tensors plus an
 int32 write cursor and live count, all on the device; ``store_add`` writes
 all of them in place and never syncs with the host (the cursor arithmetic
-stays on the device). The n-step ring (Ape-X n-step returns, Horgan et al.
+stays on the device); every write is ``index_put_`` or ``copy_``, which
+``torch.func.vmap`` batches in place, so a fleet's member-stacked store
+takes the same code. The n-step ring (Ape-X n-step returns, Horgan et al.
 2018) sits in front of the store: each incoming 1-step transition
 displaces the one from n-1 steps ago, emitted with the discounted reward
 sum over its window and a ``disc`` bootstrap coefficient (gamma^span *
@@ -55,7 +57,8 @@ def store_add(store: Store, batch: Dict[str, torch.Tensor]
                               device=ptr.device)) % cap
     rows = idx.long()
     for k, v in store["data"].items():
-        v.index_copy_(0, rows, batch[k].to(v.dtype))
+        # index_put_, not index_copy_: vmap batches it in place
+        v.index_put_((rows,), batch[k].to(v.dtype))
     # the cursor and count keep their tensors (a captured superstep reads
     # and writes them at fixed addresses)
     store["ptr"].copy_((store["ptr"] + n) % cap)
@@ -97,7 +100,7 @@ def nstep_push(n: int, gamma: float, buf: Dict[str, torch.Tensor],
     out = {}
     for k in _NSTEP_FIELDS:
         out[k] = buf[k].clone()
-        out[k].index_copy_(0, slot.reshape(1), tr[k].to(buf[k].dtype)[None])
+        out[k].index_put_((slot.reshape(1),), tr[k].to(buf[k].dtype)[None])
     out["t"] = t + 1
     # window oldest-first: ring[(slot + 1 + j) % n], j = 0 .. n-1
     order = (slot + 1 + torch.arange(n, device=slot.device)) % n

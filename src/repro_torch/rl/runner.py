@@ -26,6 +26,14 @@ epilogue copies the chunk's rows to the host once (``out["stream"]``).
 Recording reads what the superstep computed and writes nothing it reads,
 so it is bitwise-invisible to training.
 
+A fleet (``rl.sweep.Fleet``) runs E members of one spec, differing only
+in their seeds, as ONE member-batched superstep: ``Trainer.fleet_step``
+is ``torch.func.vmap`` of ``step`` over a state whose every tensor carries
+a leading member axis (``stack_states``), with each member's draws made
+outside the vmapped body from its own generator, in the solo order. The
+same ``StepGraph`` captures it once on the card, with every member's
+generator registered.
+
 Not ported yet, and refused at construction with the ROADMAP item that
 brings it: the host replay and mesh sharding.
 On the card the sum-tree runs its CUDA kernels, so ``replay.kernel`` must
@@ -111,12 +119,14 @@ class RunResult:
 
 
 class TrainLoopState(NamedTuple):
-    """Everything the loop threads between gradient steps."""
+    """Everything the loop threads between gradient steps. A fleet's state
+    has the same fields, every tensor stacked on a leading member axis,
+    and ``gen`` a list of the members' generators."""
     agent: Any       # algorithm state: params / opt / step
     actors: Any      # EnvState of the actor pool
     nstep: Any       # per-actor n-step ring (None when n_step == 1)
     replay: Any      # ReplayState
-    gen: torch.Generator   # the run's one generator, on its device
+    gen: Any         # the run's one torch.Generator (a fleet: one a member)
     step: torch.Tensor     # completed learner steps (i32), stamps adds
 
 
@@ -128,16 +138,66 @@ def state_leaves(ls: TrainLoopState) -> List[torch.Tensor]:
             *tree_leaves(ls.replay), ls.step]
 
 
+def state_from_leaves(like: TrainLoopState, leaves: List[torch.Tensor],
+                      gen: Any = None) -> TrainLoopState:
+    """``like``'s structure over ``leaves`` (``state_leaves`` order), with
+    generator ``gen``."""
+    it = iter(leaves)
+    take = lambda _: next(it)
+    return TrainLoopState(
+        tree_map(take, like.agent), type(like.actors)(*map(take, like.actors)),
+        None if like.nstep is None else tree_map(take, like.nstep),
+        tree_map(take, like.replay), gen, take(like.step))
+
+
+def _copy_gen(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
 def clone_state(ls: TrainLoopState) -> TrainLoopState:
-    """A copy of ``ls`` that shares no tensor with it, with a generator of
-    its own in the same state."""
-    gen = torch.Generator(device=ls.gen.device)
-    gen.set_state(ls.gen.get_state())
-    c = lambda tree: tree_map(torch.clone, tree)
-    return TrainLoopState(c(ls.agent), type(ls.actors)(*map(torch.clone,
-                                                            ls.actors)),
-                          None if ls.nstep is None else c(ls.nstep),
-                          c(ls.replay), gen, ls.step.clone())
+    """A copy of ``ls`` (solo or fleet) that shares no tensor with it, with
+    generators of its own in the same states."""
+    gen = ([_copy_gen(g) for g in ls.gen] if isinstance(ls.gen, list)
+           else _copy_gen(ls.gen))
+    return state_from_leaves(ls, [t.clone() for t in state_leaves(ls)], gen)
+
+
+def stack_states(states: List[TrainLoopState]) -> TrainLoopState:
+    """A fleet state: each tensor of the members' states stacked on a new
+    leading member axis, ``gen`` the list of their generators."""
+    cols = zip(*(state_leaves(ls) for ls in states))
+    return state_from_leaves(states[0], [torch.stack(c) for c in cols],
+                             [ls.gen for ls in states])
+
+
+def member_state(fls: TrainLoopState, m: int) -> TrainLoopState:
+    """Member ``m`` of a fleet state: views of its slices and its
+    generator."""
+    return state_from_leaves(fls, [t[m] for t in state_leaves(fls)],
+                             fls.gen[m])
+
+
+def _stack_trees(trees: List[Any]) -> Any:
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _vmap_state(fn: Callable, fls: TrainLoopState, *args):
+    """``torch.func.vmap`` of ``fn(member state, *args) -> (state, *rest)``
+    over a fleet state and member-stacked ``args``; returns the fleet state
+    and the member-stacked rest. An output leaf that is its input updated
+    in place (the replay) comes back as the input tensor itself."""
+    ins = state_leaves(fls)
+
+    def body(leaves, *a):
+        out = fn(state_from_leaves(fls, leaves), *a)
+        return (state_leaves(out[0]), *out[1:])
+    leaves, *rest = torch.func.vmap(body)(ins, *args)
+    leaves = [a if (b.data_ptr() == a.data_ptr() and b.shape == a.shape
+                    and b.stride() == a.stride()) else b
+              for a, b in zip(ins, leaves)]
+    return (state_from_leaves(fls, leaves, fls.gen), *rest)
 
 
 def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor]) -> int:
@@ -165,13 +225,15 @@ def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor]) -> int:
 
 
 class StepGraph:
-    """``Trainer.step`` captured once as a CUDA graph.
+    """``Trainer.step`` captured once as a CUDA graph (a fleet's state:
+    ``Trainer.fleet_step``).
 
     The state it is built from becomes the graph's static state: the graph
     reads it, and copies the superstep's results back into it (one
     ``torch._foreach_copy_`` per dtype), so each ``replay`` advances it by
-    one superstep in place. The run's generator is registered with the
-    graph, so every replay advances it as an eager superstep does.
+    one superstep in place. The run's generator (a fleet's: every
+    member's) is registered with the graph, so every replay advances it as
+    an eager superstep does.
 
     Building it runs one superstep eagerly on the capture stream (the
     warm-up: it fills the kernels' per-stream caches, which raise on a miss
@@ -183,59 +245,75 @@ class StepGraph:
 
     With ``rows`` > 0 (the trainer's ``obs_stream``) the graph also records
     each superstep's scalar metrics (``keys``, sorted) into the static
-    ``(rows, len(keys))`` float32 buffer ``scalars``, at the row the
-    device-side step counter picks (``ls.step % rows``, read before the
-    copy-back advances it): one ``torch.stack`` and one ``index_copy_``,
-    after the superstep and reading only what it computed. The warm-up
-    writes its row the same way. ``read_rows`` is the chunk epilogue's one
-    copy to the host."""
+    float32 buffer ``scalars``, ``(rows, len(keys))`` (a fleet's: ``(rows,
+    E, len(keys))``), at the row a device-side counter picks (a solo run's
+    ``ls.step % rows``, read before the copy-back advances it; a fleet's
+    own superstep counter ``clock``, since a frozen member's step stops):
+    one ``torch.stack`` and one ``index_copy_``, after the superstep and
+    reading only what it computed. The warm-up writes its row the same
+    way. ``read_rows`` is the chunk epilogue's one copy to the host."""
 
     def __init__(self, trainer: "Trainer", ls: TrainLoopState,
                  rows: int = 0):
         dev = trainer.device
+        fleet = isinstance(ls.gen, list)
+        step = trainer.fleet_step if fleet else trainer.step
         self.state = ls
         self._dst = state_leaves(ls)
         self.keys: Tuple[str, ...] = ()
         self.scalars: Optional[torch.Tensor] = None
+        self.clock = (torch.zeros((), dtype=torch.int64, device=dev)
+                      if fleet else None)
         self.stream = torch.cuda.Stream(dev)
         main = torch.cuda.current_stream(dev)
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
-            nxt, metrics, batch = trainer.step(ls)
+            nxt, metrics, batch = step(ls)
             if rows:
-                self.keys = scalar_keys(metrics)
-                self.scalars = torch.zeros((rows, len(self.keys)),
+                self.keys = scalar_keys(metrics, members=fleet)
+                lead = (rows, len(ls.gen)) if fleet else (rows,)
+                self.scalars = torch.zeros(lead + (len(self.keys),),
                                            dtype=torch.float32, device=dev)
                 self._at = torch.arange(rows, device=dev)
-                self._record(ls.step, metrics)
+                self._record(metrics)
             _copy_into(self._dst, state_leaves(nxt))
         self.warm = (metrics, batch)
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(ls.gen)
+        for gen in (ls.gen if fleet else [ls.gen]):
+            self.graph.register_generator_state(gen)
         with torch.cuda.graph(self.graph, stream=self.stream):
-            nxt, self.metrics, self.batch = trainer.step(ls)
+            nxt, self.metrics, self.batch = step(ls)
             if rows:
-                self._record(ls.step, self.metrics)
+                self._record(self.metrics)
             self.copied_bytes = _copy_into(self._dst, state_leaves(nxt))
         main.wait_stream(self.stream)
 
-    def _record(self, step: torch.Tensor, metrics) -> None:
-        row = (step.long() % self.scalars.shape[0]).reshape(1)
+    def _now(self) -> torch.Tensor:
+        return self.state.step if self.clock is None else self.clock
+
+    def _record(self, metrics) -> None:
+        row = (self._now().long() % self.scalars.shape[0]).reshape(1)
         self.scalars.index_copy_(0, row, scalar_row(metrics, self.keys)[None])
+        if self.clock is not None:
+            self.clock.add_(1)
 
     def read_rows(self, n: int) -> np.ndarray:
-        """The ``(n, len(keys))`` rows of the last ``n`` supersteps on the
-        static state, in step order, as one copy to the host."""
-        idx = (self.state.step.long() - n + self._at[:n]) \
+        """The rows of the last ``n`` supersteps on the static state, in
+        step order (``(n, len(keys))``; a fleet's ``(n, E, len(keys))``),
+        as one copy to the host."""
+        idx = (self._now().long() - n + self._at[:n]) \
             % self.scalars.shape[0]
         return self.scalars.index_select(0, idx).cpu().numpy()
 
     def load(self, ls: TrainLoopState) -> None:
-        """Copy the tensors and the generator state of ``ls`` into the
+        """Copy the tensors and the generator states of ``ls`` into the
         static state."""
         _copy_into(self._dst, state_leaves(ls))
-        if ls.gen is not self.state.gen:
-            self.state.gen.set_state(ls.gen.get_state())
+        pairs = (zip(ls.gen, self.state.gen) if self.clock is not None
+                 else [(ls.gen, self.state.gen)])
+        for src, dst in pairs:
+            if src is not dst:
+                dst.set_state(src.get_state())
 
     def replay(self, n: int) -> None:
         """``n`` supersteps on the static state, on the current stream."""
@@ -243,16 +321,19 @@ class StepGraph:
             self.graph.replay()
 
 
-def scalar_keys(metrics) -> Tuple[str, ...]:
-    """The names of a superstep's scalar metrics, sorted: the stream's
-    columns, in the reference's order."""
-    return tuple(sorted(k for k, v in metrics.items() if v.ndim == 0))
+def scalar_keys(metrics, members: bool = False) -> Tuple[str, ...]:
+    """The names of a superstep's scalar metrics (a fleet superstep's:
+    ``(E,)`` metrics), sorted: the stream's columns, in the reference's
+    order."""
+    rank = 1 if members else 0
+    return tuple(sorted(k for k, v in metrics.items() if v.ndim == rank))
 
 
 def scalar_row(metrics, keys) -> torch.Tensor:
     """One superstep's row of the stream: ``metrics[k]`` for ``keys``, as
-    one float32 tensor on the metrics' device."""
-    return torch.stack([metrics[k].float() for k in keys])
+    one float32 tensor on the metrics' device (a fleet's: ``(E,
+    len(keys))``)."""
+    return torch.stack([metrics[k].float() for k in keys], dim=-1)
 
 
 def median(x: torch.Tensor) -> torch.Tensor:
@@ -358,6 +439,18 @@ class Trainer:
                             ls.step + 1)
         return ls, metrics, batch
 
+    def fleet_step(self, fls: TrainLoopState,
+                   draws: Optional[Dict[str, Any]] = None):
+        """One superstep of every member of a fleet state: ``step`` under
+        ``torch.func.vmap``; returns ``(next fleet state, metrics, batch)``,
+        each metric and batch field with a leading member axis. ``draws``
+        are member-stacked; by default each member's are drawn from its own
+        generator, outside the vmapped body, in the solo order. The replay
+        state is updated in place."""
+        if draws is None:
+            draws = _stack_trees([self.draws(g) for g in fls.gen])
+        return _vmap_state(lambda ls, d: self.step(ls, d), fls, draws)
+
     def evaluate(self, ls: TrainLoopState) -> torch.Tensor:
         """Deterministic-policy returns of ``eval.episodes`` episodes."""
         return eval_returns(self.env, self.policy(ls.agent["params"]),
@@ -436,10 +529,10 @@ class Trainer:
         return chunk
 
     # ------------------------------------------------------ initial state
-    def _fresh_state(self) -> TrainLoopState:
+    def _fresh_state(self, seed: Optional[int] = None) -> TrainLoopState:
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(
-            self.spec.execution.seed)
+            self.spec.execution.seed if seed is None else int(seed))
         agent = self.init_fn(self.acfg, gen, dev)
         self.n_params = tree_size(agent["params"])
         actors = apex.init_actor_states(
@@ -457,16 +550,35 @@ class Trainer:
         warm-up run: the template ``Experiment.restore`` loads into."""
         return self._fresh_state()
 
-    def init(self) -> TrainLoopState:
-        """Agent/actor/replay init + the random-policy warm-up (paper
-        A.4): ``max(warmup_steps // n_actors, 1, n_step)`` collect steps,
-        added to the replay as one batch."""
-        ls = self._fresh_state()
+    def _warm_draws(self, gen: torch.Generator):
         warm = max(self.warmup_steps // self.n_actors, 1, self.n_step)
-        draws = apex.collect_draws(self.env, warm, self.n_actors, "uniform",
-                                   ls.gen)
+        return apex.collect_draws(self.env, warm, self.n_actors, "uniform",
+                                  gen)
+
+    def _warm_up(self, ls: TrainLoopState, draws) -> TrainLoopState:
         actors, nstate, flat = self._collect_emit(
             self._rand_policy, ls.agent["params"], ls.actors, ls.nstep,
             draws, drop=self.n_step - 1)
         rstate = replay_add(self.dcfg, ls.replay, flat, step=ls.step)
         return ls._replace(actors=actors, nstep=nstate, replay=rstate)
+
+    def init(self) -> TrainLoopState:
+        """Agent/actor/replay init + the random-policy warm-up (paper
+        A.4): ``max(warmup_steps // n_actors, 1, n_step)`` collect steps,
+        added to the replay as one batch."""
+        ls = self._fresh_state()
+        return self._warm_up(ls, self._warm_draws(ls.gen))
+
+    def fleet_template(self, seeds) -> TrainLoopState:
+        """A fleet state of one member a seed, with no warm-up run (the
+        template ``Fleet.restore`` loads into)."""
+        return stack_states([self._fresh_state(s) for s in seeds])
+
+    def init_fleet(self, seeds) -> TrainLoopState:
+        """``init`` of one member a seed, as a fleet state: each member's
+        init and warm-up draws come from its own generator in the solo
+        order, and the warm-up runs once, vmapped over the members."""
+        fls = self.fleet_template(seeds)
+        draws = _stack_trees([self._warm_draws(g) for g in fls.gen])
+        return _vmap_state(lambda ls, d: (self._warm_up(ls, d),), fls,
+                           draws)[0]

@@ -18,8 +18,9 @@ its own contracts (mirroring ``tests/test_guard.py`` for a solo run).
   permanent one at drain (``FlakySink``).
 * Supervisor (subprocesses on the CPU): SIGKILL mid-segment or mid-save
   auto-resumes to the params digest of an uninterrupted run; a spent
-  budget writes ``incident.json`` and exits 2; ``--seeds 2`` raises
-  naming A.7; the digest equals the reference's on the same params.
+  budget writes ``incident.json`` and exits 2; ``--seeds 2`` runs a
+  fleet, which refuses the host replay; the digest equals the
+  reference's on the same params.
 """
 import json
 import os
@@ -387,9 +388,12 @@ def test_supervisor_budget_spent_writes_incident(tmp_path, worker_path):
 
 def test_supervisor_rollback_and_fleet_refusal(tmp_path):
     from repro_torch.guard import supervise
-    from repro_torch.rl.runner import UnportedError
-    with pytest.raises(UnportedError, match="A.7"):
-        supervise.main(["smoke", "--dir", str(tmp_path), "--seeds", "2"])
+    from repro_torch.rl.experiment import SpecError
+    # --seeds 2 runs a Fleet (tests/test_torch_sweep_guard.py), which
+    # refuses the smoke preset's host replay as the reference's does
+    with pytest.raises(SpecError, match="replay.backend"):
+        supervise.main(["smoke", "--dir", str(tmp_path), "--seeds", "2",
+                        "--device", "cpu", "--worker"])
     rc = supervise.main([
         "smoke", "--dir", str(tmp_path / "rb"), "--steps", "12",
         "--save-every", "6", "--chaos", "nan@6", "--worker",

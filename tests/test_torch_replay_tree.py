@@ -19,7 +19,14 @@ At depth 18 (capacity 100,000) and at a small depth, the sample for k in
 {3, 4, 5}, the write with n of 32, 256 and 9,984; duplicates, siblings,
 leaves in the zero padding at or past the capacity, and the edge targets
 0 and total. The card itself runs ``tests/test_torch_replay.py -k
-cuda``.
+cuda`` and the member-axis tests below (``-k cuda``).
+
+The member axis (a vmapped fleet's ``(E, 2**depth)`` trees): under
+``torch.func.vmap`` ``sumtree_set``/``sumtree_sample`` go through their
+vmap rules to the member entries, which run the plain versions member by
+member here (the index check over the whole ``(E, n)`` tensor) and one
+member-axis launch on the card, held there against E solo launches and
+the plain versions.
 """
 import re
 
@@ -258,3 +265,99 @@ def test_plans_are_launch_shapes_the_kernels_have():
     for k, lanes, top in bwd_sweep.SAMPLE_SHAPES:
         assert 1 <= k <= 6 and lanes in (1, 2, 4, 8, 16, 32)
         assert 0 <= top <= 13
+
+
+# ------------------------------------------------------------ member axis
+
+def _member_trees(e, capacity, seed):
+    rng = np.random.default_rng(seed)
+    trees = torch.stack([tref.tree_init_ref(capacity) for _ in range(e)])
+    for m in range(e):
+        tref.tree_set_ref(trees[m], torch.arange(capacity), torch.from_numpy(
+            rng.uniform(1e-3, 2, capacity).astype(np.float32)))
+    return trees, rng
+
+
+@pytest.mark.parametrize("n", [8, 40])
+def test_vmapped_set_is_each_members_solo_write(n):
+    """``sumtree_set`` under vmap takes its vmap rule: every member's
+    keep-last write into its own tree, as the solo write would."""
+    trees, rng = _member_trees(3, 100, 1)
+    idx = torch.from_numpy(rng.integers(0, 100, (3, n)).astype(np.int64))
+    val = torch.from_numpy(rng.uniform(0, 2, (3, n)).astype(np.float32))
+    want = trees.clone()
+    for m in range(3):
+        tops.sumtree_set(want[m], idx[m], val[m])
+
+    def write(t, i, v):
+        tops.sumtree_set(t, i, v)
+        return t.sum()
+    torch.func.vmap(write)(trees, idx, val)
+    assert torch.equal(trees, want)
+    assert torch.equal(tops.sumtree_set_members(want.clone(), idx, val),
+                       want)
+
+
+def test_vmapped_sample_is_each_members_solo_sample():
+    trees, rng = _member_trees(4, 1000, 2)
+    t = torch.from_numpy(rng.uniform(size=(4, 64)).astype(np.float32)) \
+        * trees[:, 1:2]
+    t[:, 0], t[:, 1] = 0.0, trees[:, 1]
+    leaf, pri = torch.func.vmap(lambda tr, x: tops.sumtree_sample(
+        tr, x, capacity=1000))(trees, t)
+    for m in range(4):
+        want_leaf, want_pri = tops.sumtree_sample(trees[m], t[m],
+                                                  capacity=1000)
+        assert torch.equal(leaf[m], want_leaf)
+        assert torch.equal(pri[m], want_pri)
+
+
+def test_vmapped_set_checks_every_members_indices():
+    trees, _ = _member_trees(2, 16, 3)
+    idx = torch.tensor([[0, 1], [2, 16]])
+    with pytest.raises(IndexError, match="outside the 16 leaves"):
+        torch.func.vmap(lambda t, i, v: tops.sumtree_set(t, i, v).sum())(
+            trees, idx, torch.ones(2, 2))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def test_cuda_member_sample_is_solo_launches_and_plain(cuda_device):
+    trees, rng = _member_trees(5, 100_000, 4)
+    trees = trees.to(cuda_device)
+    t = torch.from_numpy(rng.uniform(size=(5, 256)).astype(
+        np.float32)).to(cuda_device) * trees[:, 1:2]
+    before = tops.launch_count("sample")
+    leaf, pri = tops.sumtree_sample_members(trees, t, capacity=100_000)
+    assert tops.launch_count("sample") - before == 1
+    for m in range(5):
+        sl, sp = tops.sumtree_sample(trees[m], t[m], capacity=100_000)
+        assert torch.equal(leaf[m], sl) and torch.equal(pri[m], sp)
+    want = tref.tree_sample_members_ref(trees, t, capacity=100_000)
+    assert torch.equal(leaf, want)
+    assert torch.equal(pri, tref.tree_get_members_ref(trees, want))
+
+
+@pytest.mark.parametrize("n", [32, 256, 2500])
+def test_cuda_member_set_is_solo_launches_and_plain(cuda_device, n):
+    trees, rng = _member_trees(5, 100_000, 5)
+    trees = trees.to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, 100_000, (5, n)).astype(
+        np.int32)).to(cuda_device)
+    idx[:, n // 2:] = idx[:, :n - n // 2]            # repeats: keep-last
+    val = torch.from_numpy(rng.uniform(0, 2, (5, n)).astype(
+        np.float32)).to(cuda_device)
+    before = tops.launch_count("set")
+    got = tops.sumtree_set_members(trees.clone(), idx, val)
+    assert tops.launch_count("set") - before == 1
+    solo = trees.clone()
+    for m in range(5):
+        tops.sumtree_set(solo[m], idx[m], val[m])
+    assert torch.equal(got, solo)
+    assert torch.equal(got, tref.tree_set_members_ref(trees.clone(), idx,
+                                                      val))
