@@ -129,6 +129,32 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    its stamped generation; ``python -m repro_torch.guard.supervise smoke``
    on the card with ``kill-in-save@6`` (saves every 3), resumed from
    step 3 to the uninterrupted card run's ``params_sha256``.
+   The host NumPy replay (``phase_host``, ``[host]``, ``[host-prof]``):
+   the same agent with the preset's own replay (``replay.backend=
+   "host"``, capacity 100,000 in NumPy): the warm-up's ``add_batch`` of
+   9,984 rows timed; ``Experiment.run(40)`` in the python loop with the
+   counts set to 0 first, every superstep's launches
+   ``expected_launches`` (no tree kernel), finite losses, the tree's
+   total the sum of its leaves, no staleness keys; 20 supersteps through
+   ``StepGraph``'s two graphs (collect rows, then the update, the NumPy
+   add, sample and refresh between them) against 20 eager supersteps,
+   bitwise on every state tensor, the generator, the buffer's arrays, its
+   tree, ``ptr``/``count``/``max_priority`` and the NumPy generator's
+   state, the launches of the warm-up and the capture 2 x
+   ``expected_launches``; the wall per superstep of the eager loop and
+   the two graphs beside the device replay's graph of the same spec, in
+   turns; both under ``torch.profiler`` (busy, idle share, each host
+   span's ms, each copy's ms, with the copies' bytes); ``run(17); save;
+   Experiment.restore; run(23)`` against ``run(40)`` under the graphs,
+   bitwise, the host buffer and NumPy generator included; ``python -m
+   repro_torch.guard.supervise smoke`` with no override (the host replay)
+   resumed to the uninterrupted card run's ``params_sha256``.
+   The return band (``phase_band``, ``[band]``, ROADMAP A.11):
+   ``table1-orig`` (host replay) at 10,000 supersteps for the 5 seeds of
+   ``tests/data/return_band.json``, one process a seed at once on the
+   card, the curves held to the JAX package's by the rule of
+   ``tests/data/return_band.py`` (a two-sample z <= 3 on each seed's
+   late mean); an untrained agent's returns on the card must fail it.
    Vmapped fleets (``phase_fleet``, ``[fleet-tree]``, ``[fleet]``,
    ``[fleet-smoke]``, ``[fleet-guard]`` lines): the sum-tree kernels with a
    member axis (E=5 trees of 2^18 nodes, B=256 targets a member, writes
@@ -181,7 +207,8 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    call; the SSD chunk in float32 and bfloat16.
 7. One JSON line of seven kernel records (the stack and tree records'
    ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
-   the tree records' also the fleet run's; their ``fleet`` entries the
+   the stack records' also the host replay's (``train_host``), the tree
+   records' also the fleet run's; their ``fleet`` entries the
    member-axis launches' times), then the device line, last.
 """
 from __future__ import annotations
@@ -849,7 +876,8 @@ def expected_launches(tr):
     and phi_sa at the batch); the actor and the critics take the register
     tile at 256 rows, every stack the streaming kernel at 32; ``fwd_t``
     counts the register tile's stream^T inits, one per wide stack call.
-    Tree: one sample, two writes (the add, the priority refresh)."""
+    Tree: one sample, two writes (the add, the priority refresh); none
+    with the host replay."""
     from repro_torch.kernels.dense_block import stack
     acfg = tr.acfg
     td3 = tr.spec.algo == "td3"
@@ -884,7 +912,8 @@ def expected_launches(tr):
                              f"{layers}, {want}")
     want["fwd"] = sum(want[f"fwd_{k}"] for k in stack.FWD_KERNELS)
     bwd = (7 if lo else 4) if td3 else (8 if lo else 5)
-    want.update(bwd=bwd, sample=1, set=2)
+    # the host replay's tree is NumPy: no tree kernel
+    want.update(bwd=bwd, sample=0 if tr.host else 1, set=0 if tr.host else 2)
     return want
 
 
@@ -1230,6 +1259,28 @@ def state_diff(a, b):
     return bad
 
 
+def host_of(tr):
+    """A copy of what a host-replay run keeps outside its state
+    (``replay.buffer_state``), or None for a device-replay run."""
+    from repro_torch.rl.replay import buffer_state
+    return None if tr.buffer is None else buffer_state(tr.buffer, tr.rng)
+
+
+def host_diff(a, b):
+    """``[(name, max abs difference)]`` of two ``host_of`` copies that are
+    not bitwise equal (the buffer's arrays, its tree, ``ptr``, ``count``,
+    ``max_priority`` and the NumPy generator's state)."""
+    if a is None and b is None:
+        return []
+    arrays = [(f"host/data/{k}", a["data"][k], b["data"][k])
+              for k in a["data"]] + [("host/tree", a["tree"], b["tree"])]
+    bad = [(n, float(np.abs(x.astype(np.float64) - y).max()))
+           for n, x, y in arrays if not np.array_equal(x, y)]
+    return bad + [(k, float("nan")) for k in ("ptr", "count",
+                                               "max_priority", "rng_state")
+                  if a[k] != b[k]]
+
+
 def graph_class(key):
     """'copy-back' (the foreach copy into the static state), 'adamw' (the
     other foreach kernels: the optimizer's) or None, for a profiler kernel
@@ -1492,7 +1543,8 @@ def graph_checkpoint(spec, tag, whole=None):
     r = resumed.run(23)
     torch.cuda.synchronize()
     w = whole.result()
-    bad = state_diff(resumed._ls, whole._ls)
+    bad = state_diff(resumed._ls, whole._ls) + host_diff(
+        host_of(resumed.trainer), host_of(whole.trainer))
     if bad or r.returns != w.returns or r.sranks != w.sranks \
             or r.eval_steps != w.eval_steps \
             or w.eval_steps != [10, 20, 30, 40]:
@@ -1502,7 +1554,10 @@ def graph_checkpoint(spec, tag, whole=None):
             f"{w.sranks}, eval steps {r.eval_steps} vs {w.eval_steps}")
     log(f"[{tag}] checkpoint: {spec.algo} loop='scan' run(17); save; "
         f"Experiment.restore; run(23) == run(40), bitwise on every state "
-        f"tensor and the generator, returns {r.returns}, eval steps "
+        f"tensor and the generator"
+        + (", the host buffer, tree, cursor and NumPy generator"
+           if whole.trainer.host else "")
+        + f", returns {r.returns}, eval steps "
         f"{r.eval_steps}, sranks {r.sranks}; save {t_save:.2f}s, restore "
         f"{t_restore:.2f}s, file {nbytes} bytes ({nbytes / 1e6:.1f} MB)")
     del resumed, whole
@@ -2683,16 +2738,17 @@ def guard_rollback(spec, tmp):
     return exp, store
 
 
-def guard_supervisor(tmp):
+def guard_supervisor(tmp, over=("replay.backend=device",
+                                 "replay.kernel=pallas"), tag="guard"):
     """``python -m repro_torch.guard.supervise smoke`` on the card with
     ``kill-in-save@6`` (saves every 3: the worker dies committing step 6
     and resumes from step 3) against an uninterrupted in-process card run
-    of the same spec: the same ``params_sha256``."""
+    of the same spec: the same ``params_sha256``. ``over`` are the
+    worker's ``--override`` pairs (none: the preset's own host replay)."""
     from repro_torch.guard import supervise
     from repro_torch.rl import presets
     from repro_torch.rl.experiment import Experiment
-    run_dir = os.path.join(tmp, "sup")
-    over = ["replay.backend=device", "replay.kernel=pallas"]
+    run_dir = os.path.join(tmp, f"sup-{tag}")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cmd = [sys.executable, "-m", "repro_torch.guard.supervise", "smoke",
            "--dir", run_dir, "--steps", "12", "--save-every", "3",
@@ -2722,7 +2778,9 @@ def guard_supervisor(tmp):
         raise AssertionError(f"supervised run {res} (attempts {att}) != "
                              f"uninterrupted card run {digest}, returns "
                              f"{ref.returns}")
-    log(f"[guard] supervise smoke on the card, kill-in-save@6: attempt 0 "
+    log(f"[{tag}] supervise smoke on the card "
+        f"({' '.join(over) or 'no override: the host replay'}), "
+        f"kill-in-save@6: attempt 0 "
         f"{att[0]['signal']} after {att[0]['wall_s']:.2f}s, attempt 1 "
         f"resumed from step {res['resumed_from']} and finished in "
         f"{att[1]['wall_s']:.2f}s (the resume: a new worker process, its "
@@ -3301,6 +3359,298 @@ def phase_fleet(gen):
     return tree, launches
 
 
+HOST_SPANS = ("repro.replay.host_add", "repro.replay.host_sample",
+              "repro.replay.host_update_prio")
+
+
+def host_profile(run, n, tag, what):
+    """``run()`` (``n`` supersteps) under ``torch.profiler``: wall per
+    superstep, device busy (the union of the device intervals) and idle
+    share, each host span's ms and the copies between host and device
+    (ms and count per superstep, by the profiler's memcpy names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / n
+    avg = prof.key_averages()
+    spans = {e.key: (e.cpu_time_total / 1e3 / n, e.count / n)
+             for e in avg if e.key in HOST_SPANS}
+    copies = {e.key: (e.device_time_total / 1e3 / n, e.count / n)
+              for e in avg if e.key.startswith("Memcpy")
+              and e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = busy_union_ms(prof)
+    out = {"wall_ms": wall, "spans": spans, "copies": copies,
+           "busy_ms": None if busy is None else busy / n}
+    if set(spans) != set(HOST_SPANS) or any(
+            c != 1 for _, c in spans.values()):
+        raise AssertionError(f"[{tag}] host spans per superstep {spans}, "
+                             f"want one each of {HOST_SPANS}")
+    log(f"[{tag}] {what}, {n} supersteps under the profiler: {wall:.3f} ms"
+        f" wall per superstep, "
+        + (f"device busy {out['busy_ms']:.3f} ms (union), idle share "
+           f"{100 * (1 - out['busy_ms'] / wall):.1f}%"
+           if busy is not None else "device busy not measured (the "
+           "profiler saw no device time)")
+        + "; host spans ms per superstep: " + ", ".join(
+            f"{k.rsplit('.', 1)[1]} {ms:.4f}" for k, (ms, _) in
+            sorted(spans.items()))
+        + "; copies (device ms, count) per superstep: " + ", ".join(
+            f"{k} {ms:.4f} ({c:.0f})" for k, (ms, c) in
+            sorted(copies.items())))
+    return out
+
+
+def phase_host(spec, device_spec):
+    """The slice's path: ``spec`` (fig10-ablation at the paper budget, U=
+    2048, fused) with the preset's own host replay, through
+    ``Experiment.run`` in both loops. Returns the launches of
+    ``GRAPH_TIMED`` python-loop supersteps counted from 0."""
+    import tempfile
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.replay import load_buffer_state
+    from repro_torch.rl.runner import clone_state
+    if spec.replay.backend != "host" or spec.replay.kernel != "xla":
+        raise AssertionError(f"phase_host needs the preset's host replay, "
+                             f"got {spec.replay}")
+    exp = Experiment.from_spec(spec)
+    tr = exp.trainer
+    want = expected_launches(tr)
+    adds, add = [], tr.host_add
+
+    def timed_add(rows):
+        t0 = time.perf_counter()
+        add(rows)
+        adds.append((len(rows), 1e3 * (time.perf_counter() - t0)))
+    tr.host_add = timed_add
+    t0 = time.perf_counter()
+    exp._ensure_init()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tr.host_add = add
+    n_warm = tr.buffer.count
+    warm_rows = max(spec.execution.warmup_steps // tr.n_actors, 1) \
+        * tr.n_actors
+    if n_warm != warm_rows or adds[0][0] != warm_rows or len(adds) != 1:
+        raise AssertionError(f"host warm-up: {n_warm} rows, adds {adds} "
+                             f"(want one of {warm_rows})")
+    log(f"[host] fig10-ablation large, paper budget, the preset's host "
+        f"replay ({type(tr.buffer).__name__}, capacity "
+        f"{tr.buffer.capacity}, NumPy tree of {tr.buffer.tree.size} nodes):"
+        f" {tr.n_params} params, {tr.n_actors} actors, batch "
+        f"{tr.batch_size}; warm-up {n_warm} transitions in {t_init:.2f}s, "
+        f"of which add_batch of the {adds[0][0]} rows {adds[0][1]:.2f} ms "
+        f"(host clock)")
+
+    # the python loop through Experiment.run, launches counted from 0
+    per_step, scal, step_fn = [], [], tr.step
+    keys = tuple(k for k in train_keys(spec) if not k.startswith("stale"))
+
+    def counted(ls, draws=None):
+        before = _counts()
+        out = step_fn(ls, draws)
+        after = _counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        if any(k.startswith("staleness") for k in out[1]):
+            raise AssertionError("a host superstep reported staleness")
+        scal.append(torch.stack([out[1][k] for k in keys]))
+        return out
+    tr.step = counted
+    torch.cuda.synchronize()
+    _reset_counts()
+    exp.run(GRAPH_TIMED)
+    torch.cuda.synchronize()
+    launches = _counts()
+    tr.step = step_fn
+    bad = [c for c in per_step if c != want]
+    if bad or any(launches[k] != want[k] * GRAPH_TIMED for k in want) \
+            or not all(launches[k] for k in want if want[k]):
+        raise AssertionError(f"host launches per superstep {bad[:2]} (want "
+                             f"{want}), totals {launches}")
+    if not torch.all(torch.isfinite(torch.stack(scal))):
+        raise AssertionError("host training produced a non-finite loss")
+    buf = getattr(tr.buffer, "_inner", tr.buffer)
+    leaves = buf.tree.tree[buf.tree.size // 2:]
+    if buf.count != min(n_warm + GRAPH_TIMED * tr.n_actors, buf.capacity) \
+            or abs(buf.tree.total - leaves.sum()) > 1e-9 * leaves.sum() \
+            or int(exp._ls.step) != GRAPH_TIMED:
+        raise AssertionError(f"host buffer after {GRAPH_TIMED} supersteps: "
+                             f"{buf.count} rows, tree {buf.tree.total} vs "
+                             f"{leaves.sum()}")
+    last = dict(zip(keys, torch.stack(scal)[-1].tolist()))
+    log(f"[host] loop='python' Experiment.run({GRAPH_TIMED}) with the "
+        f"counts set to 0 first: launches {launches} = {GRAPH_TIMED} x "
+        f"{want} (no tree kernel: the tree is NumPy); last losses "
+        + ", ".join(f"{k} {v:.4g}" for k, v in last.items())
+        + f"; buffer {buf.count} rows, tree total {buf.tree.total:.6g} = "
+        f"sum of leaves; no staleness keys")
+
+    # the two graphs against eager supersteps, bitwise, host included
+    ls0, h0 = clone_state(exp._ls), host_of(tr)
+    eager = clone_state(ls0)
+    for _ in range(GRAPH_K):
+        eager, _, _ = tr.step(eager)
+    h_eager = host_of(tr)
+    tr.rng = load_buffer_state(tr.buffer, h0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    replayed, _ = tr.chunk_fn(GRAPH_K, False)(clone_state(ls0))
+    torch.cuda.synchronize()
+    t_chunk = time.perf_counter() - t0
+    cap = _counts()
+    graph = tr.graph
+    if not graph.host or any(cap[k] != 2 * want[k] for k in want):
+        raise AssertionError(f"host graph: launches of the warm-up and the "
+                             f"capture {cap}, want 2 x {want}")
+    bad = state_diff(eager, replayed) + host_diff(h_eager, host_of(tr))
+    if bad:
+        raise AssertionError(f"{GRAPH_K} supersteps through the two graphs "
+                             f"!= {GRAPH_K} eager supersteps: {bad[:8]}")
+    ev_e, ev_g = tr.evaluate(eager), tr.evaluate(replayed)
+    if not torch.equal(ev_e, ev_g) or state_diff(eager, replayed):
+        raise AssertionError("eval after the two graphs != after eager")
+    rows_b = graph.rows.numel() * graph.rows.element_size()
+    batch_b = graph.batch_flat.numel() * graph.batch_flat.element_size()
+    prio_b = graph.metrics["priorities"].numel() * 4
+    log(f"[host] two graphs (A: collect + n-step rows; B: the update) with "
+        f"the host buffer between them: chunk_fn({GRAPH_K}) (warm-up, "
+        f"capture, {GRAPH_K - 1} replays) {t_chunk:.2f}s, launches of the "
+        f"warm-up and the capture {cap} = 2 x expected; bitwise == "
+        f"{GRAPH_K} eager supersteps on every state tensor, the torch "
+        f"generator, the buffer's arrays, its tree, ptr/count/max_priority "
+        f"and the NumPy generator's state; an eval after each equal; "
+        f"copies a superstep: rows {rows_b} B to the host, batch {batch_b} "
+        f"B to the card, priorities {prio_b} B to the host; copy-back "
+        f"{graph.copied_bytes / 1e6:.1f} MB")
+
+    # walls in turns beside the device replay's graph of the same spec
+    dexp = Experiment.from_spec(device_spec.override(loop="scan"))
+    dtr = dexp.trainer
+    dexp._ensure_init()
+    dls, _ = dtr.chunk_fn(1, False)(dexp._ls)
+    walls = []
+    for loop in ("host eager", "host graphs", "device graph",
+                 "device graph", "host graphs", "host eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if loop == "host eager":
+            for _ in range(GRAPH_TIMED):
+                eager, _, _ = tr.step(eager)
+        elif loop == "host graphs":
+            replayed, _ = tr.chunk_fn(GRAPH_TIMED, False)(replayed)
+        else:
+            dls, _ = dtr.chunk_fn(GRAPH_TIMED, False)(dls)
+        torch.cuda.synchronize()
+        walls.append((loop, 1e3 * (time.perf_counter() - t0) / GRAPH_TIMED))
+    mean = {k: float(np.mean([m for n, m in walls if n == k]))
+            for k, _ in walls}
+    log(f"[host] wall per superstep, host clock, {GRAPH_TIMED} supersteps "
+        f"a run, in turns: " + ", ".join(f"{k} {ms:.3f} ms"
+                                         for k, ms in walls)
+        + " (means: " + ", ".join(f"{k} {v:.3f}" for k, v in mean.items())
+        + ")")
+    del dexp, dtr, dls
+    _free()
+    def eager_run(n=10):
+        nonlocal eager
+        for _ in range(n):
+            eager, _, _ = tr.step(eager)
+    prof_e = host_profile(eager_run, 10, "host-prof",
+                          "eager (loop='python')")
+    prof_g = host_profile(lambda: graph.replay(GRAPH_K), GRAPH_K,
+                          "host-prof", "two graphs (loop='scan')")
+    del exp, tr, graph, eager, replayed, ls0
+    _free()
+    graph_checkpoint(spec, "host")
+    with tempfile.TemporaryDirectory() as tmp:
+        guard_supervisor(tmp, over=(), tag="host")
+    return launches, {"walls": mean, "eager": prof_e, "graphs": prof_g,
+                      "copy_bytes": {"rows": rows_b, "batch": batch_b,
+                                     "priorities": prio_b}}
+
+
+def _band_module():
+    """``tests/data/return_band.py`` of the checkout (NumPy only): the
+    reference's curves and the rule."""
+    import importlib.util
+    path = os.path.join(ROOT, "tests", "data", "return_band.py")
+    spec = importlib.util.spec_from_file_location("return_band", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _band_seed(seed):
+    """One seed of the band in a worker process of its own: the band's
+    spec trained by the port on the card (``loop="scan"``: the two
+    graphs), and the untrained agent's returns (the policy after the
+    warm-up, evaluated once per eval point). Returns ``(eval steps,
+    returns, untrained returns, seconds)``."""
+    import torch
+    from repro_torch.rl import presets
+    from repro_torch.rl.envs import eval_returns
+    from repro_torch.rl.experiment import Experiment
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    band = _band_module().load()
+    t0 = time.perf_counter()
+    exp = Experiment.from_spec(presets.get(band["preset"]).override(
+        seed=seed, **band["override"]))
+    exp._ensure_init()
+    pol = exp.trainer.policy(exp._ls.agent["params"])
+    gen = torch.Generator(device="cuda").manual_seed(10_000 + seed)
+    untrained = [float(eval_returns(exp.trainer.env, pol,
+                                    exp.spec.eval.episodes, gen).mean())
+                 for _ in band["eval_steps"]]
+    res = exp.run()
+    torch.cuda.synchronize()
+    return res.eval_steps, res.returns, untrained, \
+        time.perf_counter() - t0
+
+
+def phase_band():
+    """ROADMAP A.11 on the card: the band's preset (``table1-orig``, its
+    host replay, the band's budget) trained by the port for the band's 5
+    seeds, one worker process a seed, all at once on the card; the curves
+    held to the JAX package's by the band's rule, and an untrained agent's
+    returns on the card must fail the same rule."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    rb = _band_module()
+    band = rb.load()
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(band["seeds"]), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        runs = list(pool.map(_band_seed, band["seeds"]))
+    wall = time.perf_counter() - t0
+    for seed, (steps, _, _, _) in zip(band["seeds"], runs):
+        if steps != rb.eval_steps(band):
+            raise AssertionError(f"band seed {seed}: eval steps {steps}")
+    curves = [r[1] for r in runs]
+    got, base = rb.check(curves, band), rb.check([r[2] for r in runs], band)
+    ref_base = rb.check(band["untrained"], band)
+    log(f"[band] A.11: {band['preset']} {band['override']}, seeds "
+        f"{band['seeds']}, the port on the card, a process a seed at once "
+        f"({wall:.1f}s; each "
+        + ", ".join(f"{r[3]:.1f}" for r in runs)
+        + f"s): late mean {got['port_late_mean']:.1f} vs the reference's "
+        f"{got['ref_late_mean']:.1f}, z {got['z']:.2f} (passes at <= "
+        f"{rb.Z_MAX}); the untrained agent on the card: late mean "
+        f"{base['port_late_mean']:.1f}, z {base['z']:.2f}; the reference's"
+        f" untrained agent z {ref_base['z']:.2f}; curves "
+        + json.dumps([[round(r, 1) for r in c] for c in curves]))
+    if not got["ok"] or base["ok"] or ref_base["ok"]:
+        raise AssertionError(f"return band: port {got}, untrained {base}, "
+                             f"reference untrained {ref_base}")
+    return got
+
+
 def build_all():
     """Build the six kernel libraries and the latency probe, one nvcc
     each, all at once."""
@@ -3406,6 +3756,8 @@ def main() -> int:
     td3_launches = phase_td3(td3_spec)
     phase_graph(train_spec, ckpt_specs=(td3_spec,))
     phase_obs_guard(train_spec)
+    host_launches, _ = phase_host(spec, train_spec)
+    phase_band()
     fleet_tree, fleet_launches = phase_fleet(gen)
     phase_fwd_fills(gen)
     micro_launches = phase_micro()
@@ -3426,7 +3778,8 @@ def main() -> int:
         f"path's most used slot)",
         launches_by_path={"serve": serve_launches,
                           "train": train_launches["fwd"],
-                          "train_td3": td3_launches["fwd"]},
+                          "train_td3": td3_launches["fwd"],
+                          "train_host": host_launches["fwd"]},
         launches_by_kernel={k: train_launches[f"fwd_{k}"]
                             for k in stack.FWD_KERNELS},
         stream_t_inits=train_launches["fwd_t"],
@@ -3441,7 +3794,8 @@ def main() -> int:
                train_launches["bwd"], bwd["critic"],
                "critic stack d0=516 U=2048 L=2, M=256: dx + dW + db",
                launches_by_path={"train": train_launches["bwd"],
-                                 "train_td3": td3_launches["bwd"]}),
+                                 "train_td3": td3_launches["bwd"],
+                                 "train_host": host_launches["bwd"]}),
         record("tree_sample",
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
                "src/repro/kernels/replay_tree/replay_tree.py:36",

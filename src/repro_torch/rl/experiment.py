@@ -20,7 +20,8 @@ through ``checkpoint.ckpt`` (one npz, the spec and the eval history in its
 metadata), so ``run(N); save; restore; run(M)`` is bitwise ``run(N + M)``
 under either loop. The leaves carry the reference's names, so a
 checkpoint of the JAX ``Experiment.save`` restores here too (see
-``Experiment.restore`` for its generator); a checkpoint of the port does
+``Experiment.restore`` for its generator; a host-replay run's buffer and
+NumPy generator come back bit for bit); a checkpoint of the port does
 not restore in the reference, which needs per-actor keys (ROADMAP C11).
 
 With ``obs.enabled`` a run streams what it does (``repro_torch.obs``):
@@ -39,6 +40,7 @@ import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt
@@ -51,6 +53,7 @@ from repro_torch.guard.monitor import (GuardSpec, GuardViolation, Monitor,
 from repro_torch.obs.stream import ObsRun
 from repro_torch.obs.trace import annotate
 from repro_torch.rl.envs import ENVS
+from repro_torch.rl.replay import buffer_state, load_buffer_state
 
 ALGOS = ("sac", "td3")
 REPLAY_BACKENDS = ("host", "device")
@@ -498,7 +501,9 @@ class Experiment:
         """Load a ``save`` checkpoint's state into this handle, replacing
         what it holds (``restore``'s workhorse, and the rollback's). A live
         handle's graph takes the loaded state at its next chunk
-        (``StepGraph.load``)."""
+        (``StepGraph.load``). A host-replay run's buffer, tree, cursor and
+        NumPy generator come back from the ``host/`` leaves and the
+        ``buffer`` metadata, bit for bit (a JAX checkpoint's too)."""
         st = meta["experiment"]
         tmpl = self.trainer.init_template()
         gen = tmpl.gen
@@ -522,6 +527,15 @@ class Experiment:
         self.trainer.n_params = int(st["n_params"])
         # dispatch accounting continues across the resume
         self.trainer.dispatches = int(st.get("dispatches", 0))
+        tr = self.trainer
+        if tr.buffer is not None:
+            self._drain()
+            inner = getattr(tr.buffer, "_inner", tr.buffer)
+            with np.load(path) as raw:
+                host = {"data": {k: raw[f"host/data/{k}"]
+                                 for k in inner.data},
+                        "tree": raw["host/tree"], **st["buffer"]}
+            tr.rng = load_buffer_state(tr.buffer, host)
         self._obs.load_state(st.get("obs"))
 
     def save(self, path: str) -> None:
@@ -532,33 +546,45 @@ class Experiment:
         (``loop/.agent/...``, ``loop/.actors/.q|.qd|.t``,
         ``loop/.nstep/...``, ``loop/.replay/...``, ``loop/.step``) and the
         generator's state as the uint8 leaf ``loop/.gen``; the metadata
-        holds the spec, the eval history and the obs stream's cursor. The
+        holds the spec, the eval history and the obs stream's cursor. A
+        host-replay run adds the reference's ``host/data/<field>`` and
+        ``host/tree`` leaves, and ``buffer`` (``ptr``, ``count``,
+        ``max_priority``, the NumPy ``rng_state``) in the metadata. The
         card is drained first, and the obs sinks with it; under
         ``loop="scan"`` the state read is the graph's static state, and
         nothing is captured anew."""
         self._ensure_init()
-        dev = self.trainer.device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        self._drain()
         self._obs.drain()
-        ls = self._ls
+        ls, tr = self._ls, self.trainer
         state = {"step": self.step, "returns": self.returns,
                  "eval_steps": self.eval_steps, "sranks": self.sranks,
                  "rows": self._rows, "last_metrics": self._last_metrics,
                  "wall_time_s": self._wall,
-                 "n_params": int(self.trainer.n_params),
-                 "dispatches": int(self.trainer.dispatches),
+                 "n_params": int(tr.n_params),
+                 "dispatches": int(tr.dispatches),
                  "obs": self._obs.state()}
+        tree = {"loop": ls._replace(gen=ls.gen.get_state())}
+        if tr.buffer is not None:
+            host = buffer_state(tr.buffer, tr.rng)
+            tree["host"] = {"data": host.pop("data"),
+                            "tree": host.pop("tree")}
+            state["buffer"] = host
         with annotate("repro.ckpt_save"):
-            ckpt.save(path, {"loop": ls._replace(gen=ls.gen.get_state())},
-                      metadata={"spec": self.spec.to_dict(),
-                                "experiment": state})
+            ckpt.save(path, tree, metadata={"spec": self.spec.to_dict(),
+                                            "experiment": state})
         self._obs.log_event("save", step=self.step, path=str(path))
         self._obs.drain()
 
     def _ensure_init(self):
         if self._ls is None:
             self._ls = self.trainer.init()
+
+    def _drain(self) -> None:
+        """Wait for the card's queued work, before reading state."""
+        dev = self.trainer.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     def run(self, steps: Optional[int] = None, *,
             progress: Optional[Callable] = None, eval_at_end: bool = False,
@@ -706,12 +732,20 @@ class Experiment:
         """Pre-segment snapshot for the skip policy: a copy of the state
         (``clone_state``: the graph mutates its static state in place, and
         the replay is updated in place on either device), the history list
-        lengths and the obs cursor."""
+        lengths and the obs cursor; with a host replay and
+        ``policy="skip"``, a copy of the buffer, its tree and cursor and
+        the NumPy generator's state (``replay.buffer_state``), read after
+        the card is drained."""
         from repro_torch.rl.runner import clone_state
-        return {"ls": clone_state(ls), "step": step,
+        snap = {"ls": clone_state(ls), "step": step,
                 "obs": self._obs.state(),
                 "hist": (len(self.returns), len(self.eval_steps),
                          len(self.sranks), len(self._rows))}
+        tr = self.trainer
+        if tr.buffer is not None and self._monitor.spec.policy == "skip":
+            self._drain()
+            snap["buffer"] = buffer_state(tr.buffer, tr.rng)
+        return snap
 
     def _guard_recover(self, violations, snap):
         """Apply ``guard.policy`` to a non-empty violation list; returns the
@@ -745,10 +779,15 @@ class Experiment:
         (``guard.monitor.fold_in``), so the re-run explores a new
         trajectory instead of replaying the same divergence. The snapshot
         is handed on as is: the next chunk copies it into the graph's
-        static state."""
+        static state. A host buffer and its NumPy generator come back as
+        they were: only the torch generator is perturbed."""
         r0, e0, s0, w0 = snap["hist"]
         del self.returns[r0:], self.eval_steps[e0:]
         del self.sranks[s0:], self._rows[w0:]
+        if "buffer" in snap:
+            self._drain()
+            self.trainer.rng = load_buffer_state(self.trainer.buffer,
+                                                 snap["buffer"])
         self._obs.load_state(snap["obs"])
         ls = snap["ls"]
         fold_in(ls.gen, ordinal)

@@ -1,11 +1,20 @@
-"""Training runner: SAC or TD3, OFENet, the device replay and the Ape-X
-actor pool glued into one superstep (port of ``repro/rl/runner.py``).
+"""Training runner: SAC or TD3, OFENet, the replay and the Ape-X actor
+pool glued into one superstep (port of ``repro/rl/runner.py``).
 
 ``Trainer`` builds the pieces of one run from an ``ExperimentSpec``; the
-superstep is the reference's ``_device_step``:
+superstep is the reference's:
 
     collect (1 env step per actor) -> n-step ring -> replay add ->
     stratified sample -> sac_update / td3_update -> priority refresh
+
+``replay.backend="device"`` (the reference's ``_device_step``) keeps the
+replay on the run's device (``repro_torch.replay``). ``"host"`` (the
+reference's ``py_step``, the spec default) keeps it in the NumPy buffer
+``Trainer.buffer`` (``rl/replay.py``), sampled from the NumPy generator
+``Trainer.rng``: collect and the n-step ring run on the device, the rows
+cross to the host in one copy, the sampled batch and its weights come
+back in one, and the priorities go out in one. The loop state's
+``replay`` is then the reference's int32 token.
 
 ``execution.loop="python"`` calls ``Trainer.step`` once a superstep.
 ``execution.loop="scan"`` runs chunks of supersteps through
@@ -32,13 +41,16 @@ is ``torch.func.vmap`` of ``step`` over a state whose every tensor carries
 a leading member axis (``stack_states``), with each member's draws made
 outside the vmapped body from its own generator, in the solo order. The
 same ``StepGraph`` captures it once on the card, with every member's
-generator registered.
+generator registered. A host run's ``StepGraph`` is two graphs with the
+host buffer between them (a graph cannot call the host): collect and the
+n-step ring, then the update.
 
 Not ported yet, and refused at construction with the ROADMAP item that
-brings it: the host replay and mesh sharding.
-On the card the sum-tree runs its CUDA kernels, so ``replay.kernel`` must
-be "pallas" there (the reference's "xla" names its plain scatter twin,
-which the port runs only for tensors on the CPU).
+brings it: mesh sharding.
+On the card the device replay's sum-tree runs its CUDA kernels, so a
+device run's ``replay.kernel`` must be "pallas" there (the reference's
+"xla" names its plain scatter twin, which the port runs only for tensors
+on the CPU); a host run keeps "xla", as the spec requires.
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ from repro_torch.replay import (DeviceReplayConfig, nstep_emit_flat,
 from repro_torch.rl import apex, sac as sac_mod, td3 as td3_mod
 from repro_torch.rl.envs import eval_returns, make_env
 from repro_torch.rl.policy import Policy, algo_config
+from repro_torch.rl.replay import PrioritizedReplay, UniformReplay
 
 _TRANSITION_FIELDS = ("obs", "act", "rew", "next_obs", "done")
 
@@ -83,11 +96,8 @@ class UnportedError(NotImplementedError):
 def check_ported(spec) -> None:
     """Raise ``UnportedError`` for every spec choice this slice cannot run
     as asked (nothing quietly runs something else)."""
-    x, r = spec.execution, spec.replay
+    x = spec.execution
     missing = []
-    if r.backend != "device":
-        missing.append("replay.backend='host' (the host NumPy replay: "
-                       "ROADMAP A.6); use replay.backend='device'")
     if x.mesh_shards > 0:
         missing.append("execution.mesh_shards>0 (sharded replay on "
                        "torch.distributed: ROADMAP A.8)")
@@ -224,6 +234,17 @@ def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor]) -> int:
                for d in ds)
 
 
+def _batch_layout(shapes: Dict[str, tuple], batch: int):
+    """``({field: (offset, row shape)}, total)`` of a batch's fields laid
+    out in one flat float32 buffer, each starting at a multiple of 16
+    floats (64 bytes: the kernels' vector loads stay aligned)."""
+    layout, at = {}, 0
+    for k, shape in shapes.items():
+        layout[k] = (at, tuple(shape))
+        at += -(-batch * int(np.prod(shape)) // 16) * 16
+    return layout, at
+
+
 class StepGraph:
     """``Trainer.step`` captured once as a CUDA graph (a fleet's state:
     ``Trainer.fleet_step``).
@@ -251,13 +272,26 @@ class StepGraph:
     own superstep counter ``clock``, since a frozen member's step stops):
     one ``torch.stack`` and one ``index_copy_``, after the superstep and
     reading only what it computed. The warm-up writes its row the same
-    way. ``read_rows`` is the chunk epilogue's one copy to the host."""
+    way. ``read_rows`` is the chunk epilogue's one copy to the host.
+
+    A host-replay run (``trainer.host``) cannot put its buffer inside a
+    graph, so it captures two: ``graph`` (segment A: collect and the
+    n-step ring into the static ``rows``, copying ``actors`` and
+    ``nstep`` back) and ``graph_b`` (segment B: the update from the
+    static ``batch``, with the stream row and the copy-back of ``agent``
+    and ``step``). The generator is registered with both, A drawing the
+    collect noise and B the update's, in the eager order. A replay is A;
+    the rows to the host in one copy, ``add`` and ``sample``; the batch to
+    the device in one copy through a page-locked buffer; B; the
+    priorities to the host in one copy, then the refresh."""
 
     def __init__(self, trainer: "Trainer", ls: TrainLoopState,
                  rows: int = 0):
         dev = trainer.device
         fleet = isinstance(ls.gen, list)
         step = trainer.fleet_step if fleet else trainer.step
+        self.trainer = trainer
+        self.host = trainer.host and not fleet
         self.state = ls
         self._dst = state_leaves(ls)
         self.keys: Tuple[str, ...] = ()
@@ -278,6 +312,10 @@ class StepGraph:
                 self._record(metrics)
             _copy_into(self._dst, state_leaves(nxt))
         self.warm = (metrics, batch)
+        if self.host:
+            self._capture_host(trainer, ls, rows)
+            main.wait_stream(self.stream)
+            return
         self.graph = torch.cuda.CUDAGraph()
         for gen in (ls.gen if fleet else [ls.gen]):
             self.graph.register_generator_state(gen)
@@ -287,6 +325,53 @@ class StepGraph:
                 self._record(self.metrics)
             self.copied_bytes = _copy_into(self._dst, state_leaves(nxt))
         main.wait_stream(self.stream)
+
+    def _capture_host(self, tr: "Trainer", ls: TrainLoopState,
+                      rows: int) -> None:
+        """The two segments of a host-replay superstep and the host
+        buffers their copies go through."""
+        nstep = lambda t: tree_leaves(t) if t is not None else []
+        self.batch_flat = torch.zeros(tr.batch_floats, device=tr.device)
+        self.batch = tr.batch_views(self.batch_flat)
+        self._batch_host = torch.empty(tr.batch_floats, pin_memory=True)
+        self.graph, self.graph_b = torch.cuda.CUDAGraph(), \
+            torch.cuda.CUDAGraph()
+        for g in (self.graph, self.graph_b):
+            g.register_generator_state(ls.gen)
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            actors, nst, self.rows = tr.rows(ls.agent["params"], ls.actors,
+                                             ls.nstep,
+                                             tr.collect_draws(ls.gen))
+            copied = _copy_into([*ls.actors, *nstep(ls.nstep)],
+                                [*actors, *nstep(nst)])
+        self._rows_host = torch.empty(self.rows.shape, pin_memory=True)
+        with torch.cuda.graph(self.graph_b, stream=self.stream):
+            agent, self.metrics = tr.update_fn(ls.agent, tr.acfg, self.batch,
+                                               tr.learn_draws(ls.gen))
+            if rows:
+                self._record(self.metrics)
+            copied += _copy_into([*tree_leaves(ls.agent), ls.step],
+                                 [*tree_leaves(agent), ls.step + 1])
+        self.copied_bytes = copied
+        self._prio_host = torch.empty(self.metrics["priorities"].shape,
+                                      pin_memory=True)
+        self._idx = None
+
+    def _host_exchange(self) -> None:
+        """Between A and B: the rows to the host, add, sample, the batch
+        to the device (enqueued on the current stream, before B)."""
+        tr = self.trainer
+        self._rows_host.copy_(self.rows, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        tr.host_add(self._rows_host.numpy())
+        self._idx = tr.host_sample(self._batch_host.numpy())
+        self.batch_flat.copy_(self._batch_host, non_blocking=True)
+
+    def _host_refresh(self) -> None:
+        """After B: the priorities to the host, then the refresh."""
+        self._prio_host.copy_(self.metrics["priorities"], non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        self.trainer.host_refresh(self._idx, self._prio_host.numpy())
 
     def _now(self) -> torch.Tensor:
         return self.state.step if self.clock is None else self.clock
@@ -316,9 +401,14 @@ class StepGraph:
                 dst.set_state(src.get_state())
 
     def replay(self, n: int) -> None:
-        """``n`` supersteps on the static state, on the current stream."""
+        """``n`` supersteps on the static state, on the current stream (a
+        host run's: with the host buffer's work between its segments)."""
         for _ in range(n):
             self.graph.replay()
+            if self.host:
+                self._host_exchange()
+                self.graph_b.replay()
+                self._host_refresh()
 
 
 def scalar_keys(metrics, members: bool = False) -> Tuple[str, ...]:
@@ -351,7 +441,9 @@ class Trainer:
         self.spec = spec
         self.device = resolve_device(device)
         x, r = spec.execution, spec.replay
-        if self.device.type == "cuda" and r.kernel != "pallas":
+        self.host = r.backend == "host"
+        if self.device.type == "cuda" and not self.host \
+                and r.kernel != "pallas":
             raise UnportedError(
                 "replay.kernel='xla' on the card: the port's sum-tree on a "
                 "CUDA device is the kernel of csrc/replay_tree.cu; set "
@@ -372,6 +464,19 @@ class Trainer:
         self.dcfg = DeviceReplayConfig(
             capacity=r.capacity, obs_dim=env.obs_dim, act_dim=env.act_dim,
             uniform=not r.prioritized, n_step=r.n_step)
+        self.buffer = self.rng = None
+        if self.host:
+            buf_cls = PrioritizedReplay if r.prioritized else UniformReplay
+            self.buffer = buf_cls(r.capacity, env.obs_dim, env.act_dim,
+                                  n_step=r.n_step)
+            self.rng = np.random.default_rng(x.seed)
+            # the buffer's fields, in its order, and their row shapes
+            self.row_shapes = {"obs": (env.obs_dim,), "act": (env.act_dim,),
+                               "rew": (), "next_obs": (env.obs_dim,),
+                               "done": (),
+                               **({"disc": ()} if r.n_step > 1 else {})}
+            self.batch_layout, self.batch_floats = _batch_layout(
+                {**self.row_shapes, "weight": ()}, x.batch_size)
         self.n_params = 0
         self.graph: Optional[StepGraph] = None   # captured at first chunk
         # the guard reads the stream obs writes: record it for either
@@ -404,24 +509,103 @@ class Trainer:
 
     def draws(self, gen: torch.Generator) -> Dict[str, Any]:
         """One superstep's draws: the collect step's policy noise and
-        resets, the sample's stratified uniforms, the update's Gaussian
-        draws (SAC: ``eps1``, ``eps2``; TD3: the target smoothing
-        ``noise``)."""
+        resets, the sample's stratified uniforms (the device replay only:
+        the host replay samples from ``rng``), the update's Gaussian draws
+        (SAC: ``eps1``, ``eps2``; TD3: the target smoothing ``noise``)."""
+        d = {"collect": self.collect_draws(gen)}
+        if not self.host:
+            d["u"] = torch.rand((self.batch_size,), generator=gen,
+                                device=gen.device)
+        return {**d, **self.learn_draws(gen)}
+
+    def collect_draws(self, gen: torch.Generator) -> Dict[str, Any]:
+        """The collect step's policy noise and resets."""
+        return apex.collect_draws(self.env, 1, self.n_actors, "normal", gen)
+
+    def learn_draws(self, gen: torch.Generator) -> Dict[str, Any]:
+        """The update's Gaussian draws, each ``(batch, act_dim)``."""
         b, a = self.batch_size, self.env.act_dim
-        return {"collect": apex.collect_draws(self.env, 1, self.n_actors,
-                                              "normal", gen),
-                "u": torch.rand((b,), generator=gen, device=gen.device),
-                **{k: torch.randn((b, a), generator=gen, device=gen.device)
-                   for k in self.update_draws}}
+        return {k: torch.randn((b, a), generator=gen, device=gen.device)
+                for k in self.update_draws}
+
+    # ------------------------------------------------------ host replay
+    def rows(self, params, actors, nstate, collect, *, policy=None,
+             drop: int = 0):
+        """Collect and the n-step ring on the run's device; returns
+        ``(actors, nstate, rows)``, ``rows`` the transition fields
+        (``row_shapes``) side by side in one float32 ``(n, width)``
+        tensor: what crosses to the host in one copy."""
+        actors, nstate, flat = self._collect_emit(
+            policy or self._train_policy, params, actors, nstate, collect,
+            drop=drop)
+        n = flat["obs"].shape[0]
+        return actors, nstate, torch.cat(
+            [flat[k].reshape(n, -1) for k in self.row_shapes], 1)
+
+    def host_add(self, rows: np.ndarray) -> None:
+        """``buffer.add_batch`` of ``rows`` (``rows``' layout, on the
+        host)."""
+        cols, at = {}, 0
+        for k, shape in self.row_shapes.items():
+            w = int(np.prod(shape))
+            cols[k] = rows[:, at:at + w] if shape else rows[:, at]
+            at += w
+        with annotate("repro.replay.host_add"):
+            self.buffer.add_batch(cols)
+
+    def host_sample(self, out: np.ndarray) -> np.ndarray:
+        """``buffer.sample`` of a batch from ``rng``, written into ``out``
+        (a flat float32 host array of ``batch_floats``, each field at its
+        ``batch_layout`` offset, the importance weights as ``weight``);
+        returns the sampled indices."""
+        with annotate("repro.replay.host_sample"):
+            batch, idx, weights = self.buffer.sample(self.batch_size,
+                                                     self.rng)
+        batch["weight"] = weights
+        for k, (at, shape) in self.batch_layout.items():
+            n = self.batch_size * int(np.prod(shape))
+            out[at:at + n] = batch[k].reshape(-1)
+        return idx
+
+    def host_refresh(self, idx: np.ndarray, priorities: np.ndarray) -> None:
+        """``buffer.update_priorities`` of the sampled rows."""
+        with annotate("repro.replay.host_update_prio"):
+            self.buffer.update_priorities(idx, priorities)
+
+    def batch_views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The batch fields and ``weight`` as views of ``flat``."""
+        return {k: flat[at:at + self.batch_size * int(np.prod(shape))]
+                .view(self.batch_size, *shape)
+                for k, (at, shape) in self.batch_layout.items()}
+
+    def _host_step(self, ls: TrainLoopState, draws):
+        """The host replay's superstep (the reference's ``py_step``):
+        the rows to the host, add, sample, the batch to the device, the
+        update, the priorities to the host, refresh."""
+        actors, nstate, rows = self.rows(ls.agent["params"], ls.actors,
+                                         ls.nstep, draws["collect"])
+        self.host_add(rows.cpu().numpy())
+        flat = np.empty(self.batch_floats, np.float32)
+        idx = self.host_sample(flat)
+        batch = self.batch_views(torch.from_numpy(flat).to(self.device))
+        agent, metrics = self.update_fn(ls.agent, self.acfg, batch, draws)
+        self.host_refresh(idx, metrics["priorities"].cpu().numpy())
+        ls = TrainLoopState(agent, actors, nstate, ls.replay, ls.gen,
+                            ls.step + 1)
+        return ls, metrics, batch
 
     # ------------------------------------------------------ the superstep
     def step(self, ls: TrainLoopState,
              draws: Optional[Dict[str, Any]] = None):
         """One collect -> add -> sample -> update -> refresh superstep;
-        returns ``(next state, metrics, batch)``. The replay state is
-        updated in place."""
+        returns ``(next state, metrics, batch)``. The device replay's
+        state is updated in place; a host run's buffer, tree and ``rng``
+        advance on the host, and its metrics have no staleness keys (its
+        rows carry no add step, as in the reference)."""
         if draws is None:
             draws = self.draws(ls.gen)
+        if self.host:
+            return self._host_step(ls, draws)
         actors, nstate, flat = self._collect_emit(
             self._train_policy, ls.agent["params"], ls.actors, ls.nstep,
             draws["collect"], drop=0)
@@ -541,8 +725,10 @@ class Trainer:
         if self.n_step > 1:
             nstate = nstep_init(self.n_step, self.n_actors, self.env.obs_dim,
                                 self.env.act_dim, dev)
-        return TrainLoopState(agent, actors, nstate,
-                              replay_init(self.dcfg, dev), gen,
+        # a host run's replay is the reference's int32 order token
+        replay = (torch.zeros((), dtype=torch.int32, device=dev)
+                  if self.host else replay_init(self.dcfg, dev))
+        return TrainLoopState(agent, actors, nstate, replay, gen,
                               torch.zeros((), dtype=torch.int32, device=dev))
 
     def init_template(self) -> TrainLoopState:
@@ -556,6 +742,12 @@ class Trainer:
                                   gen)
 
     def _warm_up(self, ls: TrainLoopState, draws) -> TrainLoopState:
+        if self.host:
+            actors, nstate, rows = self.rows(
+                ls.agent["params"], ls.actors, ls.nstep, draws,
+                policy=self._rand_policy, drop=self.n_step - 1)
+            self.host_add(rows.cpu().numpy())
+            return ls._replace(actors=actors, nstep=nstate)
         actors, nstate, flat = self._collect_emit(
             self._rand_policy, ls.agent["params"], ls.actors, ls.nstep,
             draws, drop=self.n_step - 1)
@@ -565,7 +757,7 @@ class Trainer:
     def init(self) -> TrainLoopState:
         """Agent/actor/replay init + the random-policy warm-up (paper
         A.4): ``max(warmup_steps // n_actors, 1, n_step)`` collect steps,
-        added to the replay as one batch."""
+        added to the replay (a host run's: ``buffer``) as one batch."""
         ls = self._fresh_state()
         return self._warm_up(ls, self._warm_draws(ls.gen))
 

@@ -22,8 +22,8 @@
   streams do, ROADMAP C4). On the card (skipped here) the graph's replays
   are bitwise the eager supersteps.
 * What the port does not have raises at once, naming its ROADMAP item
-  (also under obs and the guard, which are ported); the presets that take
-  the effective rank build a ``Trainer``.
+  (also under obs, which is ported); the presets that take the effective
+  rank build a ``Trainer``.
 """
 import jax
 import numpy as np
@@ -177,16 +177,14 @@ def test_experiment_runs_and_serves_on_cpu():
 
 
 # ids as they were when td3 (A.1, now ported) was the first case; obs
-# (A.5) and the guard (A.4) are ported, and their cases now hold that each
-# still refuses what it cannot run: a guarded host replay, obs on a mesh
+# (A.5) and the guard (A.4) are ported, and the obs case now holds that a
+# mesh still refuses with it; the host replay (A.6) is ported, its cases
+# gone with its refusal (tests/test_torch_host_replay.py trains it)
 @pytest.mark.parametrize("over,item", [
-    (dict(replay_backend="host", replay_kernel="xla"), "A.6"),
-    ({"guard.enabled": True, "replay.backend": "host",
-      "replay.kernel": "xla"}, "A.6"),
     ({"obs.enabled": True, "execution.mesh_shards": 2,
       "execution.loop": "scan"}, "A.8"),
     ({"execution.mesh_shards": 2, "execution.loop": "scan"}, "A.8")],
-    ids=["over1-A.6", "over2-guard-A.6", "over3-obs-A.8", "over4-A.8"])
+    ids=["over3-obs-A.8", "over4-A.8"])
 def test_unported_choices_raise_with_their_roadmap_item(over, item):
     spec = TSpec().override(**dict(_BASE, **over))
     with pytest.raises(UnportedError, match=item):
