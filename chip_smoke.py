@@ -66,7 +66,8 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    One tick at the most used slot is timed and traced with
    ``torch.profiler``.
 5. Training main path: the same agent with the device replay and its
-   kernels (``replay_backend="device"``, ``replay_kernel="pallas"``)
+   kernels (``replay_backend="device"``, the spec's own
+   ``replay_kernel="xla"``: the card runs the tree kernels for either)
    through ``Experiment.from_spec(spec).run``: the warm-up (9,984
    transitions), one superstep on the card against the same superstep on
    the CPU plain path (same state, same draws), then 50 supersteps with
@@ -2738,8 +2739,7 @@ def guard_rollback(spec, tmp):
     return exp, store
 
 
-def guard_supervisor(tmp, over=("replay.backend=device",
-                                 "replay.kernel=pallas"), tag="guard"):
+def guard_supervisor(tmp, over=("replay.backend=device",), tag="guard"):
     """``python -m repro_torch.guard.supervise smoke`` on the card with
     ``kill-in-save@6`` (saves every 3: the worker dies committing step 6
     and resumes from step 3) against an uninterrupted in-process card run
@@ -3036,7 +3036,7 @@ def fleet_spec():
     from repro_torch.rl import presets
     return presets.get("fig3-width").override(
         **PAPER_BUDGET, num_units=2048, replay_backend="device",
-        replay_kernel="pallas", loop="scan")
+        loop="scan")
 
 
 def param_rel_diff(fleet_params, solo_params, m=0):
@@ -3290,7 +3290,7 @@ def fleet_smoke_walls():
     from repro_torch.rl import presets
     from repro_torch.rl.experiment import Experiment
     from repro_torch.rl.sweep import Fleet
-    spec = presets.get("fleet-smoke").override(replay_kernel="pallas")
+    spec = presets.get("fleet-smoke")
     fl = Fleet([spec.override(seed=s) for s in range(FLEET_SMOKE_E)])
     fl.run(1)
     exp = Experiment.from_spec(spec)
@@ -3318,7 +3318,7 @@ def fleet_guard(tmp):
     from repro_torch.rl import presets
     from repro_torch.rl.sweep import Fleet
     spec = presets.get("fleet-smoke").override(
-        replay_kernel="pallas", prioritized=True, eval_every=8, **{
+        prioritized=True, eval_every=8, **{
             "guard.enabled": True, "guard.policy": "rollback"})
     specs = [spec.override(seed=s) for s in range(3)]
     store = DurableStore(os.path.join(tmp, "fleet-ckpts"), keep=2)
@@ -3748,8 +3748,7 @@ def main() -> int:
     serve_launches, main_slot, pol = phase_main_path(spec, acfg)
     phase_tick_profile(pol, main_slot)
 
-    train_spec = spec.override(replay_backend="device",
-                               replay_kernel="pallas")
+    train_spec = spec.override(replay_backend="device")
     exp, train_launches = phase_train(train_spec)
     profile_classes = phase_train_profile(exp)
     td3_spec = train_spec.override(algo="td3")

@@ -47,10 +47,11 @@ n-step ring, then the update.
 
 Not ported yet, and refused at construction with the ROADMAP item that
 brings it: mesh sharding.
-On the card the device replay's sum-tree runs its CUDA kernels, so a
-device run's ``replay.kernel`` must be "pallas" there (the reference's
-"xla" names its plain scatter twin, which the port runs only for tensors
-on the CPU); a host run keeps "xla", as the spec requires.
+The device replay's sum-tree runs where its tensors live: on the card its
+CUDA kernels (``csrc/replay_tree.cu``), on the CPU their plain twins, for
+either value of ``replay.kernel``. That field records which route the
+reference took (its Pallas kernel or its XLA scatter twin); the port has
+one route a device, so nothing reads it here.
 """
 from __future__ import annotations
 
@@ -442,12 +443,6 @@ class Trainer:
         self.device = resolve_device(device)
         x, r = spec.execution, spec.replay
         self.host = r.backend == "host"
-        if self.device.type == "cuda" and not self.host \
-                and r.kernel != "pallas":
-            raise UnportedError(
-                "replay.kernel='xla' on the card: the port's sum-tree on a "
-                "CUDA device is the kernel of csrc/replay_tree.cu; set "
-                "replay.kernel='pallas'")
         self.n_step = r.n_step
         self.batch_size = x.batch_size
         self.warmup_steps = x.warmup_steps

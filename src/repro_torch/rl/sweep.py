@@ -28,10 +28,11 @@ Semantics (the reference's)
 * **Device replay only**: ``replay.backend='host'`` raises (``from_grid``
   upgrades a host base with a ``SpecWarning``), as do
   ``execution.mesh_shards`` and ``guard.policy='skip'``. On the card the
-  sum-tree runs its member-axis kernels, so ``replay.kernel`` must be
-  "pallas" there (the reference's fleets require "xla" instead: ROADMAP
-  C12). ``network.block_backend='fused'`` raises ``UnportedError``: the
-  stack kernels have no member axis yet (ROADMAP A.14).
+  sum-tree runs its member-axis kernels for either ``replay.kernel``; the
+  port also accepts "pallas", which the reference's fleets reject
+  (ROADMAP C12). ``network.block_backend='fused'`` raises
+  ``UnportedError``: the stack kernels have no member axis yet (ROADMAP
+  A.14).
 * **Member k is the solo run with seed k.** Each member owns a
   ``torch.Generator`` seeded as the solo ``Trainer`` seeds it and draws
   its init, resets, warm-up and every superstep's draws from it in the
@@ -201,14 +202,7 @@ class Fleet:
                 "network.block_backend='fused' in a fleet: the stack "
                 "forward and backward kernels have no member axis yet "
                 "(ROADMAP A.14); fleets run block_backend='jnp'")
-        device = resolve_device(device)
-        if device.type == "cuda" and base.replay.kernel != "pallas":
-            raise UnportedError(
-                "replay.kernel='xla' in a fleet on the card: the fleet's "
-                "sum-tree is the member-axis kernel of "
-                "csrc/replay_tree.cu, so set replay.kernel='pallas' "
-                "(ROADMAP C12)")
-        self.trainer = Trainer(base, device)
+        self.trainer = Trainer(base, resolve_device(device))
         self.specs = specs
         self.spec = base
         self.n_members = len(specs)

@@ -20,9 +20,9 @@ reference and against its own solo runs, on the CPU.
   whole run and per-segment dispatch bitwise, the rejections (with the
   differing paths), ``from_grid``'s partition and host upgrade, and both
   ``exploit_explore`` tests. The reference rejects
-  ``replay.kernel='pallas'`` in a fleet; the port accepts it (the CPU runs
-  the plain sum-tree either way) and on a card raises for 'xla' instead
-  (ROADMAP C12).
+  ``replay.kernel='pallas'`` in a fleet; the port accepts both values (the
+  CPU runs the plain sum-tree and the card its member-axis kernels either
+  way; ROADMAP C12).
 """
 import jax
 import numpy as np
@@ -312,14 +312,21 @@ def test_fused_blocks_in_a_fleet_raise_naming_their_item():
 
 def test_pallas_kernel_fleet_is_accepted_and_xla_raises_on_cuda(monkeypatch):
     """The reference's fleets reject replay.kernel='pallas'; the port's
-    run it (the member-axis kernels on the card) and raise for 'xla' on a
-    card (ROADMAP C12)."""
-    fleet = _fleet(seeds=(0, 1), replay_kernel="pallas")
-    assert len(fleet.run(3)[0].returns) == 1
+    accept both values and run the same sum-tree for each (ROADMAP C12):
+    on the CPU the two fleets end bitwise equal, and on a card neither
+    value is refused, so building one stops only where it first needs the
+    card."""
+    fleets = [_fleet(seeds=(0, 1), replay_kernel=k)
+              for k in ("pallas", "xla")]
+    for fl in fleets:
+        assert len(fl.run(3)[0].returns) == 1
+    assert _same(fleets[0]._fls, fleets[1]._fls)
     monkeypatch.setattr(sweep_mod, "resolve_device",
                         lambda device: torch.device("cuda"))
-    with pytest.raises(UnportedError, match="C12"):
-        Fleet([_small(replay_kernel="xla")])
+    for kernel in ("pallas", "xla"):
+        with pytest.raises(RuntimeError, match="no CUDA card") as err:
+            Fleet([_small(replay_kernel=kernel)])
+        assert not isinstance(err.value, UnportedError)
 
 
 def test_shape_heterogeneous_members_are_rejected_with_paths():
