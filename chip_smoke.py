@@ -206,11 +206,33 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    its dtype (math for float32, flash for bfloat16; named) and the
    memory-efficient backend on K/V repeated to H heads outside the timed
    call; the SSD chunk in float32 and bfloat16.
-7. One JSON line of seven kernel records (the stack and tree records'
+7. The paper's figure drivers (``phase_figs``, ``[figs]`` lines; ROADMAP
+   A.10; last, because after its runs the profiler has been seen to drop
+   device kernels), with the counts set to 0 first and read at its end:
+   C14's checks (``figures.presets_smoke`` builds all 14 presets as shipped on
+   the card; ``figures.rl_distributed --steps 32`` trains the
+   ``rl-distributed`` preset as shipped, its device replay at the default
+   ``replay.kernel="xla"``, under the scan loop's graph; a fig3-width U=256
+   fleet of 2 seeds and a solo ``rl-distributed`` run, each under "xla"
+   and "pallas", bitwise one state, tree and return); every driver's
+   ``run("quick")`` at a budget cut by ``figures.common.cut_budget``
+   (``FIG_CUT``) and ``figures.width_study``, their rows printed and held
+   to the reference drivers' names and fields (``FIG_ROWS``), each
+   driver's wall; the full-width rows at the paper budget cut to 8
+   supersteps: fig3-width's U=2048 point x 5 seeds from
+   ``fig3_width.grid("paper")`` as a fleet, its wall per replay within 5%
+   of ``phase_fleet``'s in the same run, and ``fig10_full`` (the host
+   replay) through ``bench_run``; the J_Q surface (9 x 9, span 1.0,
+   ``loss_landscape_bench.surface``) of the training cell's U=2048
+   critics on a replay batch of 256, through the stack forward kernel and
+   through its plain twin on the card with the same directions, pointwise
+   within relative 1e-4.
+8. One JSON line of seven kernel records (the stack and tree records'
    ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
    the stack records' also the host replay's (``train_host``), the tree
-   records' also the fleet run's; their ``fleet`` entries the
-   member-axis launches' times), then the device line, last.
+   records' also the fleet run's, and all four ``figs``: the figure
+   phase's; their ``fleet`` entries the member-axis launches' times), then
+   the device line, last.
 """
 from __future__ import annotations
 
@@ -3279,7 +3301,7 @@ def fleet_training(gen):
     graph_device_time(exp_g, "fleet-solo", "fleet-solo-prof")
     del fl, exp, exp_g
     _free()
-    return launches
+    return launches, walls["fleet"]
 
 
 def fleet_smoke_walls():
@@ -3349,14 +3371,14 @@ def phase_fleet(gen):
     """Vmapped fleets on the card (``rl.sweep``): the member-axis tree
     kernels, the fig3-width U=2048 x 5 fleet under one CUDA graph, the
     fleet-smoke walls at E=8 and a fleet rollback. Returns the tree
-    records and the fleet run's launches."""
+    records, the fleet run's launches and its wall per replay (ms)."""
     import tempfile
     tree = phase_fleet_tree(gen)
-    launches = fleet_training(gen)
+    launches, fleet_ms = fleet_training(gen)
     fleet_smoke_walls()
     with tempfile.TemporaryDirectory() as tmp:
         fleet_guard(tmp)
-    return tree, launches
+    return tree, launches, fleet_ms
 
 
 HOST_SPANS = ("repro.replay.host_add", "repro.replay.host_sample",
@@ -3651,6 +3673,319 @@ def phase_band():
     return got
 
 
+# the figure drivers (``repro_torch.figures``, ROADMAP A.10): the row
+# names the reference's drivers emit at the quick scale (``benchmarks/``,
+# written out here: the reference is not imported), and their fields
+FIG_CUT = dict(total_steps=32, warmup_steps=16, eval_every=16,
+               eval_episodes=1)
+FIG_SOLO_FIELDS = ("name", "us_per_call", "derived", "std", "final_return",
+                   "params", "srank", "seeds")
+FIG_ROWS = {
+    "fig1_depth": ([f"fig1_depth_L{n}" for n in (1, 2, 4)], ("layers",)),
+    "fig3_width": ([f"fig3_width_U{n}" for n in (16, 64, 256)], ("units",)),
+    "fig4_grid": ([f"fig4_grid_U{u}_L{n}" for u in (32, 128)
+                   for n in (1, 4)], ("units", "layers")),
+    "fig5_connectivity": ([f"fig5_{c}_{t}" for t in ("S", "L")
+                           for c in ("mlp", "resnet", "densenet", "d2rl")],
+                          ("connectivity", "size")),
+    "fig6_ofenet": ([f"fig6_{o}_{t}" for t in ("S", "L")
+                     for o in ("scratch", "ofenet")], ("ofenet", "size")),
+    "fig8_distributed": ([f"fig8_{d}_{t}" for t in ("S", "L")
+                          for d in ("single", "apex")],
+                         ("distributed", "size")),
+    "fig10_ablation": ([f"fig10_{v}" for v in (
+        "full", "wo_apex", "wo_ofenet", "wo_larger_nn", "wo_densenet",
+        "sac_original")], ()),
+    "fig13_activation": (["fig13_swish", "fig13_relu"], ("activation",)),
+    "table1_final": ([f"table1_{e}_{a}_{k}" for e in (
+        "pendulum", "cartpole_swingup", "pointmass") for a in ("sac", "td3")
+        for k in ("ours", "orig")], ("env", "algo", "kind")),
+    "loss_landscape_bench": (["landscape_deep", "landscape_wide"], None),
+}
+FIG_FLEETS = ("fig1_depth", "fig3_width", "fig4_grid")
+FIG_PRESETS = ("fig1-depth", "fig10-ablation", "fig13-activation",
+               "fig3-width", "fig4-grid", "fig5-connectivity", "fig6-ofenet",
+               "fig8-distributed", "fleet-smoke", "quickstart",
+               "rl-distributed", "smoke", "table1-orig", "table1-ours")
+FIG_STEPS = 8       # supersteps of the full-width rows and the C14 checks
+LANDSCAPE_RES = 9   # points a side of the full-width J_Q surface
+
+
+def _fig_check(name, rows):
+    """``rows`` of driver ``name`` carry the reference's names and
+    fields, with finite returns."""
+    names, extra = FIG_ROWS[name]
+    if name == "loss_landscape_bench":
+        fields = {"name", "us_per_call", "derived", "loss_range", "return"}
+    else:
+        fields = set(FIG_SOLO_FIELDS) | set(extra)
+        if name in FIG_FLEETS:
+            fields.add("fleet")
+    got = [r["name"] for r in rows]
+    bad = [r["name"] for r in rows if set(r) != fields]
+    finite = all(math.isfinite(r["return"] if name == "loss_landscape_bench"
+                               else r["derived"]) for r in rows)
+    if got != names or bad or not finite:
+        raise AssertionError(f"{name}: rows {got} (want {names}), fields "
+                             f"wrong in {bad}, finite {finite}")
+
+
+def figs_c14():
+    """C14 on the card: every preset builds as shipped, ``rl-distributed``
+    trains as shipped through ``figures.rl_distributed``, and a fig3-width
+    fleet and a solo ``rl-distributed`` run give one state, tree and
+    return under ``replay.kernel="xla"`` and ``"pallas"``."""
+    import torch
+    from repro_torch.figures import common, fig3_width, presets_smoke, \
+        rl_distributed
+    from repro_torch.rl import presets
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state
+    from repro_torch.rl.sweep import Sweep
+    t0 = time.perf_counter()
+    rows = presets_smoke.run("quick")
+    names = tuple(r["name"][len("preset_build_"):] for r in rows)
+    if names != FIG_PRESETS:
+        raise AssertionError(f"presets_smoke built {names}")
+    log(f"[figs] c14: presets_smoke built all {len(rows)} presets on the "
+        f"card as shipped ({time.perf_counter() - t0:.1f}s), rl-distributed"
+        f" and fleet-smoke with the device replay at replay.kernel='xla'")
+    b = _counts()
+    t0 = time.perf_counter()
+    res = rl_distributed.main(["--steps", str(2 * FIG_CUT["eval_every"])])
+    torch.cuda.synchronize()
+    a = _counts()
+    n = {k: a[k] - b[k] for k in ("sample", "set")}
+    full = res["full"]
+    if n["sample"] < 1 or n["set"] < 1 or not all(
+            math.isfinite(r.max_return) for r in res.values()) \
+            or full.eval_steps != [FIG_CUT["eval_every"],
+                                   2 * FIG_CUT["eval_every"]]:
+        raise AssertionError(f"rl_distributed: launches {n}, returns "
+                             f"{[r.returns for r in res.values()]}")
+    log(f"[figs] c14: figures.rl_distributed --steps "
+        f"{2 * FIG_CUT['eval_every']} (rl-distributed as shipped: device "
+        f"replay, replay.kernel='xla', the scan loop's graph; 5 variants) in "
+        f"{time.perf_counter() - t0:.1f}s; tree launches outside the graphs"
+        f" {n}; full: returns {full.returns}, {full.param_count:,} params")
+
+    with common.cut_budget(**FIG_CUT):
+        base = fig3_width.grid("quick")[0]
+    solo_spec = presets.get("rl-distributed")
+    runs = {}
+    for kernel in ("xla", "pallas"):
+        sw = Sweep.from_grid(base.override(replay_kernel=kernel),
+                             axis={"num_units": [256]}, seeds=2)
+        sw.run(FIG_STEPS, eval_at_end=True)
+        exp = Experiment.from_spec(solo_spec.override(replay_kernel=kernel))
+        exp.run(FIG_STEPS, eval_at_end=True)
+        torch.cuda.synchronize()
+        fl = sw.fleets[0]
+        runs[kernel] = (clone_state(fl._fls), fl.returns,
+                        clone_state(exp._ls), exp.returns)
+        del sw, fl, exp
+        _free()
+    (fx, frx, sx, srx), (fp, frp, sp, srp) = runs["xla"], runs["pallas"]
+    bad = fleet_state_diff(fx, fp) + state_diff(sx, sp)
+    if bad or frx != frp or srx != srp:
+        raise AssertionError(f"replay.kernel xla vs pallas differ: {bad[:8]}"
+                             f", returns {frx} / {frp}, {srx} / {srp}")
+    log(f"[figs] c14: replay.kernel 'xla' == 'pallas' bitwise after "
+        f"{FIG_STEPS} supersteps and an eval: the fig3-width U=256 fleet of 2"
+        f" seeds ({len(_state_names(fx))} state tensors, the member-axis "
+        f"trees included, 2 generators; returns {frx}) and a solo "
+        f"rl-distributed run ({len(_state_names(sx))} tensors, the tree "
+        f"included, the generator; returns {srx})")
+    del runs
+    _free()
+
+
+def figs_drivers():
+    """Every driver's ``run("quick")`` on the card at ``FIG_CUT``, then
+    ``figures.width_study``; rows printed and checked, walls logged.
+    Returns the landscape rows."""
+    import importlib
+    import torch
+    from repro_torch.figures import common, width_study
+    walls, out = {}, None
+    with common.cut_budget(**FIG_CUT):
+        for name in FIG_ROWS:
+            mod = importlib.import_module(f"repro_torch.figures.{name}")
+            t0 = time.perf_counter()
+            rows = mod.run("quick")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            _fig_check(name, rows)
+            for r in rows:
+                log(f"[figs] {r['name']},{r['us_per_call']:.0f},"
+                    f"{r['derived']}" + ("" if "std" not in r else
+                                          f" (std {r['std']}, final "
+                                          f"{r['final_return']}, params "
+                                          f"{r['params']}, srank "
+                                          f"{r['srank']!r}, seeds "
+                                          f"{r['seeds']})"))
+            if name == "loss_landscape_bench":
+                out = rows
+            _free()
+    t0 = time.perf_counter()
+    res = width_study.main(["--steps", str(FIG_CUT["total_steps"]),
+                            "--override",
+                            f"execution.warmup_steps="
+                            f"{FIG_CUT['warmup_steps']}"])
+    torch.cuda.synchronize()
+    walls["width_study"] = time.perf_counter() - t0
+    if len(res) != 3 or not all(math.isfinite(m.result.max_return)
+                                for m in res):
+        raise AssertionError(f"width_study: {res}")
+    log(f"[figs] driver walls at total_steps={FIG_CUT['total_steps']}, "
+        f"warm-up {FIG_CUT['warmup_steps']}, eval every "
+        f"{FIG_CUT['eval_every']} (1 episode), host clock: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items())
+        + f"; all {sum(walls.values()):.1f}s")
+    return out
+
+
+def figs_full_width(fleet_ms):
+    """The two full-width rows at the paper budget, cut in supersteps:
+    fig3-width's U=2048 grid point x 5 seeds as a fleet from
+    ``fig3_width.grid("paper")`` (its replay time beside ``phase_fleet``'s
+    ``fleet_ms`` of the same spec), and ``fig10_full`` (the host replay)
+    through ``bench_run``."""
+    import torch
+    from repro_torch.figures import common, fig10_ablation, fig3_width
+    from repro_torch.rl.sweep import Sweep
+    base, units, seeds = fig3_width.grid("paper")
+    if units[-1] != 2048 or seeds != FLEET_E:
+        raise AssertionError(f"fig3 paper grid {units} x {seeds}")
+    t0 = time.perf_counter()
+    sweep = Sweep.from_grid(base, axis={"num_units": [2048]}, seeds=seeds)
+    fl = sweep.fleets[0]
+    sweep.run(1)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sweep.run(FIG_STEPS - 1, eval_at_end=True)
+    torch.cuda.synchronize()
+    row = common.fleet_rows(sweep, lambda pt: f"fig3_width_U"
+                            f"{pt['num_units']}",
+                            lambda pt: {"units": pt["num_units"]})[0]
+    if not math.isfinite(row["derived"]) or fl.step != FIG_STEPS:
+        raise AssertionError(f"fig3 U=2048 fleet row {row}")
+    walls = walls_in_turns({"figs-fleet": fl.graph}, "figs")
+    ms = walls["figs-fleet"]
+    ratio = ms / fleet_ms
+    log(f"[figs] fig3_width_U2048 x {seeds} seeds through "
+        f"fig3_width.grid('paper') + Sweep.from_grid (replay.kernel="
+        f"'{fl.spec.replay.kernel}'): init, vmapped warm-up and capture "
+        f"{t_init:.1f}s; {FIG_STEPS} supersteps + eval: row "
+        f"{row['name']},{row['us_per_call']:.0f},{row['derived']}; "
+        f"{ms:.3f} ms a replay, {ms / seeds:.3f} ms a member-superstep, "
+        f"against phase_fleet's {fleet_ms:.3f} ms in this run "
+        f"(x{ratio:.4f})")
+    if abs(ratio - 1) > 0.05:
+        raise AssertionError(f"the driver's fig3 U=2048 fleet {ms:.3f} ms a "
+                             f"replay vs phase_fleet's {fleet_ms:.3f}")
+    del sweep, fl
+    _free()
+    ov = fig10_ablation.variants("paper")["fig10_full"]
+    spec = common.make_spec("paper", "fig10-ablation", **ov).override(
+        total_steps=FIG_STEPS)
+    t0 = time.perf_counter()
+    row10 = common.bench_run("fig10_full", spec, seeds=2)
+    torch.cuda.synchronize()
+    if not math.isfinite(row10["derived"]) or spec.network.num_units != 2048:
+        raise AssertionError(f"fig10_full row {row10}")
+    log(f"[figs] fig10_full at the paper budget (U=2048, the host replay, "
+        f"{spec.replay.backend}/{spec.execution.loop}, 2 seeds, warm-up "
+        f"{spec.execution.warmup_steps}) cut to {FIG_STEPS} supersteps: "
+        f"{time.perf_counter() - t0:.1f}s, row {row10['name']},"
+        f"{row10['us_per_call']:.0f},{row10['derived']} (params "
+        f"{row10['params']:,}; us_per_call is the wall over supersteps, "
+        f"the warm-up and evals included)")
+    _free()
+    return {"fig3_ms": ms, "fleet_ms": fleet_ms, "fig3_row": row,
+            "fig10_row": row10}
+
+
+def figs_landscape(exp, landscape_rows):
+    """The J_Q surface of the training cell's critics (U=2048, fused
+    blocks) on a replay batch of 256, through the stack forward kernel and
+    through its plain twin on the card, from one seeded generator's
+    directions: held pointwise at relative 1e-4. Returns the forward
+    launches of the kernel's surface."""
+    import torch
+    from repro_torch.core.loss_landscape import sharpness
+    from repro_torch.figures import loss_landscape_bench as llb
+    from repro_torch.kernels.dense_block import stack
+    res = exp.run(1, keep_last=True)
+    torch.cuda.synchronize()
+    batch, acfg = res.last_batch, exp.trainer.acfg
+    if batch["obs"].shape[0] != 256 or acfg.block_backend != "fused":
+        raise AssertionError(f"landscape batch {batch['obs'].shape}, blocks "
+                             f"{acfg.block_backend}")
+    b = _counts()
+    t0 = time.perf_counter()
+    _, _, kern = llb.surface(res.state, batch, acfg,
+                             resolution=LANDSCAPE_RES)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    a = _counts()
+    fwd = a["fwd"] - b["fwd"]
+    real = stack._kernel_forward
+
+    def plain(x, ws, bs, connectivity, activation, *args, **kw):
+        return stack.dense_stack_ref(x, ws, bs, connectivity=connectivity,
+                                     activation=activation)
+    stack._kernel_forward = plain
+    try:
+        t0 = time.perf_counter()
+        _, _, ref = llb.surface(res.state, batch, acfg,
+                                resolution=LANDSCAPE_RES)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        stack._kernel_forward = real
+    c = _counts()
+    pts = LANDSCAPE_RES ** 2
+    rel = np.abs(kern - ref) / np.abs(ref)
+    if fwd < pts or c["fwd"] != a["fwd"] or not np.all(rel <= 1e-4) \
+            or not np.all(np.isfinite(kern)):
+        raise AssertionError(f"landscape: {fwd} forward launches, plain "
+                             f"{c['fwd'] - a['fwd']}, max rel {rel.max()}")
+    log(f"[figs] landscape: J_Q of the fig10-ablation U=2048 critics "
+        f"(fused: {fwd} stack forward launches, {fwd / pts:.0f} a point) on "
+        f"a replay batch of 256, {LANDSCAPE_RES}x{LANDSCAPE_RES} points at "
+        f"span 1.0, directions from a generator seeded "
+        f"{llb.DIRECTION_SEED}: kernel {1e3 * t_kern / pts:.3f} ms a point,"
+        f" plain twin {1e3 * t_plain / pts:.3f} (host clock, one read a "
+        f"point); pointwise |kernel - plain| / |plain| max {rel.max():.2e} "
+        f"(<= 1e-4); loss {kern.min():.4g}..{kern.max():.4g}, sharpness "
+        f"{sharpness(kern):.4f} (plain {sharpness(ref):.4f})")
+    log(f"[figs] loss_landscape_bench at the quick shapes (cut budget): "
+        + ", ".join(f"{r['name']} {r['derived']} (loss range "
+                    f"{r['loss_range']:.4g}, return {r['return']:.1f})"
+                    for r in landscape_rows)
+        + "; no ordering asserted at this budget")
+    return fwd
+
+
+def phase_figs(exp, fleet_ms):
+    """The paper's figure drivers on the card (``repro_torch.figures``):
+    C14's checks, every driver at a cut quick budget, the two full-width
+    rows, and the full-width J_Q surface through the stack forward kernel
+    against its plain twin. Returns the wrapper launches of the phase."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    figs_c14()
+    landscape_rows = figs_drivers()
+    full = figs_full_width(fleet_ms)
+    figs_landscape(exp, landscape_rows)
+    launches = _counts()
+    log(f"[figs] phase wall {time.perf_counter() - t0:.1f}s; wrapper "
+        f"launches over the phase, counted from 0: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return launches, full
+
+
 def build_all():
     """Build the six kernel libraries and the latency probe, one nvcc
     each, all at once."""
@@ -3757,7 +4092,7 @@ def main() -> int:
     phase_obs_guard(train_spec)
     host_launches, _ = phase_host(spec, train_spec)
     phase_band()
-    fleet_tree, fleet_launches = phase_fleet(gen)
+    fleet_tree, fleet_launches, fleet_ms = phase_fleet(gen)
     phase_fwd_fills(gen)
     micro_launches = phase_micro()
 
@@ -3765,6 +4100,9 @@ def main() -> int:
     bwd = phase_bwd_times(gen, profile_classes)
     tree = phase_tree_times(gen)
     new = phase_new_times(gen)
+    # last of the phases: after its ~60 runs in this process the profiler
+    # has been seen to drop device kernels (PERF.md section 7)
+    figs_launches, _ = phase_figs(exp, fleet_ms)
     r = rows[("actor", main_slot)]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -3778,7 +4116,8 @@ def main() -> int:
         launches_by_path={"serve": serve_launches,
                           "train": train_launches["fwd"],
                           "train_td3": td3_launches["fwd"],
-                          "train_host": host_launches["fwd"]},
+                          "train_host": host_launches["fwd"],
+                          "figs": figs_launches["fwd"]},
         launches_by_kernel={k: train_launches[f"fwd_{k}"]
                             for k in stack.FWD_KERNELS},
         stream_t_inits=train_launches["fwd_t"],
@@ -3794,7 +4133,8 @@ def main() -> int:
                "critic stack d0=516 U=2048 L=2, M=256: dx + dW + db",
                launches_by_path={"train": train_launches["bwd"],
                                  "train_td3": td3_launches["bwd"],
-                                 "train_host": host_launches["bwd"]}),
+                                 "train_host": host_launches["bwd"],
+                                 "figs": figs_launches["bwd"]}),
         record("tree_sample",
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
                "src/repro/kernels/replay_tree/replay_tree.py:36",
@@ -3802,7 +4142,8 @@ def main() -> int:
                "tree 2^18 nodes (capacity 100,000), B=256",
                launches_by_path={"train": train_launches["sample"],
                                  "train_td3": td3_launches["sample"],
-                                 "fleet": fleet_launches["sample"]},
+                                 "fleet": fleet_launches["sample"],
+                                 "figs": figs_launches["sample"]},
                **{k: tree["sample"][k] for k in TREE_KEYS},
                fleet=fleet_record(fleet_tree["sample"]),
                profile_ms=profile_classes[3]["sample"][0]),
@@ -3813,7 +4154,8 @@ def main() -> int:
                "tree 2^18 nodes, n=256 (the priority refresh)",
                launches_by_path={"train": train_launches["set"],
                                  "train_td3": td3_launches["set"],
-                                 "fleet": fleet_launches["set"]},
+                                 "fleet": fleet_launches["set"],
+                                 "figs": figs_launches["set"]},
                fleet=fleet_record(fleet_tree["set256"]),
                fleet_by_n={32: fleet_record(fleet_tree["set32"])},
                also_replaces="src/repro/kernels/replay_tree/"

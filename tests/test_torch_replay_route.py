@@ -5,17 +5,19 @@ XLA scatter twins. The port has one route a device: the CUDA kernels of
 ``csrc/replay_tree.cu`` for tensors on the card, their plain twins for
 tensors on the CPU, whatever the field says. So:
 
-* neither value is refused for a card, by ``Trainer`` or by ``Fleet``
-  (here the card is faked at ``resolve_device``; construction then stops
-  only where it first allocates on it);
-* on the CPU a solo run and a fleet end bitwise equal under either value;
+* neither value is refused for a card by ``Trainer`` (here the card is
+  faked at ``resolve_device``; construction then stops only where it first
+  allocates on it);
+* on the CPU a solo run ends bitwise equal under either value;
 * the presets that ship the device replay with the default "xla"
   (``rl-distributed``, ``fleet-smoke``) build and train unchanged, and so
   does ``Sweep.from_grid`` over a host preset (its upgrade keeps "xla");
 * "pallas" on the host replay stays a ``SpecError``, as in the reference.
 
-The same check on the card is ``chip_smoke.py``'s ``phase_figs``
-(``[figs] c14`` lines) and ``test_cuda_either_kernel_is_bitwise`` here.
+``Fleet`` is held to the same in ``tests/test_torch_sweep.py``
+(``test_pallas_kernel_fleet_is_accepted_and_xla_raises_on_cuda``). On the
+card: ``chip_smoke.py``'s ``phase_figs`` (``[figs] c14`` lines) and
+``test_cuda_either_kernel_is_bitwise`` here.
 """
 import warnings
 
@@ -24,7 +26,6 @@ import torch
 
 from repro_torch.rl import Fleet, Sweep, presets
 from repro_torch.rl import runner as runner_mod
-from repro_torch.rl import sweep as sweep_mod
 from repro_torch.rl.experiment import (Experiment, ExperimentSpec,
                                       SpecError, SpecWarning)
 from repro_torch.rl.runner import UnportedError, clone_state, state_leaves
@@ -66,13 +67,6 @@ def test_trainer_accepts_either_kernel_for_a_card(monkeypatch, kernel):
         _small(replay_kernel=kernel)))
 
 
-@pytest.mark.parametrize("kernel", ["xla", "pallas"])
-def test_fleet_accepts_either_kernel_for_a_card(monkeypatch, kernel):
-    monkeypatch.setattr(sweep_mod, "resolve_device",
-                        lambda device: torch.device("cuda"))
-    _builds_for_a_card(lambda: Fleet(
-        [_small(replay_kernel=kernel, seed=s) for s in (0, 1)]))
-
 
 @pytest.mark.parametrize("loop", ["python", "scan"])
 def test_solo_run_is_bitwise_under_either_kernel_on_cpu(loop):
@@ -85,14 +79,6 @@ def test_solo_run_is_bitwise_under_either_kernel_on_cpu(loop):
     assert _bitwise(states[0][0], states[1][0])
     assert states[0][1] == states[1][1]
 
-
-def test_fleet_is_bitwise_under_either_kernel_on_cpu():
-    fleets = [Fleet([_small(replay_kernel=k, seed=s) for s in (0, 1, 2)],
-                    device="cpu") for k in ("xla", "pallas")]
-    for fl in fleets:
-        fl.run(6, eval_at_end=True)
-    assert _bitwise(fleets[0]._fls, fleets[1]._fls)
-    assert fleets[0].returns == fleets[1].returns
 
 
 @pytest.mark.parametrize("name", ["rl-distributed", "fleet-smoke"])

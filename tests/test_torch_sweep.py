@@ -313,9 +313,9 @@ def test_fused_blocks_in_a_fleet_raise_naming_their_item():
 def test_pallas_kernel_fleet_is_accepted_and_xla_raises_on_cuda(monkeypatch):
     """The reference's fleets reject replay.kernel='pallas'; the port's
     accept both values and run the same sum-tree for each (ROADMAP C12):
-    on the CPU the two fleets end bitwise equal, and on a card neither
-    value is refused, so building one stops only where it first needs the
-    card."""
+    on the CPU the two fleets end bitwise equal, and neither value is
+    refused for a card (with none present, building for one stops only
+    where it first allocates on it)."""
     fleets = [_fleet(seeds=(0, 1), replay_kernel=k)
               for k in ("pallas", "xla")]
     for fl in fleets:
@@ -324,6 +324,9 @@ def test_pallas_kernel_fleet_is_accepted_and_xla_raises_on_cuda(monkeypatch):
     monkeypatch.setattr(sweep_mod, "resolve_device",
                         lambda device: torch.device("cuda"))
     for kernel in ("pallas", "xla"):
+        if torch.cuda.is_available():
+            Fleet([_small(replay_kernel=kernel)])
+            continue
         with pytest.raises(RuntimeError, match="no CUDA card") as err:
             Fleet([_small(replay_kernel=kernel)])
         assert not isinstance(err.value, UnportedError)
