@@ -178,6 +178,25 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    and kernels per replay, also for ``fleet-smoke`` at E=8; a fleet
    rollback of a poisoned member from a ``DurableStore``, its neighbours
    bitwise.
+   Fused fleets (``phase_fleet_fused``, ``[fleet-fused]``,
+   ``[fleet-fused-train]`` lines): the stack kernels with a member axis
+   at E=5 (the whole-stack kernel on ``phi_s`` and ``phi_sa`` at 256
+   rows, streaming on the actor at 1 and 32, the register tile on the
+   critic at 256, ``dense_tile.cuh`` on fig3-width's mlp actor at 256;
+   the backward of the critic and of ``phi_s``): one launch per solo
+   launch for all members, bitwise five solo launches (output,
+   pre-activations, every gradient), within 1e-4 / 1e-3 of the members
+   twin, timed beside five solo calls, the twin, the jnp fleet's
+   ``baddbmm`` products and the bound times E; the fig3-width U=2048 x 5
+   fleet with ``block_backend="fused"`` from the jnp fleet's initial
+   state, its warm-up and captured supersteps each launching one solo
+   superstep's kernels (``expected_launches``), 40 supersteps, member 0
+   against a solo fused run of seed 0 at ``SOLO_PARITY``, its walls in
+   turns with the jnp fleet's graph, CUDA-event time, idle share and
+   kernels per replay; the training cell's spec (fig10-ablation U=2048,
+   densenet, OFENet, device replay, 32 actors) as a fused fleet of 2
+   seeds, its launches at capture, 20 supersteps, its replay against two
+   solo replays in turns.
    Kernel micro-benchmark path: ``repro_torch.launch.kernels_micro.run()``
    (the fused dense, flash and SSD kernels, which no training or serving
    path runs) with every count set to 0 just before; each row must launch
@@ -230,15 +249,18 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
 8. One JSON line of seven kernel records (the stack and tree records'
    ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
    the stack records' also the host replay's (``train_host``), the tree
-   records' also the fleet run's, and all four ``figs``: the figure
-   phase's; their ``fleet`` entries the member-axis launches' times), then
-   the device line, last.
+   records' also the fleet run's, the stack records' also the fused
+   fleets' (``fleet``: fig3-width, ``fleet_train``: the training cell's
+   spec), and all four ``figs``: the figure phase's; their ``fleet``
+   entries the member-axis launches' times, ``fleet_by_shape`` every
+   member case's), then the device line, last.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1135,18 +1157,43 @@ def phase_train(spec, steps=50, warm=10):
     return exp, launches
 
 
+def _template_args(key, name):
+    """The template arguments of kernel ``name`` in a profiler kernel name
+    (``...name<a, b, ...>(...)``) as strings, or None where the name is
+    another kernel's (``dw_tile_kernel`` is not ``tile_kernel``). The
+    member kernels carry one more flag (MB) after the solo ones."""
+    i = key.find(name + "<")
+    while i > 0 and (key[i - 1].isalnum() or key[i - 1] == "_"):
+        i = key.find(name + "<", i + 1)
+    if i < 0:
+        return None
+    return [a.strip() for a in
+            key[i + len(name) + 1:key.find(">", i)].split(",")]
+
+
+def _solo_name(key):
+    """A profiler kernel name with a member kernel's name as its solo
+    kernel's (``tile_members<`` as ``tile_kernel<``, ...): the classes
+    take both."""
+    return re.sub(r"_members([<(])", r"_kernel\1", key)
+
+
 def bwd_product_class(key):
     """'dW', 'dx', 'act_grad' or None for a profiler kernel name: the
     register-tiled kernels by name (dx with the transpose of W it reads,
     act_grad with its db pass), dense_tile.cuh's by their layout template
-    arguments (TA, TW): (true, false) for dW, (false, true) for dx."""
+    arguments (TA, TW): (true, false) for dW, (false, true) for dx; member
+    kernels as their solo kernels."""
+    key = _solo_name(key)
     if "act_grad_kernel" in key or "db_sum_kernel" in key:
         return "act_grad"
-    if "dw_tile_kernel" in key or ("tile_kernel<" in key
-                                   and "true, false>" in key):
+    tile = _template_args(key, "tile_kernel")
+    layout = tile[5:7] if tile else None
+    if "dw_tile_kernel" in key or layout == ["true", "false"]:
         return "dW"
-    if "dx_tile_kernel" in key or "transpose_kernel<false>" in key or (
-            "tile_kernel<" in key and "false, true>" in key):
+    tr = _template_args(key, "transpose_kernel")
+    if "dx_tile_kernel" in key or (tr and tr[0] == "false") \
+            or layout == ["false", "true"]:
         return "dx"
     return None
 
@@ -1157,8 +1204,11 @@ def fwd_class(key):
     kernel), 'narrow' (dense_tile.cuh's forward: its layout template
     arguments are (false, false)), 'stream' (the weight-streaming kernel)
     or 'transpose' (the stream^T init, the copying case of dense_tile.cuh's
-    transpose; the backward's W^T is the other)."""
-    if "transpose_kernel<true>" in key:
+    transpose; the backward's W^T is the other); member kernels as their
+    solo kernels."""
+    key = _solo_name(key)
+    tr = _template_args(key, "transpose_kernel")
+    if tr and tr[0] == "true":
         return "transpose"
     if "whole_stack_kernel<" in key:
         return "whole"
@@ -1166,8 +1216,8 @@ def fwd_class(key):
         return "stream"
     if "fwd_tile_kernel" in key:
         return "wide"
-    if "tile_kernel<" in key and "false, false>" in key and not any(
-            t in key for t in ("dw_tile_kernel", "dx_tile_kernel")):
+    tile = _template_args(key, "tile_kernel")
+    if tile and tile[5:7] == ["false", "false"]:
         return "narrow"
     return None
 
@@ -1484,7 +1534,10 @@ def eager_profile(tr, ls, tag, steps=10):
 
 def graph_device_time(graph, tag, prof_tag, reps=10):
     """A replay's device time with the host out of its way (CUDA events,
-    the card held busy first), then the profiler's view of replays."""
+    the card held busy first), then the profiler's view of replays.
+    Returns ``{"events_ms", "wall_ms", "busy_ms", "idle", "kernels"}``
+    (idle share and kernels per replay None where the profiler saw no
+    device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     samples = []
@@ -1506,7 +1559,11 @@ def graph_device_time(graph, tag, prof_tag, reps=10):
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
     events, summed, busy_ms, classes = profile_summary(prof, reps)
     ev_ms = float(np.median(samples))
+    out = {"events_ms": ev_ms, "wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle": None, "kernels": None}
     if events and busy_ms is not None:
+        out["idle"] = 1 - busy_ms / wall_ms
+        out["kernels"] = sum(e.count for e in events) / reps
         cb, aw = classes.get("copy-back", (0, 0)), classes.get("adamw",
                                                               (0, 0))
         log(f"[{prof_tag}] {reps} replays under the profiler: "
@@ -1532,6 +1589,7 @@ def graph_device_time(graph, tag, prof_tag, reps=10):
     log(f"[{tag}] device time per replay (CUDA events, card held busy, "
         f"{reps} replays, median of 3): {ev_ms:.3f} ms "
         f"({', '.join(f'{x:.3f}' for x in samples)})")
+    return out
 
 
 def graph_checkpoint(spec, tag, whole=None):
@@ -3115,7 +3173,9 @@ def fleet_training(gen):
     graph against a solo ``Experiment`` of seed 0, its replays against
     eager vmapped supersteps, resume at a split, the done mask, and the
     walls beside the solo run's. Returns the wrapper launches counted over
-    the fleet run (init, 40 supersteps, the eval at the end)."""
+    the fleet run (init, 40 supersteps, the eval at the end), its wall per
+    replay, the fleet (its graph kept for ``phase_fleet_fused``'s walls in
+    turns) and a copy of its state after the init and warm-up."""
     import tempfile
     import torch
     from repro_torch.rl.experiment import Experiment
@@ -3290,7 +3350,7 @@ def fleet_training(gen):
     if s30_2:
         raise AssertionError(f"member 2 did not resume bit for bit: "
                              f"{s30_2[:8]}")
-    del fm, s10, s20, w40, fls0
+    del fm, s10, s20, w40
     _free()
 
     exp_g = exp.trainer.graph
@@ -3299,9 +3359,9 @@ def fleet_training(gen):
         f" ms, solo {walls['solo']:.3f} ms (x{walls['solo'] * FLEET_E / walls['fleet']:.2f})")
     graph_device_time(fl.graph, "fleet", "fleet-prof")
     graph_device_time(exp_g, "fleet-solo", "fleet-solo-prof")
-    del fl, exp, exp_g
+    del exp, exp_g
     _free()
-    return launches, walls["fleet"]
+    return launches, walls["fleet"], fl, fls0
 
 
 def fleet_smoke_walls():
@@ -3371,14 +3431,342 @@ def phase_fleet(gen):
     """Vmapped fleets on the card (``rl.sweep``): the member-axis tree
     kernels, the fig3-width U=2048 x 5 fleet under one CUDA graph, the
     fleet-smoke walls at E=8 and a fleet rollback. Returns the tree
-    records, the fleet run's launches and its wall per replay (ms)."""
+    records, the fleet run's launches, its wall per replay (ms), and the
+    fleet with a copy of its initial state (``fleet_training``'s)."""
     import tempfile
     tree = phase_fleet_tree(gen)
-    launches, fleet_ms = fleet_training(gen)
+    launches, fleet_ms, fl, fls0 = fleet_training(gen)
     fleet_smoke_walls()
     with tempfile.TemporaryDirectory() as tmp:
         fleet_guard(tmp)
-    return tree, launches, fleet_ms
+    return tree, launches, fleet_ms, (fl, fls0)
+
+
+# the member kernels' cases at E = FLEET_E, one a forward kernel of the
+# fused fleets' paths (name, connectivity, M, d0, U, L): the whole-stack
+# kernel (phi_s, phi_sa), streaming at the actor pool's rows (1 and 32),
+# the register tile (the critic), dense_tile.cuh (fig3-width's mlp actor)
+FUSED_CASES = (("phi_s", "densenet", 256, 3, 64, 4),
+               ("phi_sa", "densenet", 256, 260, 64, 4),
+               ("actor M=1", "densenet", 1, 259, 2048, 2),
+               ("actor M=32", "densenet", 32, 259, 2048, 2),
+               ("critic", "densenet", 256, 516, 2048, 2),
+               ("fig3 mlp", "mlp", 256, 3, 2048, 2))
+FUSED_BWD = ("critic", "phi_s")
+FUSED_TRAIN_E = 2        # the training cell's spec as a fleet of 2 seeds
+FUSED_TRAIN_STEPS = 20
+
+
+def members_inputs(conn, e, m, d0, u, L, gen):
+    """``stack_inputs`` of E members, stacked on a leading member axis,
+    and each member's own contiguous copies for its solo launches."""
+    import torch
+    solo = [stack_inputs(conn, L, d0, u, m, gen) for _ in range(e)]
+    x = torch.stack([s[0] for s in solo])
+    ws = [torch.stack([s[1][i] for s in solo]) for i in range(L)]
+    bs = [torch.stack([s[2][i] for s in solo]) for i in range(L)]
+    return x, ws, bs, solo
+
+
+def _library_members(x, ws, bs, conn):
+    """The jnp fleet's route for the same function: a batched product per
+    layer (``baddbmm``) and ``silu``, into a stream built once."""
+    import torch
+    import torch.nn.functional as F
+    if conn != "densenet":
+        h = x
+        for w, b in zip(ws, bs):
+            h = F.silu(torch.baddbmm(b[:, None, :], h, w))
+        return h
+    d0, u = x.shape[-1], ws[0].shape[-1]
+    stream = torch.empty((*x.shape[:-1], d0 + len(ws) * u), device="cuda")
+    stream[..., :d0].copy_(x)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        d = d0 + i * u
+        stream[..., d:d + u] = F.silu(torch.baddbmm(b[:, None, :],
+                                                    stream[..., :d], w))
+    return stream
+
+
+def fused_member_kernels(gen, e=FLEET_E):
+    """Each member-axis forward kernel at E members (``FUSED_CASES``) and
+    the backward of ``FUSED_BWD``: one launch per solo launch for all
+    members, bitwise E solo launches (output, pre-activations, every
+    gradient), within 1e-4 (forward) and 1e-3 (gradients) of the members
+    twin; then the member call's time beside E solo calls', the twin's,
+    the jnp fleet's batched products (``_library_members``) and the bound
+    times E. Returns ``{"fwd": {name: rec}, "bwd": {name: rec}}``."""
+    import torch
+    from repro_torch.kernels.dense_block import stack
+    out = {"fwd": {}, "bwd": {}}
+    for name, conn, m, d0, u, L in FUSED_CASES:
+        x, ws, bs, solo = members_inputs(conn, e, m, d0, u, L, gen)
+        zs = torch.empty((e, m, L * u), device="cuda")
+        b = _counts()
+        got = stack.dense_stack_members(x, ws, bs, connectivity=conn, zs=zs)
+        member = {k: v - b[k] for k, v in _counts().items()}
+        b = _counts()
+        want = []
+        for xe, we, be in solo:
+            z1 = torch.empty((m, L * u), device="cuda")
+            want.append((stack._kernel_forward(xe, we, be, conn, "swish",
+                                               z1), z1))
+        per_solo = {k: v - b[k] for k, v in _counts().items()}
+        torch.cuda.synchronize()
+        kinds = [k for k in stack.FWD_KERNELS if member[f"fwd_{k}"]]
+        if member["fwd"] < 1 or any(
+                per_solo[k] != e * member[k] for k in ("fwd", "fwd_t")) \
+                or not all(torch.equal(got[i], o) and torch.equal(zs[i], z)
+                           for i, (o, z) in enumerate(want)):
+            raise AssertionError(f"member forward {name}: launches "
+                                 f"{member} vs {e} solo {per_solo}, or not "
+                                 f"bitwise {e} solo launches")
+        twin = stack.dense_stack_members_ref(x, ws, bs, connectivity=conn)
+        ok, err = close_enough(got, twin)
+        if not ok:
+            raise AssertionError(f"member forward {name}: max abs err "
+                                 f"{err:.2e} vs the members twin")
+        t_m, h_m = time_ms(lambda _: stack.dense_stack_members(
+            x, ws, bs, connectivity=conn), [0])
+        t_s, _ = time_ms(lambda _: [stack.dense_stack(
+            xe, we, be, connectivity=conn) for xe, we, be in solo], [0])
+        t_p, _ = time_ms(lambda _: stack.dense_stack_members_ref(
+            x, ws, bs, connectivity=conn), [0])
+        t_l, _ = time_ms(lambda _: _library_members(x, ws, bs, conn), [0])
+        kw = sum(w[0].numel() + b_[0].numel() for w, b_ in zip(ws, bs))
+        feat = stack.feature_dim(conn, L, d0, u)
+        bound_ms, bound_by = _bound(
+            4 * e * (kw + m * d0 + m * feat),
+            2 * e * m * sum(w.shape[1] * w.shape[2] for w in ws))
+        out["fwd"][name] = dict(
+            E=e, kernels=kinds, launches=member["fwd"],
+            stream_t_inits=member["fwd_t"], ms=t_m, host_ms=h_m,
+            solo_x_e_ms=t_s, plain_ms=t_p, library_ms=t_l,
+            library="baddbmm + silu a layer (the jnp fleet's products)",
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        log(f"[fleet-fused] forward {name} ({conn}, M={m}, d0={d0}, U={u},"
+            f" L={L}; {'+'.join(kinds)}) E={e}: {member['fwd']} launches "
+            f"(+{member['fwd_t']} stream^T) for all members, {e} solo calls "
+            f"{per_solo['fwd']}; bitwise {e} solo launches (output and zs),"
+            f" max abs err vs the members twin {err:.2e}; member call "
+            f"{t_m * 1e3:.1f} us, {e} solo calls {t_s * 1e3:.1f} us "
+            f"(x{t_s / t_m:.2f}), twin {t_p * 1e3:.1f} us, baddbmm + silu "
+            f"{t_l * 1e3:.1f} us, bound x {e} {bound_ms * 1e3:.1f} us "
+            f"({bound_by}), {100 * bound_ms / t_m:.0f}% of bound")
+        if name not in FUSED_BWD:
+            continue
+        g = torch.randn(got.shape, generator=gen, device="cuda")
+        keep = got if conn == "densenet" else x
+        b = stack.bwd_launch_count()
+        grads = stack.dense_stack_members_grads(
+            x, ws, bs, g, connectivity=conn, saved=(keep, zs))
+        n_member = stack.bwd_launch_count() - b
+        flat = [grads[0], *grads[1], *grads[2]]
+        for i, ((xe, we, be), (o, z)) in enumerate(zip(solo, want)):
+            dx, dws, dbs = stack._kernel_backward(
+                (o if conn == "densenet" else xe, z), we,
+                g[i].contiguous(), conn, "swish", True, [True] * L,
+                [True] * L)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a[i], c) for a, c in
+                       zip(flat, [dx, *dws, *dbs])):
+                raise AssertionError(f"member backward {name}: member {i} "
+                                     f"not bitwise its solo launches")
+        twin_g = stack.dense_stack_members_grads_ref(
+            x, ws, bs, g, connectivity=conn, zs=zs)
+        ok, gerr = grads_close(flat, [twin_g[0], *twin_g[1], *twin_g[2]])
+        if n_member != 1 or not ok:
+            raise AssertionError(f"member backward {name}: {n_member} "
+                                 f"calls, max abs err {gerr:.2e} vs the "
+                                 f"members twin")
+        saved_solo = [((o if conn == "densenet" else xe), z, we, g[i]
+                       .contiguous()) for i, ((xe, we, _), (o, z)) in
+                      enumerate(zip(solo, want))]
+        t_bm, _ = time_ms(lambda _: stack.dense_stack_members_grads(
+            x, ws, bs, g, connectivity=conn, saved=(keep, zs)), [0])
+        t_bs, _ = time_ms(lambda _: [stack._kernel_backward(
+            (k, z), we, gi, conn, "swish", True, [True] * L, [True] * L)
+            for k, z, we, gi in saved_solo], [0])
+        t_bp, _ = time_ms(lambda _: stack.dense_stack_members_grads_ref(
+            x, ws, bs, g, connectivity=conn, zs=zs), [0])
+        kk = sum(w.shape[1] * w.shape[2] for w in ws)
+        bound_ms, bound_by = _bound(
+            4 * e * (2 * kk + L * u + m * (2 * feat + L * u + d0)),
+            4 * e * m * kk)
+        out["bwd"][name] = dict(
+            E=e, launches=n_member, ms=t_bm, solo_x_e_ms=t_bs,
+            plain_ms=t_bp, library_ms=None, bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=gerr)
+        log(f"[fleet-fused] backward {name} E={e}: one call for all "
+            f"members, bitwise {e} solo backwards (dx, every dW and db), "
+            f"max abs err vs the members twin {gerr:.2e}; member call "
+            f"{t_bm * 1e3:.1f} us, {e} solo {t_bs * 1e3:.1f} us "
+            f"(x{t_bs / t_bm:.2f}), twin {t_bp * 1e3:.1f} us, bound x {e} "
+            f"{bound_ms * 1e3:.1f} us ({bound_by})")
+        del grads, flat, twin_g, saved_solo
+    _free()
+    return out
+
+
+def _count_steps(tr, per_call):
+    """Wrap ``tr.fleet_step`` so that each call's wrapper launches are
+    appended to ``per_call``; ``del tr.fleet_step`` unwraps it."""
+    fstep = tr.fleet_step
+
+    def counted(fls, draws=None):
+        b = _counts()
+        out = fstep(fls, draws)
+        per_call.append({k: v - b[k] for k, v in _counts().items()})
+        return out
+    tr.fleet_step = counted
+
+
+def _capture_counts(tr, per_call, tag):
+    """The fleet's warm-up and captured supersteps launch what one solo
+    superstep launches (``expected_launches``): once for all members."""
+    want = expected_launches(tr)
+    keys = [k for k in want if k in per_call[0]]
+    got = [{k: c[k] for k in keys} for c in per_call]
+    if got != [{k: want[k] for k in keys}] * 2:
+        raise AssertionError(f"[{tag}] launches at the warm-up and capture "
+                             f"{got}, want one solo superstep's {want}")
+    return {k: want[k] for k in keys}
+
+
+def fused_fleet_fig3(jnp_fleet, fls0):
+    """fig3-width U=2048 x 5 seeds with fused blocks from the jnp fleet's
+    initial state (the warm-up's random policy reads no network: the same
+    state), 40 supersteps under one graph with its launches counted at
+    capture; member 0 against a solo fused run of seed 0 at SOLO_PARITY;
+    its walls in turns with the jnp fleet's graph, its device time and
+    idle share. Returns ``(launches over the run, record)``."""
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state, member_state
+    from repro_torch.rl.sweep import Fleet
+    spec = fleet_spec().override(block_backend="fused")
+    specs = [spec.override(seed=s) for s in range(FLEET_E)]
+    _reset_counts()
+    fl = Fleet(specs)
+    fl._fls = clone_state(fls0)
+    tr, per_call = fl.trainer, []
+    _count_steps(tr, per_call)
+    t0 = time.perf_counter()
+    try:
+        fl.run(1)
+        torch.cuda.synchronize()
+    finally:
+        del tr.fleet_step
+    t_cap = time.perf_counter() - t0
+    at_capture = _capture_counts(tr, per_call, "fleet-fused")
+    fl.run(FLEET_STEPS - 1)
+    torch.cuda.synchronize()
+    launches = _counts()
+    exp = Experiment.from_spec(specs[0])
+    exp._ls = clone_state(member_state(fls0, 0))
+    exp.run(FLEET_STEPS)
+    torch.cuda.synchronize()
+    rel, ratio, top = param_rel_diff(fl._fls.agent["params"],
+                                     exp._ls.agent["params"])
+    log(f"[fleet-fused] fig3-width U=2048 x {FLEET_E} seeds, fused blocks: "
+        f"capture {t_cap:.2f}s (with its eager warm-up superstep); "
+        f"launches at the warm-up and at the capture, each one solo "
+        f"superstep's (one launch a solo launch for all members): "
+        f"{at_capture}; over the run (warm-up, capture, "
+        f"{FLEET_STEPS - 1} supersteps; replays pass no wrapper) {launches};"
+        f" member 0 vs the solo fused run of seed 0 after {FLEET_STEPS} "
+        f"supersteps: largest |diff| / max|leaf| {rel:.3e} (worst {top}), "
+        f"largest |diff| / (atol + rtol |solo|) {ratio:.3f} at SOLO_PARITY "
+        f"(<= 1)")
+    if ratio > 1.0:
+        raise AssertionError(f"fused fleet member 0 outside SOLO_PARITY "
+                             f"(ratio {ratio:.3f})")
+    walls = walls_in_turns({"fused": fl.graph, "jnp": jnp_fleet.graph},
+                           "fleet-fused")
+    dev = graph_device_time(fl.graph, "fleet-fused", "fleet-fused-prof")
+    log(f"[fleet-fused] fig3 U=2048 x {FLEET_E}: fused {walls['fused']:.3f} "
+        f"ms a replay, {walls['fused'] / FLEET_E:.3f} ms a member-superstep;"
+        f" jnp {walls['jnp']:.3f} ms ({walls['jnp'] / FLEET_E:.3f}); fused "
+        f"/ jnp x{walls['fused'] / walls['jnp']:.3f}")
+    rec = dict(E=FLEET_E, replay_ms=walls["fused"],
+               member_superstep_ms=walls["fused"] / FLEET_E,
+               jnp_replay_ms=walls["jnp"], events_ms=dev["events_ms"],
+               idle=dev["idle"], kernels_per_replay=dev["kernels"],
+               solo_parity_ratio=ratio, launches_at_capture=at_capture)
+    del fl, exp
+    _free()
+    return launches, rec
+
+
+def fused_fleet_train(train_spec):
+    """The training cell's spec (fig10-ablation, U=2048 densenet, OFENet,
+    device replay, 32 actors) as a fused fleet of ``FUSED_TRAIN_E`` seeds
+    under one graph: its launches counted at capture (the whole-stack,
+    streaming and register-tile member kernels, forward and backward),
+    ``FUSED_TRAIN_STEPS`` supersteps, member 0 against the solo run of seed
+    0 (logged), and the fleet's replay beside the solo's in turns. Returns
+    ``(launches over the run, record)``."""
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state, member_state
+    from repro_torch.rl.sweep import Fleet
+    spec = train_spec.override(loop="scan")
+    _reset_counts()
+    t0 = time.perf_counter()
+    fl = Fleet([spec.override(seed=s) for s in range(FUSED_TRAIN_E)])
+    fl._ensure_init()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    exp = Experiment.from_spec(spec.override(seed=0))
+    exp._ls = clone_state(member_state(fl._fls, 0))
+    tr, per_call = fl.trainer, []
+    _count_steps(tr, per_call)
+    try:
+        fl.run(1)
+    finally:
+        del tr.fleet_step
+    at_capture = _capture_counts(tr, per_call, "fleet-fused-train")
+    fl.run(FUSED_TRAIN_STEPS - 1)
+    torch.cuda.synchronize()
+    launches = _counts()
+    exp.run(FUSED_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    rel, ratio, top = param_rel_diff(fl._fls.agent["params"],
+                                     exp._ls.agent["params"])
+    walls = walls_in_turns({"fleet": fl.graph, "solo": exp.trainer.graph},
+                           "fleet-fused-train", reps=20)
+    log(f"[fleet-fused-train] fig10-ablation U=2048 (densenet, OFENet, "
+        f"device replay, 32 actors) x {FUSED_TRAIN_E} seeds, fused: init + "
+        f"vmapped warm-up {t_init:.1f}s; launches at the warm-up and "
+        f"capture, each one solo superstep's: {at_capture}; over the run "
+        f"{launches}; member 0 vs solo after {FUSED_TRAIN_STEPS} "
+        f"supersteps: largest |diff| / max|leaf| {rel:.3e} (worst {top}), "
+        f"ratio at SOLO_PARITY {ratio:.3f} (logged); fleet "
+        f"{walls['fleet']:.3f} ms a replay against two solo replays "
+        f"{2 * walls['solo']:.3f} (x{2 * walls['solo'] / walls['fleet']:.3f}"
+        f"), {walls['fleet'] / FUSED_TRAIN_E:.3f} ms a member-superstep")
+    rec = dict(E=FUSED_TRAIN_E, replay_ms=walls["fleet"],
+               solo_replay_ms=walls["solo"], solo_parity_ratio=ratio,
+               launches_at_capture=at_capture)
+    del fl, exp
+    _free()
+    return launches, rec
+
+
+def phase_fleet_fused(gen, jnp_fleet, fls0, train_spec):
+    """Fleets with ``block_backend="fused"``: the member-axis stack kernels
+    at E=5 against five solo launches and the members twin, then the
+    fused fig3-width U=2048 x 5 fleet in turns with the jnp fleet, then the
+    training cell's spec as a fused fleet of 2 seeds. Returns the kernel
+    records, the two runs' launches and their records."""
+    t0 = time.perf_counter()
+    kernels = fused_member_kernels(gen)
+    fig3_launches, fig3 = fused_fleet_fig3(jnp_fleet, fls0)
+    train_launches, train = fused_fleet_train(train_spec)
+    log(f"[fleet-fused] phase wall {time.perf_counter() - t0:.1f}s")
+    return dict(kernels=kernels, fig3=fig3, train=train,
+                launches={"fleet": fig3_launches,
+                          "fleet_train": train_launches})
 
 
 HOST_SPANS = ("repro.replay.host_add", "repro.replay.host_sample",
@@ -4086,14 +4474,19 @@ def main() -> int:
     train_spec = spec.override(replay_backend="device")
     exp, train_launches = phase_train(train_spec)
     profile_classes = phase_train_profile(exp)
+    # early: after the fleets' runs in this process the profiler was seen
+    # to record no device kernel (PERF.md section 7)
+    phase_fwd_fills(gen)
     td3_spec = train_spec.override(algo="td3")
     td3_launches = phase_td3(td3_spec)
     phase_graph(train_spec, ckpt_specs=(td3_spec,))
     phase_obs_guard(train_spec)
     host_launches, _ = phase_host(spec, train_spec)
     phase_band()
-    fleet_tree, fleet_launches, fleet_ms = phase_fleet(gen)
-    phase_fwd_fills(gen)
+    fleet_tree, fleet_launches, fleet_ms, jnp_fleet = phase_fleet(gen)
+    fused = phase_fleet_fused(gen, *jnp_fleet, train_spec)
+    del jnp_fleet
+    _free()
     micro_launches = phase_micro()
 
     rows = phase_times(pol.params, gen)
@@ -4117,9 +4510,15 @@ def main() -> int:
                           "train": train_launches["fwd"],
                           "train_td3": td3_launches["fwd"],
                           "train_host": host_launches["fwd"],
+                          "fleet": fused["launches"]["fleet"]["fwd"],
+                          "fleet_train":
+                              fused["launches"]["fleet_train"]["fwd"],
                           "figs": figs_launches["fwd"]},
         launches_by_kernel={k: train_launches[f"fwd_{k}"]
                             for k in stack.FWD_KERNELS},
+        fleet=fused["kernels"]["fwd"]["critic"],
+        fleet_by_shape=fused["kernels"]["fwd"],
+        fleet_fig3=fused["fig3"], fleet_train=fused["train"],
         stream_t_inits=train_launches["fwd_t"],
         by_shape={f"{name} M={m}": {k: v[k] for k in keys}
                   for (name, m), v in rows.items()},
@@ -4134,7 +4533,12 @@ def main() -> int:
                launches_by_path={"train": train_launches["bwd"],
                                  "train_td3": td3_launches["bwd"],
                                  "train_host": host_launches["bwd"],
-                                 "figs": figs_launches["bwd"]}),
+                                 "fleet": fused["launches"]["fleet"]["bwd"],
+                                 "fleet_train":
+                                     fused["launches"]["fleet_train"]["bwd"],
+                                 "figs": figs_launches["bwd"]},
+               fleet=fused["kernels"]["bwd"]["critic"],
+               fleet_by_shape=fused["kernels"]["bwd"]),
         record("tree_sample",
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
                "src/repro/kernels/replay_tree/replay_tree.py:36",

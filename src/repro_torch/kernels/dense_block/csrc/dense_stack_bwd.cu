@@ -61,6 +61,16 @@
 // Split products take their tile counters from one zeroed buffer that the
 // wrapper keeps per (device, stream): every kernel here leaves the
 // counters it used at 0, so no launch fills them first.
+//
+// A fleet's E members run each launch once for all of them: the `_members`
+// entry points take the solo arguments, the member count and each
+// operand's member stride in elements (0: shared by every member) and put
+// the member on gridDim.z; a member has its own split partials and tile
+// counters (E sets), sums its splits in the solo order and resets its
+// counters, so member e is bitwise the solo launch on its operands and the
+// counters stay reusable across graph replays. The member kernels are
+// kernels of their own that take the strides as more arguments; the solo
+// kernels keep their arguments and code.
 
 #include "dense_tile.cuh"
 #include "dense_tile_rt.cuh"
@@ -93,10 +103,10 @@ constexpr int kCols = 32, kRowGroups = 8, kRows = 32, kRowBlocks = 8;
 // shared memory so both the reads and the writes are whole rows. With
 // db_part, block y writes its column sums to row y of db_part (kRowBlocks,
 // n); db_sum_kernel adds the rows in order. No block waits on another.
-__global__ void __launch_bounds__(kCols * kRowGroups)
-act_grad_kernel(const float* g, long long ldg, const float* z, long long ldz,
-                float* gz, float* gzt, long long ldgt, float* db_part, int m,
-                int n, int rows, int act) {
+__device__ __forceinline__ void act_grad_run(
+    const float* g, long long ldg, const float* z, long long ldz, float* gz,
+    float* gzt, long long ldgt, float* db_part, int m, int n, int rows,
+    int act) {
   __shared__ float tile[kRows][kCols + 1];
   __shared__ float part[kRowGroups][kCols + 1];
   const int tx = threadIdx.x % kCols, ty = threadIdx.x / kCols;
@@ -142,8 +152,30 @@ act_grad_kernel(const float* g, long long ldg, const float* z, long long ldz,
   }
 }
 
+__global__ void __launch_bounds__(kCols * kRowGroups)
+act_grad_kernel(const float* g, long long ldg, const float* z, long long ldz,
+                float* gz, float* gzt, long long ldgt, float* db_part, int m,
+                int n, int rows, int act) {
+  act_grad_run(g, ldg, z, ldz, gz, gzt, ldgt, db_part, m, n, rows, act);
+}
+
+// member blockIdx.z; sg .. sdb: the member strides of g, z, gz, gzt, db_part
+__global__ void __launch_bounds__(kCols * kRowGroups)
+act_grad_members(const float* g, long long ldg, const float* z,
+                 long long ldz, float* gz, float* gzt, long long ldgt,
+                 float* db_part, int m, int n, int rows, int act,
+                 long long sg, long long sz, long long sgz, long long sgzt,
+                 long long sdb) {
+  const long long e = blockIdx.z;
+  act_grad_run(g + e * sg, ldg, z + e * sz, ldz, gz + e * sgz,
+               gzt == nullptr ? gzt : gzt + e * sgzt, ldgt,
+               db_part == nullptr ? db_part : db_part + e * sdb, m, n, rows,
+               act);
+}
+
 // db[c] = sum of db_part[0..kRowBlocks)[c], in row order
-__global__ void db_sum_kernel(const float* db_part, float* db, int n) {
+__device__ __forceinline__ void db_sum_run(const float* db_part, float* db,
+                                           int n) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n) return;
   float s = 0.f;
@@ -152,8 +184,17 @@ __global__ void db_sum_kernel(const float* db_part, float* db, int n) {
   db[c] = s;
 }
 
-__global__ void act_kernel(const float* z, long long ldz, float* out, int m,
-                           int n, int act) {
+__global__ void db_sum_kernel(const float* db_part, float* db, int n) {
+  db_sum_run(db_part, db, n);
+}
+
+__global__ void db_sum_members(const float* db_part, float* db, int n,
+                               long long sp, long long sdb) {
+  db_sum_run(db_part + blockIdx.z * sp, db + blockIdx.z * sdb, n);
+}
+
+__device__ __forceinline__ void act_run(const float* z, long long ldz,
+                                        float* out, int m, int n, int act) {
   const long long total = static_cast<long long>(m) * n;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
@@ -161,6 +202,104 @@ __global__ void act_kernel(const float* z, long long ldz, float* out, int m,
     const long long r = e / n, c = e % n;
     out[e] = apply_act(z[r * ldz + c], act);
   }
+}
+
+__global__ void act_kernel(const float* z, long long ldz, float* out, int m,
+                           int n, int act) {
+  act_run(z, ldz, out, m, n, act);
+}
+
+__global__ void act_members(const float* z, long long ldz, float* out, int m,
+                            int n, int act, long long sz, long long so) {
+  act_run(z + blockIdx.z * sz, ldz, out + blockIdx.z * so, m, n, act);
+}
+
+// The entry points' bodies: `members` = 0 for a solo launch, else the
+// member count of one member launch, with each operand's member stride.
+
+int act_grad(const float* g, long long ldg, const float* z, long long ldz,
+             float* gz, float* gzt, long long ldgt, float* db_part, int m,
+             int n, int act, int members, long long sg, long long sz,
+             long long sgz, long long sgzt, long long sdb, void* stream) {
+  if (m <= 0 || n <= 0 || act < dense_tile::kIdentity ||
+      act > dense_tile::kSwish || (gzt != nullptr && ldgt < m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // rows per block: m over kRowBlocks blocks, in whole chunks
+  const int chunks = (m + kRows - 1) / kRows;
+  const int rows = (chunks + kRowBlocks - 1) / kRowBlocks * kRows;
+  const int cols = (n + kCols - 1) / kCols;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (members > 0)
+    act_grad_members<<<dim3(cols, kRowBlocks, members), kCols * kRowGroups,
+                       0, st>>>(g, ldg, z, ldz, gz, gzt, ldgt, db_part, m,
+                                n, rows, act, sg, sz, sgz, sgzt, sdb);
+  else
+    act_grad_kernel<<<dim3(cols, kRowBlocks), kCols * kRowGroups, 0, st>>>(
+        g, ldg, z, ldz, gz, gzt, ldgt, db_part, m, n, rows, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int db_sum(const float* db_part, float* db, int n, int members, long long sp,
+           long long sdb, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (members > 0)
+    db_sum_members<<<dim3((n + 255) / 256, 1, members), 256, 0, st>>>(
+        db_part, db, n, sp, sdb);
+  else
+    db_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>(db_part, db, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int act_out(const float* z, long long ldz, float* out, int m, int n, int act,
+            int members, long long sz, long long so, void* stream) {
+  if (m <= 0 || n <= 0 || act < dense_tile::kIdentity ||
+      act > dense_tile::kSwish)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(m) * n;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (members > 0)
+    act_members<<<dim3(blocks, 1, members), 256, 0, st>>>(z, ldz, out, m, n,
+                                                          act, sz, so);
+  else
+    act_kernel<<<blocks, 256, 0, st>>>(z, ldz, out, m, n, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bwd_gemm(int config, int ta, int tw, const float* a1, long long lda1,
+             int k1, const float* a2, long long lda2, int k2, const float* w,
+             long long ldw, float* out, long long ldo, int accumulate,
+             float* ws, int* counters, int m, int n, int splits,
+             int chunks_per_split, int members,
+             const dense_tile::TileStrides& s, void* stream) {
+  const dense_tile::TileArgs p{a1, lda1, k1, a2, lda2, k2, w, ldw, nullptr,
+                               out, ldo, nullptr, 0, ws, counters, m, n,
+                               dense_tile::kIdentity, accumulate, splits,
+                               chunks_per_split};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dense_tile::TileStrides* ms = members > 0 ? &s : nullptr;
+  if (ta && !tw)
+    return dense_tile::launch_config<true, false>(config, p, st, ms,
+                                                  members);
+  if (!ta && tw)
+    return dense_tile::launch_config<false, true>(config, p, st, ms,
+                                                  members);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int bwd_gemm_rt(int config, int dx, int vec, const float* a, long long lda,
+                const float* b, long long ldb, float* out, long long ldo,
+                const float* c, long long ldc, float* ws, int* counters,
+                int m, int n, int k, int splits, int chunks_per_split,
+                int members, const dense_tile_rt::Strides& s,
+                void* stream) {
+  const dense_tile_rt::Args p{a, lda, b, ldb, out, ldo, c, ldc, ws,
+                              counters, m, n, k, splits, chunks_per_split};
+  return dense_tile_rt::launch_config(config, dx != 0, vec, p,
+                                      static_cast<cudaStream_t>(stream),
+                                      members > 0 ? &s : nullptr, members);
 }
 
 }  // namespace
@@ -171,26 +310,35 @@ extern "C" int dense_bwd_act_grad(const float* g, long long ldg,
                                   const float* z, long long ldz, float* gz,
                                   float* gzt, long long ldgt, float* db_part,
                                   int m, int n, int act, void* stream) {
-  if (m <= 0 || n <= 0 || act < dense_tile::kIdentity ||
-      act > dense_tile::kSwish || (gzt != nullptr && ldgt < m))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // rows per block: m over kRowBlocks blocks, in whole chunks
-  const int chunks = (m + kRows - 1) / kRows;
-  const int rows = (chunks + kRowBlocks - 1) / kRowBlocks * kRows;
-  act_grad_kernel<<<dim3((n + kCols - 1) / kCols, kRowBlocks),
-                    kCols * kRowGroups, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      g, ldg, z, ldz, gz, gzt, ldgt, db_part, m, n, rows, act);
-  return static_cast<int>(cudaGetLastError());
+  return act_grad(g, ldg, z, ldz, gz, gzt, ldgt, db_part, m, n, act, 0, 0,
+                  0, 0, 0, 0, stream);
+}
+
+// (a) for `members` members in one launch; sg .. sdb: the member strides
+// of g, z, gz, gzt and db_part.
+extern "C" int dense_bwd_act_grad_members(
+    const float* g, long long ldg, const float* z, long long ldz, float* gz,
+    float* gzt, long long ldgt, float* db_part, int m, int n, int act,
+    int members, long long sg, long long sz, long long sgz, long long sgzt,
+    long long sdb, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return act_grad(g, ldg, z, ldz, gz, gzt, ldgt, db_part, m, n, act, members,
+                  sg, sz, sgz, sgzt, sdb, stream);
 }
 
 // (a), second pass: db (n,) from db_part (8, n).
 extern "C" int dense_bwd_db(const float* db_part, float* db, int n,
                             void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  db_sum_kernel<<<(n + 255) / 256, 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(db_part, db, n);
-  return static_cast<int>(cudaGetLastError());
+  return db_sum(db_part, db, n, 0, 0, 0, stream);
+}
+
+// dense_bwd_db for `members` members; sp, sdb: the member strides of
+// db_part and db.
+extern "C" int dense_bwd_db_members(const float* db_part, float* db, int n,
+                                    int members, long long sp, long long sdb,
+                                    void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return db_sum(db_part, db, n, members, sp, sdb, stream);
 }
 
 // dst (cols, rows) of row stride ldd = src (rows, cols)^T: dx's W_i^T.
@@ -202,23 +350,40 @@ extern "C" int dense_bwd_transpose(const float* src, long long lds,
                                       static_cast<cudaStream_t>(stream));
 }
 
+// dense_bwd_transpose for `members` members; ss, sd: the member strides of
+// src and dst.
+extern "C" int dense_bwd_transpose_members(const float* src, long long lds,
+                                           float* dst, long long ldd,
+                                           int rows, int cols, int members,
+                                           long long ss, long long sd,
+                                           void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return dense_tile::launch_transpose(src, lds, dst, ldd, nullptr, 0, rows,
+                                      cols,
+                                      static_cast<cudaStream_t>(stream),
+                                      members, ss, sd, 0);
+}
+
 // out (m, n) contiguous = act(z[:, :n]).
 extern "C" int dense_bwd_act(const float* z, long long ldz, float* out,
                              int m, int n, int act, void* stream) {
-  if (m <= 0 || n <= 0 || act < dense_tile::kIdentity ||
-      act > dense_tile::kSwish)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(m) * n;
-  const long long want = (total + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  act_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      z, ldz, out, m, n, act);
-  return static_cast<int>(cudaGetLastError());
+  return act_out(z, ldz, out, m, n, act, 0, 0, 0, stream);
+}
+
+// dense_bwd_act for `members` members; sz, so: the member strides of z and
+// out.
+extern "C" int dense_bwd_act_members(const float* z, long long ldz,
+                                     float* out, int m, int n, int act,
+                                     int members, long long sz, long long so,
+                                     void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return act_out(z, ldz, out, m, n, act, members, sz, so, stream);
 }
 
 // (b) and (c) at shapes below the register-tiled tile (configs 0-2): the
-// tile product out (+)= A @ W with the layouts of dense_tile.cuh; `ta` = 1 for (b) (A stored transposed), `tw` = 1 for (c)
-// (W stored transposed). No bias, identity activation.
+// tile product out (+)= A @ W with the layouts of dense_tile.cuh; `ta` = 1
+// for (b) (A stored transposed), `tw` = 1 for (c) (W stored transposed).
+// No bias, identity activation.
 extern "C" int dense_bwd_gemm(int config, int ta, int tw, const float* a1,
                               long long lda1, int k1, const float* a2,
                               long long lda2, int k2, const float* w,
@@ -226,14 +391,25 @@ extern "C" int dense_bwd_gemm(int config, int ta, int tw, const float* a1,
                               int accumulate, float* ws, int* counters,
                               int m, int n, int splits, int chunks_per_split,
                               void* stream) {
-  const dense_tile::TileArgs p{a1, lda1, k1, a2, lda2, k2, w, ldw, nullptr,
-                               out, ldo, nullptr, 0, ws, counters, m, n,
-                               dense_tile::kIdentity, accumulate, splits,
-                               chunks_per_split};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ta && !tw) return dense_tile::launch_config<true, false>(config, p, st);
-  if (!ta && tw) return dense_tile::launch_config<false, true>(config, p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_gemm(config, ta, tw, a1, lda1, k1, a2, lda2, k2, w, ldw, out,
+                  ldo, accumulate, ws, counters, m, n, splits,
+                  chunks_per_split, 0, {}, stream);
+}
+
+// dense_bwd_gemm for `members` members in one launch; sa1, sa2, sw, so:
+// the member strides of a1, a2, w and out. ws: (members, splits, m, n);
+// counters: members x tiles.
+extern "C" int dense_bwd_gemm_members(
+    int config, int ta, int tw, const float* a1, long long lda1, int k1,
+    const float* a2, long long lda2, int k2, const float* w, long long ldw,
+    float* out, long long ldo, int accumulate, float* ws, int* counters,
+    int m, int n, int splits, int chunks_per_split, int members,
+    long long sa1, long long sa2, long long sw, long long so, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_gemm(config, ta, tw, a1, lda1, k1, a2, lda2, k2, w, ldw, out,
+                  ldo, accumulate, ws, counters, m, n, splits,
+                  chunks_per_split, members, {sa1, sa2, sw, 0, so, 0},
+                  stream);
 }
 
 // (b) and (c) with the register-tiled tile of dense_tile_rt.cuh (configs
@@ -250,8 +426,23 @@ extern "C" int dense_bwd_gemm_rt(int config, int dx, int vec, const float* a,
                                  int* counters, int m, int n, int k,
                                  int splits, int chunks_per_split,
                                  void* stream) {
-  const dense_tile_rt::Args p{a, lda, b, ldb, out, ldo, c, ldc, ws,
-                              counters, m, n, k, splits, chunks_per_split};
-  return dense_tile_rt::launch_config(config, dx != 0, vec, p,
-                                      static_cast<cudaStream_t>(stream));
+  return bwd_gemm_rt(config, dx, vec, a, lda, b, ldb, out, ldo, c, ldc, ws,
+                     counters, m, n, k, splits, chunks_per_split, 0, {},
+                     stream);
+}
+
+// dense_bwd_gemm_rt for `members` members in one launch; sa, sb, so, sc:
+// the member strides of a, b (multiples of 4 where `vec` asks 16-byte
+// copies), out and c. ws: (members, splits, m, n rounded up to 4);
+// counters: members x tiles.
+extern "C" int dense_bwd_gemm_rt_members(
+    int config, int dx, int vec, const float* a, long long lda,
+    const float* b, long long ldb, float* out, long long ldo, const float* c,
+    long long ldc, float* ws, int* counters, int m, int n, int k, int splits,
+    int chunks_per_split, int members, long long sa, long long sb,
+    long long so, long long sc, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_gemm_rt(config, dx, vec, a, lda, b, ldb, out, ldo, c, ldc, ws,
+                     counters, m, n, k, splits, chunks_per_split, members,
+                     {sa, sb, so, sc}, stream);
 }

@@ -87,6 +87,17 @@
 // TF32 or bf16 through the tensor cores would miss the 1e-4 agreement with
 // the fp32 reference; split-precision TF32 (3xTF32, fused_dense.cu) would
 // not, and is the route past this SIMT design (ROADMAP.md B).
+//
+// A fleet's E members (rl/sweep.py: a vmapped superstep) run each of these
+// kernels in ONE launch: the `_members` entry points take the solo
+// arguments, the member count and each operand's member stride in elements
+// (0 for an operand every member shares, such as a weight a fleet does not
+// batch), and launch the solo grid with gridDim.z = E. Member e's blocks
+// offset their operands by e times the strides, own the e-th set of split
+// partials and tile counters, and run the solo launch's arithmetic:
+// member e is bitwise the solo launch on its operands. The member kernels
+// are kernels of their own that take the strides as one more argument;
+// the solo kernels keep their arguments and code.
 
 #include "dense_tile.cuh"
 #include "dense_tile_rt.cuh"
@@ -175,6 +186,26 @@ fwd_tile_kernel(const dense_tile_rt::Args p, const FwdEpi epi) {
   dense_tile_rt::tile_body<kRtM, kRtN, true, VB>(p, epi);
 }
 
+// the epilogue's member strides in elements
+struct EpiStrides {
+  long long bias, z, y, yt;
+};
+
+// member blockIdx.z: its operands (s), its epilogue's (es)
+template <bool VB>
+__global__ void __launch_bounds__(dense_tile_rt::kThreads, 3)
+fwd_tile_members(const dense_tile_rt::Args p, const FwdEpi epi,
+                 const dense_tile_rt::Strides s, const EpiStrides es) {
+  const long long e = blockIdx.z;
+  FwdEpi q = epi;
+  q.bias += e * es.bias;
+  if (q.z != nullptr) q.z += e * es.z;
+  q.y += e * es.y;
+  if (q.yt != nullptr) q.yt += e * es.yt;
+  dense_tile_rt::tile_body<kRtM, kRtN, true, VB>(
+      dense_tile_rt::at_member(p, s), q);
+}
+
 // ---- M <= 32: the weight-streaming kernel ---------------------------------
 
 namespace streaming {
@@ -208,12 +239,34 @@ struct Args {
   int m, n, act, splits, rows_per_split;
 };
 
+// a member launch's strides in elements (0: shared by every member)
+struct Strides {
+  long long a1, a2, w, b, out, z, acopy;
+};
+
+// the arguments of member blockIdx.z: its operands, its own split partials
+// (rows of n rounded up to 4) and its own strip counters
+__device__ __forceinline__ Args at_member(Args p, const Strides& s) {
+  const long long e = blockIdx.z;
+  p.a1 += e * s.a1;
+  if (p.a2 != nullptr) p.a2 += e * s.a2;
+  p.w += e * s.w;
+  p.b += e * s.b;
+  p.out += e * s.out;
+  if (p.zout != nullptr) p.zout += e * s.z;
+  if (p.acopy != nullptr) p.acopy += e * s.acopy;
+  if (p.ws != nullptr)
+    p.ws += e * p.splits * static_cast<long long>(p.m) * ((p.n + 3) & ~3);
+  if (p.counters != nullptr) p.counters += e * gridDim.x;
+  return p;
+}
+
 // ROWS: M rounded up to a power of two (1..32). A warp owns MR rows (up to
 // 8) of one of RG row groups and, in each ring stage, the stage's rows kg,
 // kg + KG, .. for its K part kg of KG = 8 / RG. VW: W takes 16-byte copies
 // (n and ldw multiples of 4, w 16-byte aligned).
 template <int ROWS, bool VW>
-__global__ void __launch_bounds__(kThreads, 2) stream_kernel(const Args p) {
+__device__ __forceinline__ void stream_run(const Args& p) {
   constexpr int MR = ROWS < 8 ? ROWS : 8;
   constexpr int RG = ROWS / MR, KG = kWarps / RG;
   constexpr int LDA = ROWS < 4 ? ROWS : ROWS + 4;   // 16-byte rows of As
@@ -421,8 +474,29 @@ __global__ void __launch_bounds__(kThreads, 2) stream_kernel(const Args p) {
   if (tid == 0) p.counters[strip] = 0;      // leave the counters reusable
 }
 
+template <int ROWS, bool VW>
+__global__ void __launch_bounds__(kThreads, 2) stream_kernel(const Args p) {
+  stream_run<ROWS, VW>(p);
+}
+
+template <int ROWS, bool VW>
+__global__ void __launch_bounds__(kThreads, 2)
+stream_members(const Args p, const Strides s) {
+  stream_run<ROWS, VW>(at_member(p, s));
+}
+
+// with `s`, one launch of stream_members for `members` members
 template <int ROWS>
-int launch(bool vec_w, const Args& p, cudaStream_t stream) {
+int launch(bool vec_w, const Args& p, cudaStream_t stream,
+           const Strides* s = nullptr, int members = 0) {
+  if (s != nullptr) {
+    const dim3 grid((p.n + kCols - 1) / kCols, p.splits, members);
+    if (vec_w)
+      return launch_pdl(stream_members<ROWS, true>, grid, dim3(kThreads),
+                        stream, p, *s);
+    return launch_pdl(stream_members<ROWS, false>, grid, dim3(kThreads),
+                      stream, p, *s);
+  }
   const dim3 grid((p.n + kCols - 1) / kCols, p.splits);
   if (vec_w)
     return launch_pdl(stream_kernel<ROWS, true>, grid, dim3(kThreads),
@@ -457,6 +531,12 @@ struct Args {
   int m, d0, u, layers, act;
 };
 
+// a member launch's strides in elements (0: shared by every member)
+struct Strides {
+  long long x, out, zs;
+  long long w[kMaxLayers], b[kMaxLayers];
+};
+
 // bytes of dynamic shared memory at R rows a block and UC columns a ring
 // row: the stream's rows transposed (the last layer's output is read by no
 // layer: not kept), the ring, the K groups' sums (stack.py's whole_smem)
@@ -467,10 +547,16 @@ __host__ __device__ inline int smem_bytes(int rows, int uc, int d0, int u,
 }
 
 // R rows a block (a multiple of 4); UC: U rounded up to 64 or 128, one
-// column a thread, kThreads / UC K groups; VW: W takes 16-byte copies.
-template <int R, int UC, bool VW>
-__global__ void __launch_bounds__(kThreads)
-whole_stack_kernel(const __grid_constant__ Args p) {
+// column a thread, kThreads / UC K groups; VW: W takes 16-byte copies; MB:
+// member blockIdx.z of a member launch, its operands at the strides `s`
+// (not read in a solo launch, whose offsets are 0 and fold away).
+template <int R, int UC, bool VW, bool MB>
+__device__ __forceinline__ void whole_run(const Args& p, const Strides* s) {
+  const long long mem = MB ? static_cast<long long>(blockIdx.z) : 0;
+  const float* const x = p.x + (MB ? mem * s->x : 0);
+  float* const out = p.out + (MB ? mem * s->out : 0);
+  float* const zs =
+      MB && p.zs != nullptr ? p.zs + mem * s->zs : p.zs;
   constexpr int KG = kThreads / UC;
   constexpr int STAGE = kChunk * UC;
   static_assert(R % 4 == 0 && STAGE % (4 * kThreads) == 0, "float4 tiles");
@@ -493,7 +579,8 @@ whole_stack_kernel(const __grid_constant__ Args p) {
     if (cl < p.layers) {
       const int k_l = p.d0 + cl * p.u;
       const int kb = min(kChunk, k_l - ck);
-      const float* w = p.w[cl] + static_cast<long long>(ck) * p.u;
+      const float* w = p.w[cl] + (MB ? mem * s->w[cl] : 0) +
+                       static_cast<long long>(ck) * p.u;
       float* dst = ring + cs * STAGE;
       if constexpr (VW) {
 #pragma unroll
@@ -501,7 +588,7 @@ whole_stack_kernel(const __grid_constant__ Args p) {
           const int e = tid + j * kThreads;
           const int kk = e / (UC / 4), col = (e % (UC / 4)) * 4;
           const bool in = kk < kb && col < p.u;
-          cp_async16(dst + kk * UC + col, in ? w + kk * p.u + col : p.x,
+          cp_async16(dst + kk * UC + col, in ? w + kk * p.u + col : x,
                      in ? 16 : 0);
         }
       } else {
@@ -510,7 +597,7 @@ whole_stack_kernel(const __grid_constant__ Args p) {
           const int e = tid + j * kThreads;
           const int kk = e / UC, col = e % UC;
           const bool in = kk < kb && col < p.u;
-          cp_async4(dst + kk * UC + col, in ? w + kk * p.u + col : p.x,
+          cp_async4(dst + kk * UC + col, in ? w + kk * p.u + col : x,
                     in ? 4 : 0);
         }
       }
@@ -532,8 +619,8 @@ whole_stack_kernel(const __grid_constant__ Args p) {
     const int r = e / p.d0, k = e % p.d0;
     float v = 0.f;
     if (r < rows) {
-      v = p.x[(row0 + r) * p.ldx + k];
-      p.out[(row0 + r) * p.ldo + k] = v;
+      v = x[(row0 + r) * p.ldx + k];
+      out[(row0 + r) * p.ldo + k] = v;
     }
     S[k * R + r] = v;
   }
@@ -584,7 +671,7 @@ whole_stack_kernel(const __grid_constant__ Args p) {
 #pragma unroll
     for (int r = 0; r < R; ++r) red[(kg * R + r) * UC + c] = acc[r];
     __syncthreads();
-    const float* bias = p.b[i];
+    const float* bias = p.b[i] + (MB ? mem * s->b[i] : 0);
     for (int e = tid; e < R * UC; e += kThreads) {
       const int r = e / UC, cc = e % UC;
       if (cc >= p.u) continue;
@@ -595,8 +682,8 @@ whole_stack_kernel(const __grid_constant__ Args p) {
       const float y = apply_act(z, p.act);
       if (i + 1 < p.layers) S[(k_i + cc) * R + r] = y;
       if (r < rows) {
-        if (p.zs != nullptr) p.zs[(row0 + r) * p.ldz + i * p.u + cc] = z;
-        p.out[(row0 + r) * p.ldo + k_i + cc] = y;
+        if (zs != nullptr) zs[(row0 + r) * p.ldz + i * p.u + cc] = z;
+        out[(row0 + r) * p.ldo + k_i + cc] = y;
       }
     }
     // no barrier here: the next layer's first chunk begins with one, and
@@ -605,17 +692,26 @@ whole_stack_kernel(const __grid_constant__ Args p) {
   cp_async_wait<0>();                       // only empty groups are left
 }
 
-// a programmatic dependent launch, as dense_tile.cuh's launch_pdl, with
-// dynamic shared memory
 template <int R, int UC, bool VW>
-int launch(const Args& p, int smem, cudaStream_t stream) {
-  // once per instantiation (thread-safe static initialisation)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      whole_stack_kernel<R, UC, VW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+__global__ void __launch_bounds__(kThreads)
+whole_stack_kernel(const __grid_constant__ Args p) {
+  whole_run<R, UC, VW, false>(p, nullptr);
+}
+
+template <int R, int UC, bool VW>
+__global__ void __launch_bounds__(kThreads)
+whole_stack_members(const __grid_constant__ Args p,
+                    const __grid_constant__ Strides s) {
+  whole_run<R, UC, VW, true>(p, &s);
+}
+
+// a programmatic dependent launch, as dense_tile.cuh's launch_pdl, with
+// dynamic shared memory; `args` the kernel's
+template <typename... Params, typename... A>
+int launch_smem(void (*kernel)(Params...), dim3 grid, int smem,
+                cudaStream_t stream, const A&... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.m + R - 1) / R);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -624,23 +720,179 @@ int launch(const Args& p, int smem, cudaStream_t stream) {
   at.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &at;
   cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, whole_stack_kernel<R, UC, VW>, p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   cudaGetLastError();                       // returned here, not kept
   return static_cast<int>(err);
 }
 
+// with `s`, one launch of whole_stack_members for `members` members
+template <int R, int UC, bool VW>
+int launch(const Args& p, int smem, cudaStream_t stream,
+           const Strides* s = nullptr, int members = 0) {
+  // once per instantiation (thread-safe static initialisation)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      whole_stack_kernel<R, UC, VW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (s == nullptr)
+    return launch_smem(whole_stack_kernel<R, UC, VW>,
+                       dim3((p.m + R - 1) / R), smem, stream, p);
+  static const cudaError_t attr_m = cudaFuncSetAttribute(
+      whole_stack_members<R, UC, VW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr_m != cudaSuccess) return static_cast<int>(attr_m);
+  return launch_smem(whole_stack_members<R, UC, VW>,
+                     dim3((p.m + R - 1) / R, 1, members), smem, stream, p,
+                     *s);
+}
+
 template <int R>
 int launch_rows(bool vw, int uc, const Args& p, int smem,
-                cudaStream_t stream) {
+                cudaStream_t stream, const Strides* s, int members) {
   if (uc == 64)
-    return vw ? launch<R, 64, true>(p, smem, stream)
-              : launch<R, 64, false>(p, smem, stream);
-  return vw ? launch<R, 128, true>(p, smem, stream)
-            : launch<R, 128, false>(p, smem, stream);
+    return vw ? launch<R, 64, true>(p, smem, stream, s, members)
+              : launch<R, 64, false>(p, smem, stream, s, members);
+  return vw ? launch<R, 128, true>(p, smem, stream, s, members)
+            : launch<R, 128, false>(p, smem, stream, s, members);
 }
 
 }  // namespace whole
+
+}  // namespace
+
+namespace {
+
+// The entry points' bodies: `members` = 0 for a solo launch, else the
+// member count of one member launch, each operand's member stride in
+// elements beside it (16-byte copies need it a multiple of 4).
+
+bool member_aligned(const void* p, long long ld, long long s) {
+  return aligned16(p, ld) && (s & 3) == 0;
+}
+
+int layer_fwd(int config, const float* a1, long long lda1, int k1,
+              const float* a2, long long lda2, int k2, const float* w,
+              const float* b, float* out, long long ldo, float* zout,
+              long long ldz, float* ws, int* counters, int m, int n, int act,
+              int splits, int chunks_per_split, int members,
+              const dense_tile::TileStrides& s, void* stream) {
+  const dense_tile::TileArgs p{a1, lda1, k1, a2, lda2, k2, w, n, b, out,
+                               ldo, zout, ldz, ws, counters, m, n, act,
+                               0, splits, chunks_per_split};
+  if (config != 2 || b == nullptr || !dense_tile::args_ok(p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dense_tile::launch<64, 64, 16, 4, 4, false, false>(
+      p, static_cast<cudaStream_t>(stream), /*pdl=*/true,
+      members > 0 ? &s : nullptr, members);
+}
+
+int layer_fwd_rt(int config, int vec_w, const float* at, long long ldat,
+                 const float* w, long long ldw, const float* b, float* y,
+                 long long ldy, float* zout, long long ldz, float* yt,
+                 long long ldt, float* ws, int* counters, int m, int n, int k,
+                 int act, int splits, int chunks_per_split, int members,
+                 const dense_tile_rt::Strides& s, const EpiStrides& es,
+                 void* stream) {
+  const dense_tile_rt::Args p{at, ldat, w, ldw, nullptr, 0, nullptr, 0,
+                              ws, counters, m, n, k, splits,
+                              chunks_per_split};
+  const int vec = 1 | (vec_w ? 2 : 0);
+  if (config != 4 || !dense_tile_rt::args_ok(p, vec) ||
+      !dense_tile_rt::strides_ok(s, vec) || b == nullptr || y == nullptr ||
+      act < dense_tile::kIdentity || act > dense_tile::kSwish ||
+      (yt != nullptr && !member_aligned(yt, ldt, es.yt)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdEpi epi{b, zout, ldz, y, ldy, yt, ldt, m, n, act,
+                   zout != nullptr && member_aligned(zout, ldz, es.z),
+                   member_aligned(y, ldy, es.y), yt != nullptr};
+  const dim3 grid(((m + kRtM - 1) / kRtM) * ((n + kRtN - 1) / kRtN), splits,
+                  members > 0 ? members : 1);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = dense_tile_rt::kThreads;
+  if (members > 0 && vec_w != 0)
+    fwd_tile_members<true><<<grid, threads, 0, st>>>(p, epi, s, es);
+  else if (members > 0)
+    fwd_tile_members<false><<<grid, threads, 0, st>>>(p, epi, s, es);
+  else if (vec_w != 0)
+    fwd_tile_kernel<true><<<grid, threads, 0, st>>>(p, epi);
+  else
+    fwd_tile_kernel<false><<<grid, threads, 0, st>>>(p, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int layer_fwd_stream(int vec_w, const float* a1, long long lda1, int k1,
+                     const float* a2, long long lda2, int k2, const float* w,
+                     long long ldw, const float* b, float* out, long long ldo,
+                     float* zout, long long ldz, float* acopy, long long ldac,
+                     float* ws, int* counters, int m, int n, int act,
+                     int splits, int rows_per_split, int members,
+                     const streaming::Strides& s, void* stream) {
+  const int k = k1 + k2;
+  if (m <= 0 || m > 32 || n <= 0 || k1 <= 0 || k2 < 0 || b == nullptr ||
+      splits < 1 || rows_per_split < 1 ||
+      rows_per_split > streaming::kMaxK ||
+      (splits - 1) * rows_per_split >= k || splits * rows_per_split < k ||
+      act < dense_tile::kIdentity || act > dense_tile::kSwish ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+      (vec_w && ((n & 3) != 0 || !member_aligned(w, ldw, s.w))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const streaming::Args p{a1, lda1, k1, a2, lda2, k2, w, ldw, b, out, ldo,
+                          zout, ldz, acopy, ldac, ws, counters, m, n, act,
+                          splits, rows_per_split};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v = vec_w != 0;
+  const streaming::Strides* ms = members > 0 ? &s : nullptr;
+  if (m <= 1) return streaming::launch<1>(v, p, st, ms, members);
+  if (m <= 2) return streaming::launch<2>(v, p, st, ms, members);
+  if (m <= 4) return streaming::launch<4>(v, p, st, ms, members);
+  if (m <= 8) return streaming::launch<8>(v, p, st, ms, members);
+  if (m <= 16) return streaming::launch<16>(v, p, st, ms, members);
+  return streaming::launch<32>(v, p, st, ms, members);
+}
+
+int stack_fwd_whole(int rows, int vec_w, const float* x, long long ldx,
+                    int layers, const long long* w_ptrs,
+                    const long long* b_ptrs, int d0, int u, float* out,
+                    long long ldo, float* zs, long long ldz, int m, int act,
+                    int members, const whole::Strides& s, void* stream) {
+  if (m <= 0 || d0 <= 0 || u <= 0 || u > 128 || layers < 1 ||
+      layers > whole::kMaxLayers || x == nullptr || out == nullptr ||
+      ldx < d0 || ldo < d0 + layers * u ||
+      (zs != nullptr && ldz < layers * u) || act < dense_tile::kIdentity ||
+      act > dense_tile::kSwish || (vec_w && (u & 3) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int uc = u <= 64 ? 64 : 128;
+  const int smem = whole::smem_bytes(rows, uc, d0, u, layers);
+  if (smem > whole::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  whole::Args p{};
+  p.x = x;
+  p.ldx = ldx;
+  for (int i = 0; i < layers; ++i) {
+    p.w[i] = reinterpret_cast<const float*>(w_ptrs[i]);
+    p.b[i] = reinterpret_cast<const float*>(b_ptrs[i]);
+    if (p.w[i] == nullptr || p.b[i] == nullptr ||
+        (vec_w && !member_aligned(p.w[i], u, s.w[i])))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.out = out;
+  p.ldo = ldo;
+  p.zs = zs;
+  p.ldz = ldz;
+  p.m = m;
+  p.d0 = d0;
+  p.u = u;
+  p.layers = layers;
+  p.act = act;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v = vec_w != 0;
+  const whole::Strides* ms = members > 0 ? &s : nullptr;
+  switch (rows) {
+    case 4: return whole::launch_rows<4>(v, uc, p, smem, st, ms, members);
+    case 8: return whole::launch_rows<8>(v, uc, p, smem, st, ms, members);
+    case 16: return whole::launch_rows<16>(v, uc, p, smem, st, ms, members);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
@@ -655,13 +907,25 @@ extern "C" int dense_layer_fwd(int config, const float* a1, long long lda1,
                                float* ws, int* counters, int m, int n,
                                int act, int splits, int chunks_per_split,
                                void* stream) {
-  const dense_tile::TileArgs p{a1, lda1, k1, a2, lda2, k2, w, n, b, out,
-                               ldo, zout, ldz, ws, counters, m, n, act,
-                               0, splits, chunks_per_split};
-  if (config != 2 || b == nullptr || !dense_tile::args_ok(p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dense_tile::launch<64, 64, 16, 4, 4, false, false>(
-      p, static_cast<cudaStream_t>(stream), /*pdl=*/true);
+  return layer_fwd(config, a1, lda1, k1, a2, lda2, k2, w, b, out, ldo, zout,
+                   ldz, ws, counters, m, n, act, splits, chunks_per_split, 0,
+                   {}, stream);
+}
+
+// dense_layer_fwd for `members` members in one launch; sa1 .. sz: the
+// member strides of a1, a2, w, b, out, zout. ws: (members, splits, m, n);
+// counters: members x tiles.
+extern "C" int dense_layer_fwd_members(
+    int config, const float* a1, long long lda1, int k1, const float* a2,
+    long long lda2, int k2, const float* w, const float* b, float* out,
+    long long ldo, float* zout, long long ldz, float* ws, int* counters,
+    int m, int n, int act, int splits, int chunks_per_split, int members,
+    long long sa1, long long sa2, long long sw, long long sb, long long so,
+    long long sz, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return layer_fwd(config, a1, lda1, k1, a2, lda2, k2, w, b, out, ldo, zout,
+                   ldz, ws, counters, m, n, act, splits, chunks_per_split,
+                   members, {sa1, sa2, sw, sb, so, sz}, stream);
 }
 
 // The register tile (config 4, 128x64): y (m, n) = act(at^T @ w + b) over
@@ -677,23 +941,26 @@ extern "C" int dense_layer_fwd_rt(int config, int vec_w, const float* at,
                                   int* counters, int m, int n, int k,
                                   int act, int splits, int chunks_per_split,
                                   void* stream) {
-  const dense_tile_rt::Args p{at, ldat, w, ldw, nullptr, 0, nullptr, 0,
-                              ws, counters, m, n, k, splits,
-                              chunks_per_split};
-  if (config != 4 || !dense_tile_rt::args_ok(p, 1 | (vec_w ? 2 : 0)) ||
-      b == nullptr || y == nullptr || act < dense_tile::kIdentity ||
-      act > dense_tile::kSwish || (yt != nullptr && !aligned16(yt, ldt)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FwdEpi epi{b, zout, ldz, y, ldy, yt, ldt, m, n, act,
-                   zout != nullptr && aligned16(zout, ldz),
-                   aligned16(y, ldy), yt != nullptr};
-  const dim3 grid(((m + kRtM - 1) / kRtM) * ((n + kRtN - 1) / kRtN), splits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec_w != 0)
-    fwd_tile_kernel<true><<<grid, dense_tile_rt::kThreads, 0, st>>>(p, epi);
-  else
-    fwd_tile_kernel<false><<<grid, dense_tile_rt::kThreads, 0, st>>>(p, epi);
-  return static_cast<int>(cudaGetLastError());
+  return layer_fwd_rt(config, vec_w, at, ldat, w, ldw, b, y, ldy, zout, ldz,
+                      yt, ldt, ws, counters, m, n, k, act, splits,
+                      chunks_per_split, 0, {}, {}, stream);
+}
+
+// dense_layer_fwd_rt for `members` members in one launch; sat .. syt: the
+// member strides of at, w, b, y, zout, yt (at's and yt's multiples of 4).
+// ws: (members, splits, m, n rounded up to 4); counters: members x tiles.
+extern "C" int dense_layer_fwd_rt_members(
+    int config, int vec_w, const float* at, long long ldat, const float* w,
+    long long ldw, const float* b, float* y, long long ldy, float* zout,
+    long long ldz, float* yt, long long ldt, float* ws, int* counters, int m,
+    int n, int k, int act, int splits, int chunks_per_split, int members,
+    long long sat, long long sw, long long sb, long long sy, long long sz,
+    long long syt, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return layer_fwd_rt(config, vec_w, at, ldat, w, ldw, b, y, ldy, zout, ldz,
+                      yt, ldt, ws, counters, m, n, k, act, splits,
+                      chunks_per_split, members, {sat, sw, 0, 0},
+                      {sb, sz, sy, syt}, stream);
 }
 
 // The weight-streaming kernel (config 5), m <= 32: out[:, :n] = act([a1 |
@@ -712,26 +979,28 @@ extern "C" int dense_layer_fwd_stream(int vec_w, const float* a1,
                                       int* counters, int m, int n, int act,
                                       int splits, int rows_per_split,
                                       void* stream) {
-  const int k = k1 + k2;
-  if (m <= 0 || m > 32 || n <= 0 || k1 <= 0 || k2 < 0 || b == nullptr ||
-      splits < 1 || rows_per_split < 1 ||
-      rows_per_split > streaming::kMaxK ||
-      (splits - 1) * rows_per_split >= k || splits * rows_per_split < k ||
-      act < dense_tile::kIdentity || act > dense_tile::kSwish ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)) ||
-      (vec_w && ((n & 3) != 0 || !aligned16(w, ldw))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const streaming::Args p{a1, lda1, k1, a2, lda2, k2, w, ldw, b, out, ldo,
-                          zout, ldz, acopy, ldac, ws, counters, m, n, act,
-                          splits, rows_per_split};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool v = vec_w != 0;
-  if (m <= 1) return streaming::launch<1>(v, p, st);
-  if (m <= 2) return streaming::launch<2>(v, p, st);
-  if (m <= 4) return streaming::launch<4>(v, p, st);
-  if (m <= 8) return streaming::launch<8>(v, p, st);
-  if (m <= 16) return streaming::launch<16>(v, p, st);
-  return streaming::launch<32>(v, p, st);
+  return layer_fwd_stream(vec_w, a1, lda1, k1, a2, lda2, k2, w, ldw, b, out,
+                          ldo, zout, ldz, acopy, ldac, ws, counters, m, n,
+                          act, splits, rows_per_split, 0, {}, stream);
+}
+
+// dense_layer_fwd_stream for `members` members in one launch; sa1 .. sac:
+// the member strides of a1, a2, w (a multiple of 4 with vec_w), b, out,
+// zout, acopy. ws: (members, splits, m, n rounded up to 4); counters:
+// members x strips.
+extern "C" int dense_layer_fwd_stream_members(
+    int vec_w, const float* a1, long long lda1, int k1, const float* a2,
+    long long lda2, int k2, const float* w, long long ldw, const float* b,
+    float* out, long long ldo, float* zout, long long ldz, float* acopy,
+    long long ldac, float* ws, int* counters, int m, int n, int act,
+    int splits, int rows_per_split, int members, long long sa1,
+    long long sa2, long long sw, long long sb, long long so, long long sz,
+    long long sac, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return layer_fwd_stream(vec_w, a1, lda1, k1, a2, lda2, k2, w, ldw, b, out,
+                          ldo, zout, ldz, acopy, ldac, ws, counters, m, n,
+                          act, splits, rows_per_split, members,
+                          {sa1, sa2, sw, sb, so, sz, sac}, stream);
 }
 
 // dst (rows, cols) = src and dst_t (cols, rows) = src^T: x into the stream
@@ -744,6 +1013,20 @@ extern "C" int dense_fwd_stream_init(const float* src, long long lds,
   return dense_tile::launch_transpose(src, lds, dst_t, ldt, dst, ldd, rows,
                                       cols,
                                       static_cast<cudaStream_t>(stream));
+}
+
+// dense_fwd_stream_init for `members` members in one launch; ss, sd, st:
+// the member strides of src, dst and dst_t.
+extern "C" int dense_fwd_stream_init_members(
+    const float* src, long long lds, float* dst, long long ldd, float* dst_t,
+    long long ldt, int rows, int cols, int members, long long ss,
+    long long sd, long long st, void* stream) {
+  if (dst == nullptr || members < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dense_tile::launch_transpose(src, lds, dst_t, ldt, dst, ldd, rows,
+                                      cols,
+                                      static_cast<cudaStream_t>(stream),
+                                      members, ss, st, sd);
 }
 
 // The whole narrow densenet stack (U <= 128, up to 16 layers) in one
@@ -759,40 +1042,31 @@ extern "C" int dense_stack_fwd_whole(int rows, int vec_w, const float* x,
                                      float* out, long long ldo, float* zs,
                                      long long ldz, int m, int act,
                                      void* stream) {
-  if (m <= 0 || d0 <= 0 || u <= 0 || u > 128 || layers < 1 ||
-      layers > whole::kMaxLayers || x == nullptr || out == nullptr ||
-      ldx < d0 || ldo < d0 + layers * u ||
-      (zs != nullptr && ldz < layers * u) || act < dense_tile::kIdentity ||
-      act > dense_tile::kSwish || (vec_w && (u & 3) != 0))
+  return stack_fwd_whole(rows, vec_w, x, ldx, layers, w_ptrs, b_ptrs, d0, u,
+                         out, ldo, zs, ldz, m, act, 0, whole::Strides{},
+                         stream);
+}
+
+// dense_stack_fwd_whole for `members` members in one launch; sx, so, sz:
+// the member strides of x, out and zs; w_strides, b_strides: host arrays
+// of each layer's member strides (w_i's a multiple of 4 with vec_w).
+extern "C" int dense_stack_fwd_whole_members(
+    int rows, int vec_w, const float* x, long long ldx, int layers,
+    const long long* w_ptrs, const long long* b_ptrs, int d0, int u,
+    float* out, long long ldo, float* zs, long long ldz, int m, int act,
+    int members, long long sx, const long long* w_strides,
+    const long long* b_strides, long long so, long long sz, void* stream) {
+  if (members < 1 || layers < 1 || layers > whole::kMaxLayers ||
+      w_strides == nullptr || b_strides == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int uc = u <= 64 ? 64 : 128;
-  const int smem = whole::smem_bytes(rows, uc, d0, u, layers);
-  if (smem > whole::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  whole::Args p{};
-  p.x = x;
-  p.ldx = ldx;
+  whole::Strides s{};
+  s.x = sx;
+  s.out = so;
+  s.zs = sz;
   for (int i = 0; i < layers; ++i) {
-    p.w[i] = reinterpret_cast<const float*>(w_ptrs[i]);
-    p.b[i] = reinterpret_cast<const float*>(b_ptrs[i]);
-    if (p.w[i] == nullptr || p.b[i] == nullptr ||
-        (vec_w && !aligned16(p.w[i], u)))
-      return static_cast<int>(cudaErrorInvalidValue);
+    s.w[i] = w_strides[i];
+    s.b[i] = b_strides[i];
   }
-  p.out = out;
-  p.ldo = ldo;
-  p.zs = zs;
-  p.ldz = ldz;
-  p.m = m;
-  p.d0 = d0;
-  p.u = u;
-  p.layers = layers;
-  p.act = act;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool v = vec_w != 0;
-  switch (rows) {
-    case 4: return whole::launch_rows<4>(v, uc, p, smem, st);
-    case 8: return whole::launch_rows<8>(v, uc, p, smem, st);
-    case 16: return whole::launch_rows<16>(v, uc, p, smem, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return stack_fwd_whole(rows, vec_w, x, ldx, layers, w_ptrs, b_ptrs, d0, u,
+                         out, ldo, zs, ldz, m, act, members, s, stream);
 }

@@ -19,6 +19,15 @@
 // split order, so the result is the same whatever order blocks ran in.
 // Loads map neighbouring threads to neighbouring addresses for each of the
 // four layouts; shared tiles are padded by one column against conflicts.
+//
+// Member launches (a fleet's E members in one launch): blockIdx.z is the
+// member, every operand sits at its member's offset (a stride in elements,
+// 0 for an operand all members share), and the split partials and tile
+// counters are the member's own set. A member's blocks run exactly a solo
+// launch's arithmetic, so member e is bitwise the solo launch on its
+// operands. The member kernels are kernels of their own, taking the
+// strides as one more argument; the solo kernels keep their arguments and
+// code, so they compile as before.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,10 +89,11 @@ int launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
 constexpr int kTrTile = 32, kTrRowGroups = 8;
 
 template <bool COPY>
-__global__ void __launch_bounds__(kTrTile * kTrRowGroups)
-transpose_kernel(const float* src, long long lds, float* dst_t,
-                 long long ldt, float* dst, long long ldd, int rows,
-                 int cols) {
+__device__ __forceinline__ void transpose_run(const float* src,
+                                              long long lds, float* dst_t,
+                                              long long ldt, float* dst,
+                                              long long ldd, int rows,
+                                              int cols) {
   __shared__ float tile[kTrTile][kTrTile + 1];
   const int tx = threadIdx.x % kTrTile, ty = threadIdx.x / kTrTile;
   const int r0 = blockIdx.y * kTrTile, c0 = blockIdx.x * kTrTile;
@@ -105,21 +115,51 @@ transpose_kernel(const float* src, long long lds, float* dst_t,
   }
 }
 
+template <bool COPY>
+__global__ void __launch_bounds__(kTrTile * kTrRowGroups)
+transpose_kernel(const float* src, long long lds, float* dst_t,
+                 long long ldt, float* dst, long long ldd, int rows,
+                 int cols) {
+  transpose_run<COPY>(src, lds, dst_t, ldt, dst, ldd, rows, cols);
+}
+
+// member blockIdx.z; ss, st, sd: the member strides of src, dst_t, dst
+template <bool COPY>
+__global__ void __launch_bounds__(kTrTile * kTrRowGroups)
+transpose_members(const float* src, long long lds, float* dst_t,
+                  long long ldt, float* dst, long long ldd, int rows,
+                  int cols, long long ss, long long st, long long sd) {
+  const long long e = blockIdx.z;
+  transpose_run<COPY>(src + e * ss, lds, dst_t + e * st, ldt,
+                      COPY ? dst + e * sd : dst, ldd, rows, cols);
+}
+
 // Launches transpose_kernel (COPY when `dst` is given); returns the CUDA
-// error (0 on success).
+// error (0 on success). With `members` > 0, one launch of
+// transpose_members for that many members, `ss`, `st`, `sd` the member
+// strides of src, dst_t and dst.
 inline int launch_transpose(const float* src, long long lds, float* dst_t,
                             long long ldt, float* dst, long long ldd,
-                            int rows, int cols, cudaStream_t stream) {
+                            int rows, int cols, cudaStream_t stream,
+                            int members = 0, long long ss = 0,
+                            long long st = 0, long long sd = 0) {
   if (rows <= 0 || cols <= 0 || lds < cols || ldt < rows ||
-      (dst != nullptr && ldd < cols))
+      (dst != nullptr && ldd < cols) || members < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((cols + kTrTile - 1) / kTrTile,
-                  (rows + kTrTile - 1) / kTrTile);
-  if (dst != nullptr)
-    transpose_kernel<true><<<grid, kTrTile * kTrRowGroups, 0, stream>>>(
+                  (rows + kTrTile - 1) / kTrTile, members > 0 ? members : 1);
+  const int threads = kTrTile * kTrRowGroups;
+  if (members > 0 && dst != nullptr)
+    transpose_members<true><<<grid, threads, 0, stream>>>(
+        src, lds, dst_t, ldt, dst, ldd, rows, cols, ss, st, sd);
+  else if (members > 0)
+    transpose_members<false><<<grid, threads, 0, stream>>>(
+        src, lds, dst_t, ldt, dst, ldd, rows, cols, ss, st, sd);
+  else if (dst != nullptr)
+    transpose_kernel<true><<<grid, threads, 0, stream>>>(
         src, lds, dst_t, ldt, dst, ldd, rows, cols);
   else
-    transpose_kernel<false><<<grid, kTrTile * kTrRowGroups, 0, stream>>>(
+    transpose_kernel<false><<<grid, threads, 0, stream>>>(
         src, lds, dst_t, ldt, dst, ldd, rows, cols);
   return static_cast<int>(cudaGetLastError());
 }
@@ -136,8 +176,30 @@ struct TileArgs {
   int m, n, act, accumulate, splits, chunks_per_split;
 };
 
+// a member launch's strides in elements (0: shared by every member)
+struct TileStrides {
+  long long a1, a2, w, b, out, z;
+};
+
+// the arguments of member blockIdx.z: its operands, and its own set of
+// split partials and of tile counters (gridDim.x of them)
+__device__ __forceinline__ TileArgs at_member(TileArgs p,
+                                              const TileStrides& s) {
+  const long long e = blockIdx.z;
+  p.a1 += e * s.a1;
+  if (p.a2 != nullptr) p.a2 += e * s.a2;
+  p.w += e * s.w;
+  if (p.b != nullptr) p.b += e * s.b;
+  p.out += e * s.out;
+  if (p.zout != nullptr) p.zout += e * s.z;
+  if (p.ws != nullptr)
+    p.ws += e * p.splits * static_cast<long long>(p.m) * p.n;
+  if (p.counters != nullptr) p.counters += e * gridDim.x;
+  return p;
+}
+
 template <int BM, int BN, int BK, int TM, int TN, bool TA, bool TW>
-__global__ void __launch_bounds__(kThreads) tile_kernel(const TileArgs p) {
+__device__ __forceinline__ void tile_run(const TileArgs& p) {
   pdl_wait();
   constexpr int TX = BN / TN;               // threads along the columns
   constexpr int TY = BM / TM;               // threads along the rows
@@ -300,8 +362,30 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(const TileArgs p) {
 }
 
 template <int BM, int BN, int BK, int TM, int TN, bool TA, bool TW>
-int launch(const TileArgs& p, cudaStream_t stream, bool pdl) {
+__global__ void __launch_bounds__(kThreads) tile_kernel(const TileArgs p) {
+  tile_run<BM, BN, BK, TM, TN, TA, TW>(p);
+}
+
+template <int BM, int BN, int BK, int TM, int TN, bool TA, bool TW>
+__global__ void __launch_bounds__(kThreads)
+tile_members(const TileArgs p, const TileStrides s) {
+  tile_run<BM, BN, BK, TM, TN, TA, TW>(at_member(p, s));
+}
+
+// with `s`, one launch of tile_members for `members` members
+template <int BM, int BN, int BK, int TM, int TN, bool TA, bool TW>
+int launch(const TileArgs& p, cudaStream_t stream, bool pdl,
+           const TileStrides* s = nullptr, int members = 0) {
   const int tiles = ((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN);
+  if (s != nullptr) {
+    const dim3 grid(tiles, p.splits, members);
+    if (pdl)
+      return launch_pdl(tile_members<BM, BN, BK, TM, TN, TA, TW>, grid,
+                        dim3(kThreads), stream, p, *s);
+    tile_members<BM, BN, BK, TM, TN, TA, TW>
+        <<<grid, kThreads, 0, stream>>>(p, *s);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (pdl)
     return launch_pdl(tile_kernel<BM, BN, BK, TM, TN, TA, TW>,
                       dim3(tiles, p.splits), dim3(kThreads), stream, p);
@@ -321,12 +405,17 @@ inline bool args_ok(const TileArgs& p) {
 // backward's products; the forward launches config 2 itself
 // (dense_stack_fwd.cu), as a programmatic dependent launch.
 template <bool TA, bool TW>
-int launch_config(int config, const TileArgs& p, cudaStream_t stream) {
-  if (!args_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+int launch_config(int config, const TileArgs& p, cudaStream_t stream,
+                  const TileStrides* s = nullptr, int members = 0) {
+  if (!args_ok(p) || (s != nullptr && members < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (config) {
-    case 0: return launch<16, 64, 32, 1, 4, TA, TW>(p, stream, false);
-    case 1: return launch<32, 64, 32, 2, 4, TA, TW>(p, stream, false);
-    case 2: return launch<64, 64, 16, 4, 4, TA, TW>(p, stream, false);
+    case 0: return launch<16, 64, 32, 1, 4, TA, TW>(p, stream, false, s,
+                                                    members);
+    case 1: return launch<32, 64, 32, 2, 4, TA, TW>(p, stream, false, s,
+                                                    members);
+    case 2: return launch<64, 64, 16, 4, 4, TA, TW>(p, stream, false, s,
+                                                    members);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

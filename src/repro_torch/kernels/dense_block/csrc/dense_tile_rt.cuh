@@ -52,6 +52,12 @@
 // results are bitwise the same from run to run and the counters can be
 // reused. That sum loops over the splits outside and the thread's outputs
 // inside, so a thread has all its loads of one split in flight at once.
+//
+// Member launches (dense_tile.cuh's note): blockIdx.z is the member, each
+// operand at its member stride (0: shared), and each member has its own
+// split partials and tile counters; the member kernels take the strides
+// as one more argument, the solo kernels are unchanged, and member e is
+// bitwise the solo launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -144,6 +150,31 @@ __device__ __forceinline__ void copy_rows(float (*dst)[X + kPad],
       cp_async4(&dst[kk][x], in ? src + gk * ld + gx : src, in ? 4 : 0);
     }
   }
+}
+
+// a member launch's strides in elements (0: shared by every member)
+struct Strides {
+  long long a, b, out, c;
+};
+
+// 16-byte copies of a (`vec` bit 0) or b (bit 1) need every member's rows
+// aligned: their member strides multiples of 4 floats
+inline bool strides_ok(const Strides& s, int vec) {
+  return (!(vec & 1) || (s.a & 3) == 0) && (!(vec & 2) || (s.b & 3) == 0);
+}
+
+// the arguments of member blockIdx.z: its operands, its own split partials
+// and its own tile counters (gridDim.x of them)
+__device__ __forceinline__ Args at_member(Args p, const Strides& s) {
+  const long long e = blockIdx.z;
+  p.a += e * s.a;
+  p.b += e * s.b;
+  if (p.out != nullptr) p.out += e * s.out;
+  if (p.c != nullptr) p.c += e * s.c;
+  if (p.ws != nullptr)
+    p.ws += e * p.splits * static_cast<long long>(p.m) * ws_stride(p.n);
+  if (p.counters != nullptr) p.counters += e * gridDim.x;
+  return p;
 }
 
 // every Args check of a launch; `vec` bit 0 (1): 16-byte copies of a, bit 1
@@ -371,8 +402,48 @@ dx_tile_kernel(const Args p) {
   tile_body<BM, BN, true, true>(p, StoreEpi(p));
 }
 
+// the member kernels: member blockIdx.z
+template <int BM, int BN, bool VA, bool VB>
+__global__ void __launch_bounds__(kThreads, BN == 128 ? 2 : 3)
+dw_tile_members(const Args p, const Strides s) {
+  const Args q = at_member(p, s);
+  tile_body<BM, BN, VA, VB>(q, StoreEpi(q));
+}
+
 template <int BM, int BN>
-int launch(bool dx, int vec, const Args& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, BN == 128 ? 2 : 3)
+dx_tile_members(const Args p, const Strides s) {
+  const Args q = at_member(p, s);
+  tile_body<BM, BN, true, true>(q, StoreEpi(q));
+}
+
+template <int BM, int BN>
+int launch_members(bool dx, int vec, const Args& p, const Strides& s,
+                   int members, cudaStream_t stream) {
+  const dim3 grid(((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN), p.splits,
+                  members);
+  if (dx)
+    dx_tile_members<BM, BN><<<grid, kThreads, 0, stream>>>(p, s);
+  else if (vec == 3)
+    dw_tile_members<BM, BN, true, true><<<grid, kThreads, 0, stream>>>(p, s);
+  else if (vec == 2)
+    dw_tile_members<BM, BN, false, true><<<grid, kThreads, 0, stream>>>(p,
+                                                                        s);
+  else if (vec == 1)
+    dw_tile_members<BM, BN, true, false><<<grid, kThreads, 0, stream>>>(p,
+                                                                        s);
+  else
+    dw_tile_members<BM, BN, false, false><<<grid, kThreads, 0, stream>>>(
+        p, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// with `s`, one member launch for `members` members
+template <int BM, int BN>
+int launch(bool dx, int vec, const Args& p, cudaStream_t stream,
+           const Strides* s = nullptr, int members = 0) {
+  if (s != nullptr)
+    return launch_members<BM, BN>(dx, vec, p, *s, members, stream);
   const dim3 grid(((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN), p.splits);
   if (dx)
     dx_tile_kernel<BM, BN><<<grid, kThreads, 0, stream>>>(p);
@@ -389,14 +460,17 @@ int launch(bool dx, int vec, const Args& p, cudaStream_t stream) {
 
 // Tile shapes, indexed by `config` (mirrored by stack.py's _RT_CONFIGS):
 // 3 = 128x128, 4 = 128x64 (BK = 8). Ids 0-2 are dense_tile.cuh's. `vec`:
-// bit 0 for 16-byte copies of a, bit 1 of b; dx takes only 3.
+// bit 0 for 16-byte copies of a, bit 1 of b; dx takes only 3. With `s`,
+// one member launch for `members` members.
 inline int launch_config(int config, bool dx, int vec, const Args& p,
-                         cudaStream_t stream) {
-  if (!args_ok(p, vec) || (dx && vec != 3))
+                         cudaStream_t stream, const Strides* s = nullptr,
+                         int members = 0) {
+  if (!args_ok(p, vec) || (dx && vec != 3) ||
+      (s != nullptr && (members < 1 || !strides_ok(*s, vec))))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (config) {
-    case 3: return launch<128, 128>(dx, vec, p, stream);
-    case 4: return launch<128, 64>(dx, vec, p, stream);
+    case 3: return launch<128, 128>(dx, vec, p, stream, s, members);
+    case 4: return launch<128, 64>(dx, vec, p, stream, s, members);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

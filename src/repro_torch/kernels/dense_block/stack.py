@@ -31,6 +31,20 @@ the last hidden layer for mlp and d2rl.
   loop, which autograd differentiates as usual. This is the reference the
   kernels are held against on the card (``dense_stack_grads_ref`` for the
   backward).
+* Under a ``torch.func`` transform (a fleet's ``vmap`` of the superstep,
+  ``grad_and_value`` inside it) it takes two custom ops,
+  ``repro_torch::dense_stack_fwd`` and ``repro_torch::dense_stack_bwd``,
+  inside ``_StackFn`` (an autograd function that ``torch.func`` can
+  transform). Their ``vmap`` rules run E members at once:
+  ``dense_stack_members`` and ``dense_stack_members_grads`` launch every
+  kernel once for all members on a CUDA tensor (a member axis,
+  ``gridDim.z``, each operand at its member stride, 0 for an operand the
+  members share, never copied E times), planned as one solo member, so a
+  member is bitwise its solo launches; on a CPU tensor the members twins
+  (``dense_stack_members_ref``, ``dense_stack_members_grads_ref``) loop the
+  solo plain version, bitwise a loop of solo calls. The backward computes
+  only the gradients the transform asks for (a constant weight's dW is
+  skipped). Outside a transform nothing of this route runs.
 
 Workspaces and scratch are ``torch.empty`` tensors freed after the
 launch: PyTorch's caching allocator hands their memory out again only in
@@ -57,7 +71,7 @@ import copy
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -259,12 +273,46 @@ def dense_stack_grads_ref(x: torch.Tensor, ws: Sequence[torch.Tensor],
         u = ws[0].shape[1]
         acts = [lambda z, on=(zs[:, i * u:(i + 1) * u] > 0): z * on
                 for i in range(n)]
-    with torch.enable_grad():
-        var = [t.detach().requires_grad_(True) for t in (x, *ws, *bs)]
-        out = _concat_loop(var[0], var[1:1 + n], var[1 + n:], connectivity,
-                           acts)
-        grads = torch.autograd.grad(out, var, g)
+
+    def f(x, *params):
+        return _concat_loop(x, params[:n], params[n:], connectivity, acts)
+    # torch.func.vjp, not torch.autograd.grad: it also runs inside the
+    # custom ops' vmap rules, where autograd is dispatched below
+    _, vjp = torch.func.vjp(f, *(t.detach() for t in (x, *ws, *bs)))
+    grads = vjp(g)
     return grads[0], list(grads[1:1 + n]), list(grads[1 + n:])
+
+
+def dense_stack_members_ref(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                            bs: Sequence[torch.Tensor], *,
+                            connectivity: str = "densenet",
+                            activation: str = "swish") -> torch.Tensor:
+    """``dense_stack_ref`` of each of E members, stacked: ``x`` (E, M, d0),
+    ``ws`` (E, K_i, U), ``bs`` (E, U). The plain twin of
+    ``dense_stack_members``, bitwise E solo calls."""
+    return torch.stack([
+        dense_stack_ref(x[e], [w[e] for w in ws], [b[e] for b in bs],
+                        connectivity=connectivity, activation=activation)
+        for e in range(x.shape[0])])
+
+
+def dense_stack_members_grads_ref(x: torch.Tensor,
+                                  ws: Sequence[torch.Tensor],
+                                  bs: Sequence[torch.Tensor],
+                                  g: torch.Tensor, *,
+                                  connectivity: str = "densenet",
+                                  activation: str = "swish",
+                                  zs: Optional[torch.Tensor] = None):
+    """``dense_stack_grads_ref`` of each of E members, stacked: ``(dx (E, M,
+    d0), [dW_i (E, K_i, U)], [db_i (E, U)])``. The plain twin of
+    ``dense_stack_members_grads``, bitwise E solo calls."""
+    per = [dense_stack_grads_ref(
+        x[e], [w[e] for w in ws], [b[e] for b in bs], g[e],
+        connectivity=connectivity, activation=activation,
+        zs=None if zs is None else zs[e]) for e in range(x.shape[0])]
+    return (torch.stack([p[0] for p in per]),
+            [torch.stack([p[1][i] for p in per]) for i in range(len(ws))],
+            [torch.stack([p[2][i] for p in per]) for i in range(len(ws))])
 
 
 # ---------------------------------------------------------------------------
@@ -287,10 +335,17 @@ def _library() -> ctypes.CDLL:
         lib.dense_fwd_stream_init.argtypes = [p, ll, p, ll, p, ll, i, i, p]
         lib.dense_stack_fwd_whole.argtypes = [i, i, p, ll, i, p, p, i, i, p,
                                               ll, p, ll, i, i, p]
-        for fn in (lib.dense_layer_fwd, lib.dense_layer_fwd_rt,
-                   lib.dense_layer_fwd_stream, lib.dense_fwd_stream_init,
-                   lib.dense_stack_fwd_whole):
-            fn.restype = ctypes.c_int
+        # the member entries: the solo arguments, the member count and
+        # each operand's member stride (the whole stack's w and b as
+        # arrays of one a layer), then the stream
+        strides = {"dense_layer_fwd": [ll] * 6, "dense_layer_fwd_rt":
+                   [ll] * 6, "dense_layer_fwd_stream": [ll] * 7,
+                   "dense_fwd_stream_init": [ll] * 3,
+                   "dense_stack_fwd_whole": [ll, p, p, ll, ll]}
+        for name, types in strides.items():
+            solo, members = getattr(lib, name), getattr(lib, name + "_members")
+            members.argtypes = solo.argtypes[:-1] + [i] + types + [p]
+            solo.restype = members.restype = ctypes.c_int
     return lib
 
 
@@ -308,10 +363,13 @@ def _bwd_library() -> ctypes.CDLL:
                                        p, ll, i, p, p, i, i, i, i, p]
         lib.dense_bwd_gemm_rt.argtypes = [i, i, i, p, ll, p, ll, p, ll, p,
                                           ll, p, p, i, i, i, i, i, p]
-        for fn in (lib.dense_bwd_act_grad, lib.dense_bwd_db,
-                   lib.dense_bwd_act, lib.dense_bwd_transpose,
-                   lib.dense_bwd_gemm, lib.dense_bwd_gemm_rt):
-            fn.restype = ctypes.c_int
+        strides = {"dense_bwd_act_grad": 5, "dense_bwd_db": 2,
+                   "dense_bwd_act": 2, "dense_bwd_transpose": 2,
+                   "dense_bwd_gemm": 4, "dense_bwd_gemm_rt": 4}
+        for name, n in strides.items():
+            solo, members = getattr(lib, name), getattr(lib, name + "_members")
+            members.argtypes = solo.argtypes[:-1] + [i] + [ll] * n + [p]
+            solo.restype = members.restype = ctypes.c_int
     return lib
 
 
@@ -477,8 +535,37 @@ def vec_aligned(*operands: Tuple[int, int]) -> bool:
 
 def operand(t: torch.Tensor, col: int = 0) -> Tuple[int, int]:
     """``(address, row stride)`` of a float32 tensor from column ``col``
-    of its row 0: one operand of ``vec_aligned``."""
-    return t.data_ptr() + 4 * col, t.stride(0)
+    of its row 0 (of member 0's, for a member-axis tensor): one operand of
+    ``vec_aligned``."""
+    return t.data_ptr() + 4 * col, t.stride(-2)
+
+
+def _ms(t: Optional[torch.Tensor], dims: int = 2) -> int:
+    """Member stride in floats of a member-axis tensor (the leading axis of
+    a tensor with more than ``dims`` axes; 0 when its members share it);
+    0 for a solo tensor or None."""
+    return 0 if t is None or t.dim() <= dims else t.stride(0)
+
+
+def _op(t: torch.Tensor, col: int = 0) -> Tuple[int, int, int]:
+    """``(address, row stride, member stride)`` from column ``col``."""
+    return (*operand(t, col), _ms(t))
+
+
+def _vec(op: Tuple[int, int, int]) -> bool:
+    """``vec_aligned`` of an ``_op`` for every member: its member stride
+    a multiple of 4 floats too."""
+    return vec_aligned(op[:2]) and op[2] % 4 == 0
+
+
+def _call(lib, name: str, args, members: Optional[int], strides,
+          stream: int) -> int:
+    """``lib.<name>(*args, stream)``, or for ``members`` members its member
+    entry ``<name>_members(*args, members, *strides, stream)``, one launch
+    for all of them; returns the CUDA error."""
+    if members is None:
+        return getattr(lib, name)(*args, stream)
+    return getattr(lib, name + "_members")(*args, members, *strides, stream)
 
 
 _state_lock = threading.Lock()      # guards the two dicts below
@@ -541,6 +628,11 @@ def _device_info(dev: torch.device) -> Tuple[int, int]:
             torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _members(t: torch.Tensor) -> Optional[int]:
+    """E of a member-axis output (3-D), None for a solo one (2-D)."""
+    return t.shape[0] if t.dim() == 3 else None
+
+
 def _launch_layer(lib, plan, seg1: Tuple[torch.Tensor, int],
                   seg2: Optional[Tuple[torch.Tensor, int]],
                   w: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
@@ -556,47 +648,58 @@ def _launch_layer(lib, plan, seg1: Tuple[torch.Tensor, int],
     ``at`` (``stream^T``, rows padded to 4 floats) instead of ``seg1`` and
     writes its output transposed into ``yt`` (rows of ``stream^T``) when
     given. The streaming kernel also copies ``seg1``'s columns into the
-    first columns of ``acopy`` when given (x into densenet's stream)."""
+    first columns of ``acopy`` when given (x into densenet's stream). A
+    3-D ``out`` is E members' (every tensor then with a leading member
+    axis, of stride 0 where the members share it): one member launch."""
     config, tiles, splits, per_split = plan
     a1, c1 = seg1
-    m, n = out.shape[0], w.shape[1]
-    k2 = 0 if seg2 is None else seg2[0].shape[1] - seg2[1]
-    k1 = w.shape[0] - k2
+    e = _members(out)
+    lead = () if e is None else (e,)
+    m, n = out.shape[-2], w.shape[-1]
+    k2 = 0 if seg2 is None else seg2[0].shape[-1] - seg2[1]
+    k1 = w.shape[-2] - k2
     kind = fwd_kernel_of(config)
     ws_buf = counters = None
     if splits > 1:
-        ws_buf = torch.empty((splits, m, _pad4(n) if kind != "tile" else n),
+        ws_buf = torch.empty((*lead, splits, m,
+                              _pad4(n) if kind != "tile" else n),
                              device=out.device, dtype=torch.float32)
-        counters = _tile_counters(tiles, out.device, stream)
-    z_ptr, ldz = (None, 0) if z is None else (_ptr(*z), z[0].stride(0))
-    vec_w = int(vec_aligned(operand(w)))
+        counters = _tile_counters(tiles * (e or 1), out.device, stream)
+    z_ptr, ldz = (None, 0) if z is None else (_ptr(*z), z[0].stride(-2))
+    sz = 0 if z is None else _ms(z[0])
+    vec_w = int(_vec(_op(w)))
     if kind == "rt":
-        err = lib.dense_layer_fwd_rt(
-            config, vec_w, at.data_ptr(), at.stride(0), w.data_ptr(),
-            w.stride(0), b.data_ptr(), _ptr(out, col), out.stride(0), z_ptr,
-            ldz, _ptr(yt), 0 if yt is None else yt.stride(0), _ptr(ws_buf),
-            _ptr(counters), m, n, k1, act, splits, per_split, stream)
+        err = _call(lib, "dense_layer_fwd_rt", (
+            config, vec_w, at.data_ptr(), at.stride(-2), w.data_ptr(),
+            w.stride(-2), b.data_ptr(), _ptr(out, col), out.stride(-2),
+            z_ptr, ldz, _ptr(yt), 0 if yt is None else yt.stride(-2),
+            _ptr(ws_buf), _ptr(counters), m, n, k1, act, splits, per_split),
+            e, (_ms(at), _ms(w), _ms(b, 1), _ms(out), sz, _ms(yt)), stream)
     else:
-        a2_ptr, lda2 = None, 0
+        a2_ptr, lda2, sa2 = None, 0, 0
         if seg2 is not None:
-            a2_ptr, lda2 = _ptr(*seg2), seg2[0].stride(0)
+            a2_ptr, lda2, sa2 = _ptr(*seg2), seg2[0].stride(-2), \
+                _ms(seg2[0])
         if kind == "stream":
-            err = lib.dense_layer_fwd_stream(
-                vec_w, _ptr(a1, c1), a1.stride(0), k1, a2_ptr, lda2, k2,
-                w.data_ptr(), w.stride(0), b.data_ptr(), _ptr(out, col),
-                out.stride(0), z_ptr, ldz, _ptr(acopy),
-                0 if acopy is None else acopy.stride(0), _ptr(ws_buf),
-                _ptr(counters), m, n, act, splits, per_split, stream)
+            err = _call(lib, "dense_layer_fwd_stream", (
+                vec_w, _ptr(a1, c1), a1.stride(-2), k1, a2_ptr, lda2, k2,
+                w.data_ptr(), w.stride(-2), b.data_ptr(), _ptr(out, col),
+                out.stride(-2), z_ptr, ldz, _ptr(acopy),
+                0 if acopy is None else acopy.stride(-2), _ptr(ws_buf),
+                _ptr(counters), m, n, act, splits, per_split), e,
+                (_ms(a1), sa2, _ms(w), _ms(b, 1), _ms(out), sz,
+                 _ms(acopy)), stream)
         else:
-            err = lib.dense_layer_fwd(
-                config, _ptr(a1, c1), a1.stride(0), k1, a2_ptr, lda2, k2,
-                w.data_ptr(), b.data_ptr(), _ptr(out, col), out.stride(0),
+            err = _call(lib, "dense_layer_fwd", (
+                config, _ptr(a1, c1), a1.stride(-2), k1, a2_ptr, lda2, k2,
+                w.data_ptr(), b.data_ptr(), _ptr(out, col), out.stride(-2),
                 z_ptr, ldz, _ptr(ws_buf), _ptr(counters), m, n, act, splits,
-                per_split, stream)
+                per_split), e,
+                (_ms(a1), sa2, _ms(w), _ms(b, 1), _ms(out), sz), stream)
     if err != 0:
         raise RuntimeError(f"dense_stack forward ({kind}) launch failed: "
                            f"CUDA error {err} (m={m}, n={n}, k={k1 + k2}, "
-                           f"config={config}, splits={splits})")
+                           f"config={config}, splits={splits}, members={e})")
     _count_launch(kind)
 
 
@@ -605,38 +708,58 @@ def _launch_whole(lib, x: torch.Tensor, ws, bs, out: torch.Tensor,
                   stream: int) -> None:
     """A whole densenet stack in one launch of the whole-stack kernel at
     ``rows`` rows a block: x into ``out``'s first columns, y_i into its
-    slots, z_i into ``zs``'s when given."""
-    (m, d0), n_layers, u = x.shape, len(ws), ws[0].shape[1]
-    vec_w = int(vec_aligned(*(operand(w) for w in ws)))
-    err = lib.dense_stack_fwd_whole(
-        rows, vec_w, x.data_ptr(), x.stride(0), n_layers,
-        (ctypes.c_longlong * n_layers)(*(w.data_ptr() for w in ws)),
-        (ctypes.c_longlong * n_layers)(*(b.data_ptr() for b in bs)),
-        d0, u, out.data_ptr(), out.stride(0), _ptr(zs),
-        0 if zs is None else zs.stride(0), m, act, stream)
+    slots, z_i into ``zs``'s when given (E members' at once for a 3-D
+    ``out``)."""
+    (m, d0), n_layers, u = x.shape[-2:], len(ws), ws[0].shape[-1]
+    e = _members(out)
+    vec_w = int(all(_vec(_op(w)) for w in ws))
+
+    def arr(values):
+        return (ctypes.c_longlong * n_layers)(*values)
+    err = _call(lib, "dense_stack_fwd_whole", (
+        rows, vec_w, x.data_ptr(), x.stride(-2), n_layers,
+        arr(w.data_ptr() for w in ws), arr(b.data_ptr() for b in bs), d0, u,
+        out.data_ptr(), out.stride(-2), _ptr(zs),
+        0 if zs is None else zs.stride(-2), m, act), e,
+        (_ms(x), arr(_ms(w) for w in ws), arr(_ms(b, 1) for b in bs),
+         _ms(out), _ms(zs)), stream)
     if err != 0:
         raise RuntimeError(f"dense_stack forward (whole) launch failed: CUDA "
                            f"error {err} (m={m}, d0={d0}, u={u}, layers="
-                           f"{n_layers}, rows={rows})")
+                           f"{n_layers}, rows={rows}, members={e})")
     _count_launch("whole")
 
 
+def _dense(t: torch.Tensor, dims: int) -> bool:
+    """Whether ``t`` is dense the way the kernels read it: contiguous, or,
+    with a leading member axis, contiguous within each member (any member
+    stride, 0 included)."""
+    if t.dim() == dims:
+        return t.is_contiguous()
+    return t.shape[0] == 0 or t[0].is_contiguous()
+
+
 def _check_cuda(x: torch.Tensor, ws, bs, connectivity: str) -> None:
-    d0, u = x.shape[1], ws[0].shape[1]
-    for name, t in [("x", x)] + [(f"ws[{i}]", w) for i, w in enumerate(ws)] \
-            + [(f"bs[{i}]", b) for i, b in enumerate(bs)]:
+    d0, u = x.shape[-1], ws[0].shape[-1]
+    lead = tuple(x.shape[:-2])
+    for name, t, dims in [("x", x, 2)] + \
+            [(f"ws[{i}]", w, 2) for i, w in enumerate(ws)] + \
+            [(f"bs[{i}]", b, 1) for i, b in enumerate(bs)]:
         if t.device != x.device:
             raise ValueError(f"dense_stack: {name} on {t.device}, x on "
                              f"{x.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"dense_stack kernel takes float32; {name} is "
                             f"{t.dtype}")
-        if not t.is_contiguous():
+        if tuple(t.shape[:-dims]) != lead:
+            raise ValueError(f"dense_stack: {name} {tuple(t.shape)} has "
+                             f"not x's member axis {lead}")
+        if not _dense(t, dims):
             raise ValueError(f"dense_stack kernel needs contiguous tensors; "
                              f"{name} is not")
     for i, (w, b) in enumerate(zip(ws, bs)):
         want = (in_dim(connectivity, i, d0, u), u)
-        if tuple(w.shape) != want or tuple(b.shape) != (u,):
+        if tuple(w.shape[-2:]) != want or tuple(b.shape[-1:]) != (u,):
             raise ValueError(f"dense_stack layer {i}: w {tuple(w.shape)}, "
                              f"b {tuple(b.shape)}; want w {want}, b ({u},)")
 
@@ -647,14 +770,20 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
     """The stack's feature; with ``zs`` (``(M, L*U)``), layer i also stores
     its pre-activation into columns ``[i*U, (i+1)*U)``. ``whole=False``
     keeps a narrow densenet stack on the per-layer kernels (what the card
-    sweep compares the whole-stack kernel with)."""
+    sweep compares the whole-stack kernel with). With a leading member
+    axis (``x`` (E, M, d0), ``ws`` (E, K_i, U), ``bs`` (E, U), ``zs`` (E,
+    M, L*U)) E members run in one launch per solo launch, planned as one
+    solo member."""
     _check_cuda(x, ws, bs, connectivity)
-    m, d0 = x.shape
-    n_layers, u = len(ws), ws[0].shape[1]
+    lead = tuple(x.shape[:-2])
+    e = lead[0] if lead else None
+    m, d0 = x.shape[-2:]
+    n_layers, u = len(ws), ws[0].shape[-1]
     dev = x.device
     out_w = feature_dim(connectivity, n_layers, d0, u)
-    if m == 0:
-        return torch.empty((0, out_w), device=dev, dtype=torch.float32)
+    if m == 0 or e == 0:
+        return torch.empty((*lead, m, out_w), device=dev,
+                           dtype=torch.float32)
     lib = _library()
     act = _ACT_CODE[activation]
     with torch.cuda.device(dev):
@@ -663,7 +792,8 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
         def z_slot(i):
             return None if zs is None else (zs, i * u)
         if connectivity == "densenet":
-            out = torch.empty((m, out_w), device=dev, dtype=torch.float32)
+            out = torch.empty((*lead, m, out_w), device=dev,
+                              dtype=torch.float32)
             plans = [plan_fwd(m, u, d0 + i * u, num_sms,
                               stack=(d0, n_layers) if whole else None)
                      for i in range(n_layers)]
@@ -673,34 +803,37 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
                 return out
             st = None                   # stream^T: x^T, y_0^T .. y_{L-2}^T
             if plans[0][0] in _RT_CONFIGS:      # every layer alike: m, u
-                st = torch.empty((d0 + (n_layers - 1) * u, _pad4(m)),
+                st = torch.empty((*lead, d0 + (n_layers - 1) * u, _pad4(m)),
                                  device=dev, dtype=torch.float32)
-                err = lib.dense_fwd_stream_init(
-                    x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
-                    st.data_ptr(), st.stride(0), m, d0, stream)
+                err = _call(lib, "dense_fwd_stream_init", (
+                    x.data_ptr(), x.stride(-2), out.data_ptr(),
+                    out.stride(-2), st.data_ptr(), st.stride(-2), m, d0), e,
+                    (_ms(x), _ms(out), _ms(st)), stream)
                 if err != 0:
                     raise RuntimeError(f"dense_fwd_stream_init launch failed:"
-                                       f" CUDA error {err} (m={m}, d0={d0})")
+                                       f" CUDA error {err} (m={m}, d0={d0}, "
+                                       f"members={e})")
                 _count_launch("transpose")
             elif plans[0][0] != _STREAM_CONFIG:
-                out[:, :d0].copy_(x)
+                out[..., :d0].copy_(x)
             for i in range(n_layers):
                 d = d0 + i * u
-                yt = st[d:d + u] if st is not None and i < n_layers - 1 \
-                    else None
+                yt = st[..., d:d + u, :] \
+                    if st is not None and i < n_layers - 1 else None
                 # the streaming kernel's layer 0 reads x and copies it in
                 first = i == 0 and plans[0][0] == _STREAM_CONFIG
                 _launch_layer(lib, plans[i], (x, 0) if first else (out, 0),
                               None, ws[i], bs[i], out, d, act, stream,
                               z_slot(i), st, yt, out if first else None)
             return out
-        bufs = [torch.empty((m, u), device=dev, dtype=torch.float32)
+        bufs = [torch.empty((*lead, m, u), device=dev, dtype=torch.float32)
                 for _ in range(min(n_layers, 2))]
         h = x
         for i in range(n_layers):
             dst = bufs[i % 2]
             seg2 = (x, 0) if connectivity == "d2rl" and i > 0 else None
-            plan_i = plan_fwd(m, u, ws[i].shape[0], num_sms, transposed=False)
+            plan_i = plan_fwd(m, u, ws[i].shape[-2], num_sms,
+                              transposed=False)
             _launch_layer(lib, plan_i, (h, 0), seg2, ws[i], bs[i], dst, 0,
                           act, stream, z_slot(i))
             h = dst
@@ -714,24 +847,31 @@ def _pad4(n: int) -> int:
 
 class _Backward:
     """One stack backward on the card: the launches of
-    ``dense_stack_bwd.cu`` (see its header), layer by layer in reverse."""
+    ``dense_stack_bwd.cu`` (see its header), layer by layer in reverse;
+    with ``members``, E members' in one launch each (every tensor then with
+    a leading member axis)."""
 
-    def __init__(self, m: int, u: int, activation: str, dev: torch.device):
+    def __init__(self, m: int, u: int, activation: str, dev: torch.device,
+                 members: Optional[int] = None):
         self.lib = _bwd_library()
         self.m, self.u, self.dev = m, u, dev
+        self.e = members
+        self.lead = () if members is None else (members,)
         self.act = _ACT_CODE[activation]
         self.num_sms, self.stream = _device_info(dev)
 
     def _empty(self, *shape) -> torch.Tensor:
-        return torch.empty(shape, device=self.dev, dtype=torch.float32)
+        return torch.empty((*self.lead, *shape), device=self.dev,
+                           dtype=torch.float32)
 
     def _counters(self, n: int) -> torch.Tensor:
-        return _tile_counters(n, self.dev, self.stream)
+        return _tile_counters(n * (self.e or 1), self.dev, self.stream)
 
-    @staticmethod
-    def _check(err: int, what: str) -> None:
+    def _launch(self, name: str, args, strides, what: str = "") -> None:
+        err = _call(self.lib, name, args, self.e, strides, self.stream)
         if err != 0:
-            raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+            raise RuntimeError(f"{name} {what}launch failed: CUDA error "
+                               f"{err} (members={self.e})")
 
     def dx_rt(self, k: int) -> bool:
         """Whether ``dinput`` of width k takes the register tile (and so
@@ -752,37 +892,37 @@ class _Backward:
         dx products (else None); with ``need_db`` the per-row-block column
         sums that ``db`` adds up (else None)."""
         gz = self._empty(self.m, self.u)
-        gzt = self._empty(self.u, _pad4(self.m))[:, :self.m] if transpose \
-            else None
+        gzt = self._empty(self.u, _pad4(self.m))[..., :self.m] \
+            if transpose else None
         part = self._empty(_ACT_ROW_BLOCKS, self.u) if need_db else None
-        self._check(self.lib.dense_bwd_act_grad(
-            _ptr(g, gcol), g.stride(0), _ptr(zs, i * self.u), zs.stride(0),
-            gz.data_ptr(), _ptr(gzt), 0 if gzt is None else gzt.stride(0),
-            _ptr(part), self.m, self.u, self.act, self.stream),
-            "dense_bwd_act_grad")
+        self._launch("dense_bwd_act_grad", (
+            _ptr(g, gcol), g.stride(-2), _ptr(zs, i * self.u), zs.stride(-2),
+            gz.data_ptr(), _ptr(gzt), 0 if gzt is None else gzt.stride(-2),
+            _ptr(part), self.m, self.u, self.act),
+            (_ms(g), _ms(zs), _ms(gz), _ms(gzt), _ms(part)))
         return gz, gzt, part
 
     def db(self, part: torch.Tensor, db: torch.Tensor) -> None:
         """``db`` = the rows of ``act_grad``'s sums added in order."""
-        self._check(self.lib.dense_bwd_db(part.data_ptr(), db.data_ptr(),
-                                          self.u, self.stream), "dense_bwd_db")
+        self._launch("dense_bwd_db", (part.data_ptr(), db.data_ptr(),
+                                      self.u), (_ms(part), _ms(db, 1)))
 
     def act_of(self, zs: torch.Tensor, i: int) -> torch.Tensor:
         """``act(z_i)``: layer i's output, for mlp/d2rl."""
         h = self._empty(self.m, self.u)
-        self._check(self.lib.dense_bwd_act(
-            _ptr(zs, i * self.u), zs.stride(0), h.data_ptr(), self.m,
-            self.u, self.act, self.stream), "dense_bwd_act")
+        self._launch("dense_bwd_act", (
+            _ptr(zs, i * self.u), zs.stride(-2), h.data_ptr(), self.m,
+            self.u, self.act), (_ms(zs), _ms(h)))
         return h
 
     def transpose(self, t: torch.Tensor) -> torch.Tensor:
-        """``t^T`` of a 2-D float32 view with unit column stride, rows
-        padded to 4 floats."""
-        rows, cols = t.shape
-        out = self._empty(cols, _pad4(rows))[:, :rows]
-        self._check(self.lib.dense_bwd_transpose(
-            t.data_ptr(), t.stride(0), out.data_ptr(), out.stride(0), rows,
-            cols, self.stream), "dense_bwd_transpose")
+        """``t^T`` of a 2-D float32 view with unit column stride (of each
+        member's), rows padded to 4 floats."""
+        rows, cols = t.shape[-2:]
+        out = self._empty(cols, _pad4(rows))[..., :rows]
+        self._launch("dense_bwd_transpose", (
+            t.data_ptr(), t.stride(-2), out.data_ptr(), out.stride(-2), rows,
+            cols), (_ms(t), _ms(out)))
         return out
 
     def _product(self, plan, dx: bool, a_op, b_op, out: torch.Tensor,
@@ -792,39 +932,40 @@ class _Backward:
         the product (register tile only). Register tile: ``a^T @ b`` with a
         (k, m) and b (k, n); dense_tile.cuh: dW as ``a^T @ b`` likewise, dx
         as ``a @ b^T`` with a (m, k) and b (n, k). Operands, ``add`` too,
-        are ``(address, row stride)``."""
+        are ``_op``s: ``(address, row stride, member stride)``."""
         config, tiles, splits, per_split = plan
         rt = config in _RT_CONFIGS
         ws_buf = counters = None
         if splits > 1:
             ws_buf = self._empty(splits, m, _pad4(n) if rt else n)
             counters = self._counters(tiles)
-        out_ptr = _ptr(out, orow * out.stride(0) + ocol)
+        ldo, so = out.stride(-2), _ms(out)
+        out_ptr = _ptr(out, orow * ldo + ocol)
+        what = f"(config {config}, m={m}, n={n}, k={k}, splits={splits}) "
         if rt:
-            vec = int(vec_aligned(a_op)) | 2 * int(vec_aligned(b_op))
+            vec = int(_vec(a_op)) | 2 * int(_vec(b_op))
             if add is None:
-                add = (out_ptr, out.stride(0)) if accumulate else (None, 0)
-            err = self.lib.dense_bwd_gemm_rt(
-                config, int(dx), vec, *a_op, *b_op, out_ptr, out.stride(0),
-                *add, _ptr(ws_buf), _ptr(counters), m, n, k, splits,
-                per_split, self.stream)
+                add = (out_ptr, ldo, so) if accumulate else (None, 0, 0)
+            self._launch("dense_bwd_gemm_rt", (
+                config, int(dx), vec, *a_op[:2], *b_op[:2], out_ptr, ldo,
+                *add[:2], _ptr(ws_buf), _ptr(counters), m, n, k, splits,
+                per_split), (a_op[2], b_op[2], so, add[2]), what)
         else:
             if add is not None:
                 raise ValueError("dense_tile.cuh adds in place only")
-            err = self.lib.dense_bwd_gemm(
-                config, int(not dx), int(dx), *a_op, k, None, 0, 0, *b_op,
-                out_ptr, out.stride(0), int(accumulate), _ptr(ws_buf),
-                _ptr(counters), m, n, splits, per_split, self.stream)
-        self._check(err, f"dense_bwd_gemm (config {config}, m={m}, n={n}, "
-                         f"k={k}, splits={splits})")
+            self._launch("dense_bwd_gemm", (
+                config, int(not dx), int(dx), *a_op[:2], k, None, 0, 0,
+                *b_op[:2], out_ptr, ldo, int(accumulate), _ptr(ws_buf),
+                _ptr(counters), m, n, splits, per_split),
+                (a_op[2], 0, b_op[2], so), what)
 
     def dw(self, inp: torch.Tensor, col: int, k: int, gz: torch.Tensor,
            dw: torch.Tensor, row: int, config: Optional[int] = None) -> None:
         """``dw[row:row+k] = inp[:, col:col+k]^T @ gz`` (reduces the batch)."""
-        a_op = operand(inp, col)
+        a_op = _op(inp, col)
         plan = plan_bwd(k, self.u, self.m, self.num_sms, config,
-                        vec=vec_aligned(a_op))
-        self._product(plan, False, a_op, operand(gz), dw, 0, row, k, self.u,
+                        vec=_vec(a_op))
+        self._product(plan, False, a_op, _op(gz), dw, 0, row, k, self.u,
                       self.m, False)
 
     def dinput(self, gz: torch.Tensor, gzt: Optional[torch.Tensor],
@@ -839,18 +980,20 @@ class _Backward:
         plan = plan_bwd(self.m, k, self.u, self.num_sms, config, dx=True)
         # a and b stay referenced until the launch is queued: the allocator
         # would hand a freed W^T to the split workspace of this very launch
-        a, b = gz, w[row:row + k]
+        a, b = gz, w[..., row:row + k, :]
         if plan[0] in _RT_CONFIGS:
             a, b = gzt, self.transpose(b) if wt is None else wt
-        self._product(plan, True, operand(a), operand(b), out, col, 0,
-                      self.m, k, self.u, accumulate, add)
+        self._product(plan, True, _op(a), _op(b), out, col, 0, self.m, k,
+                      self.u, accumulate, add)
 
 
 def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                      activation: str, need_dx: bool, need_dw, need_db):
     """``(dx, dws, dbs)`` on the card, None where not asked for. ``saved``
     is the forward's output stream (densenet) or its input ``x`` (mlp,
-    d2rl), then the pre-activations ``zs``.
+    d2rl), then the pre-activations ``zs``. With a leading member axis on
+    ``zs`` (E, M, L*U) (and on the rest: ``ws`` (E, K_i, U), ``g``), E
+    members' in one launch per solo launch, their gradients with it.
 
     The chain act_grad_i -> dx_i -> act_grad_{i-1} runs on the caller's
     stream. Off it, on a side stream: (densenet) every W_i^T the dx
@@ -862,14 +1005,16 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
     use; the caller's stream waits for the side stream before the
     gradients are returned."""
     stream_or_x, zs = saved
-    n_layers, u = len(ws), ws[0].shape[1]
-    d0 = ws[0].shape[0]
-    m = zs.shape[0]
+    n_layers, u = len(ws), ws[0].shape[-1]
+    d0 = ws[0].shape[-2]
+    m = zs.shape[-2]
+    e = _members(zs)
+    lead = () if e is None else (e,)
     dws: list = [None] * n_layers
     dbs: list = [None] * n_layers
     wanted = [i for i in range(n_layers) if need_dw[i] or need_db[i]]
     lowest = 0 if need_dx else (min(wanted) if wanted else n_layers)
-    if lowest == n_layers or m == 0:
+    if lowest == n_layers or m == 0 or e == 0:
         return None, dws, dbs
     if g.dtype != torch.float32:
         raise TypeError(f"dense_stack backward takes a float32 gradient, "
@@ -878,9 +1023,10 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
     with torch.cuda.device(dev):
         main = torch.cuda.current_stream(dev)
         side = _side_stream(dev, main)
-        bw = _Backward(m, u, activation, dev)
+        bw = _Backward(m, u, activation, dev, e)
         bws = bw.on(side)
-        g = g.contiguous()
+        if not _dense(g, 2):
+            g = g.contiguous()
 
         def off_chain(i, gz, part, segments):
             """db_i and dW_i on the side stream, once the caller's stream
@@ -888,7 +1034,7 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
             first row)`` segment."""
             dbs[i] = bw._empty(u) if part is not None else None
             if segments:
-                dws[i] = bw._empty(ws[i].shape[0], u)
+                dws[i] = bw._empty(ws[i].shape[-2], u)
             side.wait_stream(main)
             for t in (gz, part, dbs[i], dws[i], *(t for t, _ in segments)):
                 if t is not None:
@@ -897,7 +1043,7 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                 if part is not None:
                     bws.db(part, dbs[i])
                 for inp, row in segments:
-                    bws.dw(inp, 0, inp.shape[1], gz, dws[i], row)
+                    bws.dw(inp, 0, inp.shape[-1], gz, dws[i], row)
 
         if connectivity == "densenet":
             # gb, the gradient stream below the top slot, accumulated in
@@ -910,12 +1056,12 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
             top = n_layers - 1
             k_top = d0 + top * u
             from_g = (top > lowest or need_dx) and bw.dx_rt(k_top)
-            width = k_top if from_g else g.shape[1]
-            gb = torch.empty((m, _pad4(width)), device=dev,
-                             dtype=torch.float32)[:, :width]
+            width = k_top if from_g else g.shape[-1]
+            gb = torch.empty((*lead, m, _pad4(width)), device=dev,
+                             dtype=torch.float32)[..., :width]
             if not from_g:
                 gb.copy_(g)
-            dx = torch.empty((m, d0), device=dev) \
+            dx = torch.empty((*lead, m, d0), device=dev) \
                 if need_dx and bw.dx_rt(d0) else None
             # every W_i^T dx will read, made up front on the side stream,
             # top layer first: off the chain, which waits only for its own
@@ -935,22 +1081,22 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                 gz, gzt, part = bw.act_grad(src, k, zs, i, need_db[i],
                                             g_in and bw.dx_rt(k))
                 off_chain(i, gz, part,
-                          [(stream_or_x[:, :k], 0)] if need_dw[i] else [])
+                          [(stream_or_x[..., :k], 0)] if need_dw[i] else [])
                 if g_in:
                     if i in wts:
                         main.wait_event(ready[i])
                     out = dx if i == 0 and dx is not None else gb
                     bw.dinput(gz, gzt, ws[i], 0, k, out, 0, accumulate=True,
                               wt=wts.pop(i, None),
-                              add=None if src is out else operand(src))
+                              add=None if src is out else _op(src))
             if need_dx and dx is None:
-                dx = gb[:, :d0].contiguous()
+                dx = gb[..., :d0].contiguous()
         else:
             x = stream_or_x
             d2rl = connectivity == "d2rl"
             gh = g
-            gx = torch.zeros((m, d0), device=dev) if need_dx and d2rl \
-                else None
+            gx = torch.zeros((*lead, m, d0), device=dev) \
+                if need_dx and d2rl else None
             for i in reversed(range(lowest, n_layers)):
                 inputs = []                  # the input gradients it makes
                 if i == 0 and need_dx:
@@ -1008,27 +1154,245 @@ class _StackKernel(torch.autograd.Function):
         return (dx, None, None, *dws, *dbs)
 
 
+# ---------------------------------------------------------------------------
+# E members at once: a fleet's member axis (under torch.func.vmap)
+# ---------------------------------------------------------------------------
+
+def _stacked(t: torch.Tensor, dims: int) -> torch.Tensor:
+    """``t`` (E, ...) as the member kernels read it: itself where each
+    member is contiguous (any member stride, 0 for a shared operand),
+    else a contiguous copy."""
+    return t if _dense(t, dims) else t.contiguous()
+
+
+def dense_stack_members(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                        bs: Sequence[torch.Tensor], *,
+                        connectivity: str = "densenet",
+                        activation: str = "swish",
+                        zs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The feature of E members' stacks, ``(E, M, F)``: ``x`` (E, M, d0),
+    ``ws`` (E, K_i, U), ``bs`` (E, U), each of member stride 0 where the
+    members share it (``expand``). On a CUDA tensor every kernel launches
+    once for all members, planned as one solo member, so member e is
+    bitwise its solo launches; with ``zs`` (E, M, L*U) the pre-activations
+    go there too. On a CPU tensor the members twin,
+    ``dense_stack_members_ref`` (``zs`` not written)."""
+    _validate(connectivity, activation, ws, bs)
+    if x.dim() != 3:
+        raise ValueError(f"dense_stack_members: x {tuple(x.shape)}, want "
+                         f"(E, M, d0)")
+    if x.device.type == "cpu":
+        return dense_stack_members_ref(x, ws, bs, connectivity=connectivity,
+                                       activation=activation)
+    return _kernel_forward(_stacked(x, 2), [_stacked(w, 2) for w in ws],
+                           [_stacked(b, 1) for b in bs], connectivity,
+                           activation, zs)
+
+
+def dense_stack_members_grads(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                              bs: Sequence[torch.Tensor], g: torch.Tensor,
+                              *, connectivity: str = "densenet",
+                              activation: str = "swish",
+                              saved: Optional[Tuple[torch.Tensor,
+                                                    torch.Tensor]] = None,
+                              need_dx: bool = True,
+                              need_dw: Optional[Sequence[bool]] = None,
+                              need_db: Optional[Sequence[bool]] = None):
+    """``(dx, dws, dbs)`` of ``<dense_stack_members(x, ws, bs), g>``, each
+    with the member axis, None where not asked for (``need_*``, all by
+    default). On a CUDA tensor the backward kernels launch once for all
+    members, from the forward's ``saved``: ``(feature (densenet) or x,
+    zs)``, ``zs`` the pre-activations ``dense_stack_members`` wrote; on a
+    CPU tensor the members twin, ``dense_stack_members_grads_ref``."""
+    n = len(ws)
+    need_dw = [True] * n if need_dw is None else list(need_dw)
+    need_db = [True] * n if need_db is None else list(need_db)
+    if x.device.type == "cpu":
+        dx, dws, dbs = dense_stack_members_grads_ref(
+            x, ws, bs, g, connectivity=connectivity, activation=activation)
+        return (dx if need_dx else None,
+                [d if k else None for d, k in zip(dws, need_dw)],
+                [d if k else None for d, k in zip(dbs, need_db)])
+    if saved is None:
+        raise ValueError("dense_stack_members_grads on the card needs the "
+                         "forward's saved (feature or x, zs)")
+    return _kernel_backward(saved, [_stacked(w, 2) for w in ws],
+                            _stacked(g, 2), connectivity, activation,
+                            need_dx, need_dw, need_db)
+
+
+@torch.library.custom_op("repro_torch::dense_stack_fwd", mutates_args=())
+def _fwd_op(x: torch.Tensor, ws: List[torch.Tensor],
+            bs: List[torch.Tensor], connectivity: str, activation: str,
+            with_zs: bool) -> List[torch.Tensor]:
+    """``[feature]``, or ``[feature, zs]`` for the backward (zs empty on the
+    CPU, whose backward recomputes), of one stack; its vmap rule runs E
+    members at once."""
+    m, n = x.shape[0], len(ws)
+    if x.device.type == "cpu":
+        out = dense_stack_ref(x, ws, bs, connectivity=connectivity,
+                              activation=activation)
+        return [out, x.new_empty((m, 0))] if with_zs else [out]
+    zs = torch.empty((m, n * ws[0].shape[-1]), device=x.device,
+                     dtype=torch.float32) if with_zs else None
+    out = _kernel_forward(x.contiguous(), ws, bs, connectivity, activation,
+                          zs)
+    return [out, zs] if with_zs else [out]
+
+
+def _grads_list(grads, need_dx, need_dw, need_db) -> List[torch.Tensor]:
+    """The asked-for gradients of ``(dx, dws, dbs)`` as one flat list."""
+    dx, dws, dbs = grads
+    return ([dx] if need_dx else []) + \
+        [d for d, k in zip(dws, need_dw) if k] + \
+        [d for d, k in zip(dbs, need_db) if k]
+
+
+@torch.library.custom_op("repro_torch::dense_stack_bwd", mutates_args=())
+def _bwd_op(keep: torch.Tensor, zs: torch.Tensor, ws: List[torch.Tensor],
+            bs: List[torch.Tensor], g: torch.Tensor, connectivity: str,
+            activation: str, need_dx: bool, need_dw: List[bool],
+            need_db: List[bool]) -> List[torch.Tensor]:
+    """The asked-for gradients of one stack, in the order dx, dW_i, db_i,
+    from the forward's ``keep`` (the feature for densenet, x else) and
+    ``zs``; its vmap rule runs E members at once."""
+    d0 = ws[0].shape[0]
+    if keep.device.type == "cpu":
+        x = keep[:, :d0] if connectivity == "densenet" else keep
+        grads = dense_stack_grads_ref(x, ws, bs, g,
+                                      connectivity=connectivity,
+                                      activation=activation)
+    else:
+        grads = _kernel_backward((keep, zs), ws, g, connectivity,
+                                 activation, need_dx, need_dw, need_db)
+    return _grads_list(grads, need_dx, need_dw, need_db)
+
+
+def _members_of(t: torch.Tensor, dim: Optional[int], e: int) -> torch.Tensor:
+    """A vmap rule's argument with its member axis first: an unbatched one
+    expanded to E members of stride 0 (never copied E times)."""
+    if dim is None:
+        return t.expand((e, *t.shape))
+    return t.movedim(dim, 0)
+
+
+def _fwd_vmap(info, in_dims, x, ws, bs, connectivity, activation, with_zs):
+    e = info.batch_size
+    x = _members_of(x, in_dims[0], e)
+    ws = [_members_of(w, d, e) for w, d in zip(ws, in_dims[1])]
+    bs = [_members_of(b, d, e) for b, d in zip(bs, in_dims[2])]
+    m, n = x.shape[1], len(ws)
+    zs = None
+    if with_zs:
+        zs = torch.empty((e, m, 0 if x.device.type == "cpu"
+                          else n * ws[0].shape[-1]),
+                         device=x.device, dtype=torch.float32)
+    out = dense_stack_members(x, ws, bs, connectivity=connectivity,
+                              activation=activation, zs=zs)
+    outs = [out, zs] if with_zs else [out]
+    return outs, [0] * len(outs)
+
+
+def _bwd_vmap(info, in_dims, keep, zs, ws, bs, g, connectivity, activation,
+              need_dx, need_dw, need_db):
+    e = info.batch_size
+    keep = _members_of(keep, in_dims[0], e)
+    zs = _members_of(zs, in_dims[1], e)
+    ws = [_members_of(w, d, e) for w, d in zip(ws, in_dims[2])]
+    bs = [_members_of(b, d, e) for b, d in zip(bs, in_dims[3])]
+    g = _members_of(g, in_dims[4], e)
+    if keep.device.type == "cpu":
+        # the members twin as E calls of the solo op (each the solo plain
+        # backward): torch.func.vjp runs inside the op, not in this rule
+        per = [_bwd_op(keep[i], zs[i], [w[i] for w in ws],
+                       [b[i] for b in bs], g[i], connectivity, activation,
+                       need_dx, need_dw, need_db) for i in range(e)]
+        out = [torch.stack(t) for t in zip(*per)]
+    else:
+        out = _grads_list(_kernel_backward(
+            (_stacked(keep, 2), zs), [_stacked(w, 2) for w in ws],
+            _stacked(g, 2), connectivity, activation, need_dx, need_dw,
+            need_db), need_dx, need_dw, need_db)
+    return out, [0] * len(out)
+
+
+torch.library.register_vmap("repro_torch::dense_stack_fwd", _fwd_vmap)
+torch.library.register_vmap("repro_torch::dense_stack_bwd", _bwd_vmap)
+
+
+class _StackFn(torch.autograd.Function):
+    """The stack under ``torch.func`` (``dense_stack`` inside a transform):
+    the forward and backward custom ops, whose vmap rules take the member
+    kernels; the function's own vmap rule is generated from theirs. The
+    backward computes only what the transform asks for
+    (``needs_input_grad``: a constant weight's dW is skipped)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, connectivity, activation, *params):
+        n = len(params) // 2
+        out, zs = _fwd_op(x, list(params[:n]), list(params[n:]),
+                          connectivity, activation, True)
+        return out, zs
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, connectivity, activation, *params = inputs
+        out, zs = output
+        ctx.connectivity, ctx.activation = connectivity, activation
+        ctx.mark_non_differentiable(zs)
+        ctx.save_for_backward(out if connectivity == "densenet" else x, zs,
+                              *params)
+
+    @staticmethod
+    def backward(ctx, g, _gzs):
+        keep, zs, *params = ctx.saved_tensors
+        n = len(params) // 2
+        need = ctx.needs_input_grad
+        need_dx, need_dw, need_db = need[0], need[3:3 + n], need[3 + n:]
+        grads = iter(_bwd_op(
+            keep.detach(), zs.detach(), [p.detach() for p in params[:n]],
+            [p.detach() for p in params[n:]], g.detach(), ctx.connectivity,
+            ctx.activation, need_dx, list(need_dw), list(need_db)))
+        dx = next(grads) if need_dx else None
+        dws = [next(grads) if k else None for k in need_dw]
+        dbs = [next(grads) if k else None for k in need_db]
+        return (dx, None, None, *dws, *dbs)
+
+
+def _transformed(x: torch.Tensor, ws, bs, connectivity: str,
+                 activation: str) -> torch.Tensor:
+    """``dense_stack`` of 2-D ``x`` inside a ``torch.func`` transform."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *ws, *bs)):
+        return _StackFn.apply(x, connectivity, activation, *ws, *bs)[0]
+    return _fwd_op(x, list(ws), list(bs), connectivity, activation,
+                   False)[0]
+
+
 def dense_stack(x: torch.Tensor, ws: Sequence[torch.Tensor],
                 bs: Sequence[torch.Tensor], *, connectivity: str = "densenet",
                 activation: str = "swish") -> torch.Tensor:
     """Feature of the L-layer stack: the kernels for CUDA tensors, the plain
-    version for CPU tensors (see the module docstring)."""
+    version for CPU tensors, the member route inside a ``torch.func``
+    transform (see the module docstring)."""
     _validate(connectivity, activation, ws, bs)
     d0, u = x.shape[-1], ws[0].shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, d0)
-    if x.device.type == "cpu":
-        out = dense_stack_ref(x2, ws, bs, connectivity=connectivity,
-                              activation=activation)
-    elif x.device.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x2, *ws, *bs)):
-            out = _StackKernel.apply(x2.contiguous(), connectivity,
-                                     activation, *ws, *bs)
-        else:
-            out = _kernel_forward(x2.contiguous(), ws, bs, connectivity,
-                                  activation)
-    else:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dense_stack runs on cuda (kernel) or cpu (plain "
                          f"version), not {x.device}")
+    if torch._C._functorch.maybe_current_level() is not None:
+        out = _transformed(x2, ws, bs, connectivity, activation)
+    elif x.device.type == "cpu":
+        out = dense_stack_ref(x2, ws, bs, connectivity=connectivity,
+                              activation=activation)
+    elif torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x2, *ws, *bs)):
+        out = _StackKernel.apply(x2.contiguous(), connectivity, activation,
+                                 *ws, *bs)
+    else:
+        out = _kernel_forward(x2.contiguous(), ws, bs, connectivity,
+                              activation)
     return out.reshape(*lead, feature_dim(connectivity, len(ws), d0, u))

@@ -55,7 +55,9 @@ one route a device, so nothing reads it here.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -246,6 +248,23 @@ def _batch_layout(shapes: Dict[str, tuple], batch: int):
     return layout, at
 
 
+@contextlib.contextmanager
+def _capturing():
+    """Python's cyclic garbage collector off for a CUDA graph capture,
+    after one collection. A finished run's graph lives in a cycle (its
+    trainer holds it, it holds its trainer), so only the collector frees
+    it; freed in the middle of another capture (``CUDAGraph.reset``), it
+    invalidates that capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class StepGraph:
     """``Trainer.step`` captured once as a CUDA graph (a fleet's state:
     ``Trainer.fleet_step``).
@@ -320,7 +339,7 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for gen in (ls.gen if fleet else [ls.gen]):
             self.graph.register_generator_state(gen)
-        with torch.cuda.graph(self.graph, stream=self.stream):
+        with _capturing(), torch.cuda.graph(self.graph, stream=self.stream):
             nxt, self.metrics, self.batch = step(ls)
             if rows:
                 self._record(self.metrics)
@@ -339,14 +358,15 @@ class StepGraph:
             torch.cuda.CUDAGraph()
         for g in (self.graph, self.graph_b):
             g.register_generator_state(ls.gen)
-        with torch.cuda.graph(self.graph, stream=self.stream):
+        with _capturing(), torch.cuda.graph(self.graph, stream=self.stream):
             actors, nst, self.rows = tr.rows(ls.agent["params"], ls.actors,
                                              ls.nstep,
                                              tr.collect_draws(ls.gen))
             copied = _copy_into([*ls.actors, *nstep(ls.nstep)],
                                 [*actors, *nstep(nst)])
         self._rows_host = torch.empty(self.rows.shape, pin_memory=True)
-        with torch.cuda.graph(self.graph_b, stream=self.stream):
+        with _capturing(), \
+                torch.cuda.graph(self.graph_b, stream=self.stream):
             agent, self.metrics = tr.update_fn(ls.agent, tr.acfg, self.batch,
                                                tr.learn_draws(ls.gen))
             if rows:

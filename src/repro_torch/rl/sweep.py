@@ -30,9 +30,11 @@ Semantics (the reference's)
   ``execution.mesh_shards`` and ``guard.policy='skip'``. On the card the
   sum-tree runs its member-axis kernels for either ``replay.kernel``; the
   port also accepts "pallas", which the reference's fleets reject
-  (ROADMAP C12). ``network.block_backend='fused'`` raises
-  ``UnportedError``: the stack kernels have no member axis yet (ROADMAP
-  A.14).
+  (ROADMAP C12). ``network.block_backend='fused'`` runs the stack
+  kernels with a member axis: each forward and backward kernel launches
+  once for all E members (``kernels.dense_block.stack.dense_stack_members``
+  under the vmap), a member bitwise its solo launches; on the CPU the
+  members twin loops the solo plain version.
 * **Member k is the solo run with seed k.** Each member owns a
   ``torch.Generator`` seeded as the solo ``Trainer`` seeds it and draws
   its init, resets, warm-up and every superstep's draws from it in the
@@ -90,9 +92,8 @@ from repro_torch.obs.trace import annotate
 from repro_torch.rl.experiment import (ExperimentSpec, SpecError,
                                        SpecWarning, resume_seed)
 from repro_torch.rl.runner import (RunResult, StepGraph, Trainer,
-                                   TrainLoopState, UnportedError,
-                                   member_state, scalar_keys, scalar_row,
-                                   state_leaves)
+                                   TrainLoopState, member_state,
+                                   scalar_keys, scalar_row, state_leaves)
 
 # The reference's member-vs-solo tolerance (its sweep.py): a member's
 # computation is batched with its neighbours', so float reassociation in
@@ -197,11 +198,6 @@ class Fleet:
                     f"activation, ...) need their own sub-fleet — "
                     f"Sweep.from_grid partitions a grid this way "
                     f"automatically.")
-        if base.network.block_backend == "fused":
-            raise UnportedError(
-                "network.block_backend='fused' in a fleet: the stack "
-                "forward and backward kernels have no member axis yet "
-                "(ROADMAP A.14); fleets run block_backend='jnp'")
         self.trainer = Trainer(base, resolve_device(device))
         self.specs = specs
         self.spec = base

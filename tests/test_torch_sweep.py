@@ -2,7 +2,9 @@
 reference and against its own solo runs, on the CPU.
 
 * One member-batched superstep against the reference's: a JAX ``Fleet``
-  of 3 seeds (jnp blocks, the xla sum-tree, OFENet on) warms up and hands
+  of 3 seeds (jnp or fused blocks, the xla sum-tree, OFENet on; the
+  reference's fused stack runs its XLA twin on the CPU, the port's its
+  members twin, a loop of the solo plain version) warms up and hands
   its stacked state over; the port's ``Trainer.fleet_step``, fed each
   member's draws of ``_device_step`` from its own key, must give the
   reference's ``jax.vmap(Trainer._superstep)``: params within 1e-6, AdamW
@@ -19,7 +21,10 @@ reference and against its own solo runs, on the CPU.
   ``SOLO_PARITY``, the freeze bitwise, resume at a mid-chunk split, the
   whole run and per-segment dispatch bitwise, the rejections (with the
   differing paths), ``from_grid``'s partition and host upgrade, and both
-  ``exploit_explore`` tests. The reference rejects
+  ``exploit_explore`` tests. With fused blocks a member matches its solo
+  run within ``SOLO_PARITY`` and ``Sweep.from_grid`` partitions and steps
+  (the stack's member route; its kernels are held bitwise to solo
+  launches in ``tests/test_torch_stack_members.py``). The reference rejects
   ``replay.kernel='pallas'`` in a fleet; the port accepts both values (the
   CPU runs the plain sum-tree and the card its member-axis kernels either
   way; ROADMAP C12).
@@ -125,9 +130,10 @@ def _close(a, b, rtol, what):
                                err_msg=what)
 
 
+@pytest.mark.parametrize("block_backend", ["jnp", "fused"])
 @pytest.mark.parametrize("algo", ["sac", "td3"])
-def test_fleet_superstep_matches_jax_vmapped_superstep(algo):
-    over = dict(_JBASE, algo=algo)
+def test_fleet_superstep_matches_jax_vmapped_superstep(algo, block_backend):
+    over = dict(_JBASE, algo=algo, block_backend=block_backend)
     jf = JFleet([JSpec().override(**over).override(seed=s)
                  for s in (0, 1, 2)])
     jf._ensure_init()
@@ -305,9 +311,43 @@ def test_fleet_rejects_skip_policy():
         Fleet([spec.override(seed=s) for s in (0, 1)], device="cpu")
 
 
-def test_fused_blocks_in_a_fleet_raise_naming_their_item():
-    with pytest.raises(UnportedError, match="A.14"):
-        Fleet([_small(block_backend="fused")], device="cpu")
+def test_fused_fleet_member_matches_its_solo_fused_run():
+    """A fleet of fused-block members (the stack's member route under the
+    vmap) against each member's solo fused run: within ``SOLO_PARITY``."""
+    over = dict(block_backend="fused", use_ofenet=True, ofenet_units=8,
+                ofenet_layers=2, num_layers=2)
+    fl = _fleet(seeds=(0, 1), **over)
+    fl.run(6)
+    for m in (0, 1):
+        exp = Experiment.from_spec(_small(**over).override(seed=m),
+                                   device="cpu")
+        exp.run(6)
+        solo = exp._ls
+        got = member_state(fl._fls, m)
+        for a, b in zip(tree_leaves(got.agent["params"]),
+                        tree_leaves(solo.agent["params"])):
+            np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                       rtol=SOLO_PARITY_RTOL,
+                                       atol=SOLO_PARITY_ATOL)
+        assert int(got.step) == int(solo.step)
+
+
+def test_from_grid_over_a_fused_base_partitions_and_steps():
+    """``Sweep.from_grid`` over a fused base: one fleet a width, each of
+    fused members, stepped on the CPU."""
+    base = _small(block_backend="fused")
+    sweep = Sweep.from_grid(base, axis={"num_units": [8, 16]}, seeds=2,
+                            device="cpu")
+    assert [f.n_members for f in sweep.fleets] == [2, 2]
+    assert all(f.spec.network.block_backend == "fused"
+               for f in sweep.fleets)
+    res = sweep.run(3)
+    assert [r.point["num_units"] for r in res] == [8, 8, 16, 16]
+    assert [r.seed for r in res] == [0, 1, 0, 1]
+    assert all(len(r.result.returns) == 1 for r in res)
+    for f in sweep.fleets:
+        assert all(bool(torch.isfinite(t).all())
+                   for t in tree_leaves(f._fls.agent["params"]))
 
 
 def test_pallas_kernel_fleet_is_accepted_and_xla_raises_on_cuda(monkeypatch):

@@ -358,6 +358,39 @@ def test_copy_into_reads_every_source_before_writing():
         _copy_into([a], [a, b])
 
 
+def test_graph_captures_run_without_the_cyclic_collector():
+    """Every ``StepGraph`` capture runs inside ``runner._capturing``: a
+    dead cycle (a finished run's trainer and its graph) is collected
+    before the capture and the collector stays off during it, since a
+    graph freed mid-capture invalidates the capture; a caller's disabled
+    collector stays disabled."""
+    import gc
+    import inspect
+    import weakref
+    from repro_torch.rl import runner
+
+    class Node:
+        pass
+    a, b = Node(), Node()
+    a.other, b.other = b, a
+    dead = weakref.ref(a)
+    del a, b
+    assert gc.isenabled()
+    with runner._capturing():
+        assert dead() is None and not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with runner._capturing():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+    src = inspect.getsource(runner.StepGraph)
+    assert src.count("torch.cuda.graph(") == 3
+    assert src.count("_capturing()") == 3
+
+
 @pytest.mark.parametrize("name", ["fig1-depth", "fig3-width",
                                   "fig5-connectivity", "fig6-ofenet",
                                   "quickstart"])
