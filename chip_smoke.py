@@ -100,6 +100,20 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    against ``run(40)``, bitwise on the state, the generator, returns,
    eval steps and sranks, with the save and restore seconds and the
    file's bytes.
+   The sharded replay (``phase_sharded``, ``[sharded-tree]``,
+   ``[sharded]`` lines; ROADMAP A.8): the same spec at
+   ``execution.mesh_shards=4`` (4 shards of 25,000 rows on a leading
+   axis, 8 actors and 64 sampled rows a shard): the member tree kernels
+   at those shapes (E=4 trees of 2^16 nodes, B=64, writes of 8 and 64)
+   bitwise 4 solo launches and the plain versions, timed hot and cold
+   beside them; ``mesh_shards=1`` bitwise ``mesh_shards=0`` over 40
+   supersteps under the graph; at 4 shards (n_step 1 and 3) the launches
+   of the warm-up and the captured superstep held to
+   ``expected_launches`` (one member-axis sample and two member-axis
+   writes for all shards), 20 replays bitwise 20 eager supersteps; the
+   graph's wall beside the unsharded one in turns, each replay's CUDA-event
+   time, idle share and kernels under the profiler; ``run(17); save;
+   Experiment.restore; run(23)`` bitwise ``run(40)``.
    TD3 training (``phase_td3``, ``[td3]`` lines): the same spec with
    ``algo="td3"``: the warm-up, one superstep on the card against the CPU
    plain path, the launches of the warm-up and the captured superstep
@@ -225,7 +239,16 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    its dtype (math for float32, flash for bfloat16; named) and the
    memory-efficient backend on K/V repeated to H heads outside the timed
    call; the SSD chunk in float32 and bfloat16.
-7. The paper's figure drivers (``phase_figs``, ``[figs]`` lines; ROADMAP
+7. The port's gates and its quickstart (``[check]``, ``[quickstart]``
+   lines): ``repro_torch.check.dynamic`` on the card for ``smoke`` and the
+   sharded cell's spec cut to 12 supersteps (zero findings, D001 run: the
+   steady-state pass under ``torch.cuda.set_sync_debug_mode("error")``),
+   and ``smoke`` with a ``float()`` of a device tensor injected after
+   every chunk, which D001 must report; ``python -m
+   repro_torch.launch.quickstart --steps 16 --serve --log-dir`` (the
+   served actions "match" the direct ones) and ``python -m
+   repro_torch.obs.report`` over its log directory.
+8. The paper's figure drivers (``phase_figs``, ``[figs]`` lines; ROADMAP
    A.10; last, because after its runs the profiler has been seen to drop
    device kernels), with the counts set to 0 first and read at its end:
    C14's checks (``figures.presets_smoke`` builds all 14 presets as shipped on
@@ -246,8 +269,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    critics on a replay batch of 256, through the stack forward kernel and
    through its plain twin on the card with the same directions, pointwise
    within relative 1e-4.
-8. One JSON line of seven kernel records (the stack and tree records'
+9. One JSON line of seven kernel records (the stack and tree records'
    ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
+   all four ``sharded``: the sharded phase's runs (the tree records'
+   ``sharded`` entries the member launches at the shards' shapes),
    the stack records' also the host replay's (``train_host``), the tree
    records' also the fleet run's, the stack records' also the fused
    fleets' (``fleet``: fig3-width, ``fleet_train``: the training cell's
@@ -2993,17 +3018,19 @@ def member_diff(a, b, members):
     return bad
 
 
-def phase_fleet_tree(gen, e=FLEET_E, capacity=100_000, b=256):
+def phase_fleet_tree(gen, e=FLEET_E, capacity=100_000, b=256, ns=(32, 256),
+                     tag="fleet-tree"):
     """The sum-tree kernels with a member axis: E full trees of capacity
     100,000 (2^18 nodes each), B=256 targets a member (edge targets 0 and
-    total), writes of n=32 and 256 a member with repeats. One batched
+    total), writes of n=32 and 256 a member with repeats (a sharded
+    replay's: E shards, their capacity, batch and writes). One batched
     launch against E solo launches and against the plain versions over the
     member axis, bitwise; a batched write with indices outside the leaves
     in one member skips and counts exactly those. Then times, hot and
     cold: the batched launch against E solo launches, and at E=1 the
     member entry against the solo one, each beside the bytes bound (the
-    solo bound times E). Returns ``{"sample": .., "set32": ..,
-    "set256": ..}`` records for the kernel line's ``fleet`` entries."""
+    solo bound times E). Returns ``{"sample": .., "set<n>": ..}`` records
+    for the kernel line's ``fleet`` entries."""
     import torch
     from repro_torch.kernels.replay_tree import ops, ref
     from repro_torch.launch.bwd_sweep import l2_flusher, time_per_call_us
@@ -3025,7 +3052,7 @@ def phase_fleet_tree(gen, e=FLEET_E, capacity=100_000, b=256):
         raise AssertionError("tree_sample_members != E solo launches / "
                              "plain")
     writes = {}
-    for n in (32, 256):
+    for n in ns:
         idx = torch.randint(0, capacity, (e, n), generator=gen,
                             device="cuda")
         idx[:, n // 2:] = idx[:, :n - n // 2]          # every index twice
@@ -3058,9 +3085,10 @@ def phase_fleet_tree(gen, e=FLEET_E, capacity=100_000, b=256):
         raise AssertionError(f"tree_set_members with {int((~valid).sum())} "
                              f"indices outside the leaves: {skipped} "
                              f"skipped")
-    log(f"[fleet-tree] E={e} trees of 2^{depth} nodes: tree_sample_members "
+    log(f"[{tag}] E={e} trees of 2^{depth} nodes: tree_sample_members "
         f"(B={b} a member, edge targets 0 and total) and tree_set_members "
-        f"(n=32 and 256 a member, each index twice: keep-last) are one "
+        f"(n={' and '.join(map(str, ns))} a member, each index twice: "
+        f"keep-last) are one "
         f"launch each, bitwise {e} solo launches and the plain versions "
         f"over the member axis; {skipped} indices outside the leaves in "
         f"member 3 skipped and counted")
@@ -3099,7 +3127,7 @@ def phase_fleet_tree(gen, e=FLEET_E, capacity=100_000, b=256):
         out[f"set{n}"] = dict(r, E=e, n=n, bound_ms=1e3 * (
             8 * n * e + 4 * touched) / HBM_BYTES_PER_S, bound_by="bytes")
     for name, rec in out.items():
-        log(f"[fleet-tree] {name} E={e}: " + "; ".join(
+        log(f"[{tag}] {name} E={e}: " + "; ".join(
             f"{k} hot {rec[k]['ms'] * 1e3:.2f} us (per call "
             f"{rec[k]['hot_call_ms'] * 1e3:.2f}), cold "
             f"{rec[k]['cold_ms'] * 1e3:.2f} us"
@@ -4374,6 +4402,198 @@ def phase_figs(exp, fleet_ms):
     return launches, full
 
 
+SHARDS = 4            # the sharded cell: the training cell at mesh_shards=4
+
+
+def flat_diff(a, b):
+    """``state_diff`` of two states whose tensors may differ by a leading
+    axis of 1 (one shard against none): compared flat."""
+    import torch
+    from repro_torch.rl.runner import state_leaves
+    bad = [(i, float((x.double().reshape(-1)
+                      - y.double().reshape(-1)).abs().max())
+            if x.numel() == y.numel() else float("nan"))
+           for i, (x, y) in enumerate(zip(state_leaves(a), state_leaves(b)))
+           if x.numel() != y.numel()
+           or not torch.equal(x.reshape(-1), y.reshape(-1))]
+    if not torch.equal(a.gen.get_state(), b.gen.get_state()):
+        bad.append(("gen", float("nan")))
+    return bad
+
+
+def phase_sharded(gen, train_spec, steps=40):
+    """The sharded device replay (``execution.mesh_shards``, ROADMAP A.8)
+    at the training cell's spec: the member tree kernels at the shards'
+    shapes (E=4, 25,000 rows and B=64 a shard, adds of 8 rows, refreshes
+    of 64) bitwise their plain twins and timed beside 4 solo launches; one
+    sample and two writes a superstep for all shards, with the unsharded
+    stack launches, counted at capture; ``mesh_shards=1`` bitwise
+    ``mesh_shards=0`` over ``steps`` supersteps under the graph; at 4
+    shards the graph bitwise the eager loop (n_step 1 and 3); the walls in
+    turns beside the unsharded graph, CUDA events, the profiler's idle
+    share and kernels a replay; ``run(17); save; restore; run(23)`` ==
+    ``run(40)``. Returns ``(tree records, launches over the phase's runs,
+    {mesh_shards: device time record})``."""
+    import torch
+    from repro_torch.rl.experiment import Experiment
+    from repro_torch.rl.runner import clone_state
+    t0 = time.perf_counter()
+    tree = phase_fleet_tree(gen, e=SHARDS, capacity=25_000, b=64,
+                            ns=(8, 64), tag="sharded-tree")
+    base = train_spec.override(loop="scan")
+    _reset_counts()
+    runs = {}
+    for n in (0, 1):
+        e = Experiment.from_spec(base.override(mesh_shards=n))
+        e.run(steps)
+        torch.cuda.synchronize()
+        runs[n] = e
+    bad = flat_diff(runs[0]._ls, runs[1]._ls)
+    if bad or runs[0].trainer.captures != 1 \
+            or runs[1].trainer.captures != 1:
+        raise AssertionError(f"mesh_shards=1 != mesh_shards=0 after {steps}"
+                             f" supersteps under the graph: {bad[:8]}")
+    log(f"[sharded] mesh_shards=1 == mesh_shards=0 over {steps} supersteps "
+        f"under the graph (one capture each), bitwise on every state tensor"
+        f" (flat: the shard axis of 1) and the generator")
+    graphs = {"n=0": runs[0].trainer.graph}
+    del runs[1]
+    for ns in (1, 3):
+        exp = Experiment.from_spec(base.override(mesh_shards=SHARDS,
+                                                 n_step=ns))
+        tr = exp.trainer
+        exp._ensure_init()
+        ls0 = clone_state(exp._ls)
+        rep = ls0.replay
+        if rep["tree"].shape[0] != SHARDS or tr.dcfg.capacity != 25_000:
+            raise AssertionError(f"sharded state {tuple(rep['tree'].shape)}"
+                                 f", capacity {tr.dcfg.capacity}")
+        graph = graph_capture(tr, ls0, expected_launches(tr),
+                              f"sharded n_step={ns}")
+        graph_bitwise(tr, ls0, f"sharded n_step={ns}")
+        if ns == 1:
+            graphs[f"n={SHARDS}"], keep = graph, exp
+        else:
+            del exp, tr, graph
+    launches = _counts()
+    log(f"[sharded] store {tuple(rep['store']['data']['obs'].shape)}, tree "
+        f"{tuple(rep['tree'].shape)}, add_step "
+        f"{tuple(rep['add_step'].shape)} a state; wrapper launches over "
+        f"the phase's runs, counted from 0: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    walls = walls_in_turns(graphs, "sharded")
+    times = {k: graph_device_time(g, f"sharded {k}", f"sharded-prof {k}")
+             for k, g in graphs.items()}
+    w4 = walls[f"n={SHARDS}"]
+    log(f"[sharded] the graph at mesh_shards={SHARDS}: {w4:.3f} ms a replay"
+        f" (host clock) beside {walls['n=0']:.3f} unsharded "
+        f"(x{w4 / walls['n=0']:.4f}); CUDA events "
+        + ", ".join(f"{k} {v['events_ms']:.3f} ms" for k, v in times.items())
+        + "; idle " + ", ".join(
+            f"{k} " + ("not measured" if v["idle"] is None
+                       else f"{100 * v['idle']:.1f}%")
+            for k, v in times.items()))
+    del keep, graphs, runs
+    _free()
+    graph_checkpoint(base.override(mesh_shards=SHARDS), "sharded")
+    log(f"[sharded] phase wall {time.perf_counter() - t0:.1f}s")
+    return tree, launches, {k: dict(v, wall_ms=walls[k])
+                            for k, v in times.items()}
+
+
+def phase_check(train_spec):
+    """``repro_torch.check dynamic`` on the card: the ``smoke`` preset and
+    the sharded cell's spec at a cut budget (12 supersteps, eval and srank
+    every 6), each with zero findings and D001 run (the steady-state pass
+    under ``torch.cuda.set_sync_debug_mode("error")``); then, as a control,
+    ``smoke`` with a ``float()`` of a device tensor after every chunk,
+    which D001 must report."""
+    from repro_torch.check import dynamic
+    from repro_torch.rl import runner
+    x = train_spec.execution
+    cut = {"network.num_units": train_spec.network.num_units,
+           "network.block_backend": train_spec.network.block_backend,
+           "ofenet.num_units": train_spec.ofenet.num_units,
+           "ofenet.num_layers": train_spec.ofenet.num_layers,
+           "replay.capacity": train_spec.replay.capacity,
+           "execution.batch_size": x.batch_size,
+           "execution.mesh_shards": SHARDS, "execution.warmup_steps": 512,
+           "eval.every": 6, "eval.srank_every": 6, "eval.episodes": 1}
+    for preset, steps, over in (("smoke", None, {}),
+                                ("fig10-ablation", 12, cut)):
+        t0 = time.perf_counter()
+        findings, status = dynamic.run_sanitizers(preset, steps=steps,
+                                                  overrides=over)
+        if findings or status["D001"] != "passed":
+            raise AssertionError(f"check dynamic {preset}: {status}\n"
+                                 + dynamic.report(findings, status))
+        log(f"[check] repro_torch.check dynamic --preset {preset}"
+            + (f" --steps {steps} " + " ".join(
+                f"--override {k}={v}" for k, v in over.items())
+               if over else "")
+            + f": " + ", ".join(f"{g} {s}" for g, s in status.items())
+            + f", zero findings ({time.perf_counter() - t0:.1f}s)")
+    inner = runner.Trainer.chunk_fn
+
+    def reading(self, n_steps, do_eval, do_srank=False):
+        chunk = inner(self, n_steps, do_eval, do_srank)
+
+        def read(ls):
+            ls, out = chunk(ls)
+            float(ls.step)               # a host read outside host_read
+            return ls, out
+        return read
+    runner.Trainer.chunk_fn = reading
+    try:
+        findings, status = dynamic.run_sanitizers("smoke")
+    finally:
+        runner.Trainer.chunk_fn = inner
+    if status["D001"] != "failed" or [f.rule for f in findings] != ["D001"]:
+        raise AssertionError(f"check dynamic missed an injected sync: "
+                             f"{status}")
+    log(f"[check] control: smoke with float(ls.step) after every chunk: "
+        f"D001 failed as it must ("
+        + findings[0].message.splitlines()[-1][:120] + ")")
+
+
+def phase_quickstart():
+    """``python -m repro_torch.launch.quickstart`` on the card at a cut
+    budget with ``--serve`` (the served actions the direct ones: "match")
+    and ``--log-dir``, then ``python -m repro_torch.obs.report`` over the
+    log directory."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = os.path.join(tmp, "runs")
+        cmds = [[sys.executable, "-m", "repro_torch.launch.quickstart",
+                 "--steps", "16", "--serve", "--log-dir", logs,
+                 "--override", "warmup_steps=512", "--override",
+                 "eval_episodes=1"],
+                [sys.executable, "-m", "repro_torch.obs.report", logs]]
+        outs = []
+        for cmd in cmds:
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, env=env, cwd=ROOT,
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd[2:4])} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            outs.append((proc.stdout, time.perf_counter() - t0))
+        (qs, t_qs), (rep, t_rep) = outs
+        served = [l for l in qs.splitlines() if l.startswith("served")]
+        if not served or "match direct policy call" not in served[0] \
+                or not os.path.exists(os.path.join(logs, "metrics.jsonl")):
+            raise AssertionError(f"quickstart on the card:\n{qs[-2000:]}")
+    last = [l for l in qs.splitlines() if l.startswith("step")][-1]
+    log(f"[quickstart] python -m repro_torch.launch.quickstart --steps 16 "
+        f"--serve --log-dir <tmp> (warm-up 512, 1 eval episode) on the "
+        f"card: {t_qs:.1f}s; {last.strip()}; {served[0].strip()}")
+    log(f"[quickstart] python -m repro_torch.obs.report <tmp>: exit 0 "
+        f"({t_rep:.1f}s), {len(rep.splitlines())} lines")
+
+
 def build_all():
     """Build the six kernel libraries and the latency probe, one nvcc
     each, all at once."""
@@ -4480,6 +4700,8 @@ def main() -> int:
     td3_spec = train_spec.override(algo="td3")
     td3_launches = phase_td3(td3_spec)
     phase_graph(train_spec, ckpt_specs=(td3_spec,))
+    # early too: its replays are profiled (the idle share)
+    sharded_tree, sharded_launches, _ = phase_sharded(gen, train_spec)
     phase_obs_guard(train_spec)
     host_launches, _ = phase_host(spec, train_spec)
     phase_band()
@@ -4493,6 +4715,8 @@ def main() -> int:
     bwd = phase_bwd_times(gen, profile_classes)
     tree = phase_tree_times(gen)
     new = phase_new_times(gen)
+    phase_check(train_spec)
+    phase_quickstart()
     # last of the phases: after its ~60 runs in this process the profiler
     # has been seen to drop device kernels (PERF.md section 7)
     figs_launches, _ = phase_figs(exp, fleet_ms)
@@ -4513,6 +4737,7 @@ def main() -> int:
                           "fleet": fused["launches"]["fleet"]["fwd"],
                           "fleet_train":
                               fused["launches"]["fleet_train"]["fwd"],
+                          "sharded": sharded_launches["fwd"],
                           "figs": figs_launches["fwd"]},
         launches_by_kernel={k: train_launches[f"fwd_{k}"]
                             for k in stack.FWD_KERNELS},
@@ -4536,6 +4761,7 @@ def main() -> int:
                                  "fleet": fused["launches"]["fleet"]["bwd"],
                                  "fleet_train":
                                      fused["launches"]["fleet_train"]["bwd"],
+                                 "sharded": sharded_launches["bwd"],
                                  "figs": figs_launches["bwd"]},
                fleet=fused["kernels"]["bwd"]["critic"],
                fleet_by_shape=fused["kernels"]["bwd"]),
@@ -4547,9 +4773,11 @@ def main() -> int:
                launches_by_path={"train": train_launches["sample"],
                                  "train_td3": td3_launches["sample"],
                                  "fleet": fleet_launches["sample"],
+                                 "sharded": sharded_launches["sample"],
                                  "figs": figs_launches["sample"]},
                **{k: tree["sample"][k] for k in TREE_KEYS},
                fleet=fleet_record(fleet_tree["sample"]),
+               sharded=fleet_record(sharded_tree["sample"]),
                profile_ms=profile_classes[3]["sample"][0]),
         record("tree_set",
                "src/repro_torch/kernels/replay_tree/csrc/replay_tree.cu",
@@ -4559,9 +4787,12 @@ def main() -> int:
                launches_by_path={"train": train_launches["set"],
                                  "train_td3": td3_launches["set"],
                                  "fleet": fleet_launches["set"],
+                                 "sharded": sharded_launches["set"],
                                  "figs": figs_launches["set"]},
                fleet=fleet_record(fleet_tree["set256"]),
                fleet_by_n={32: fleet_record(fleet_tree["set32"])},
+               sharded=fleet_record(sharded_tree["set64"]),
+               sharded_by_n={8: fleet_record(sharded_tree["set8"])},
                also_replaces="src/repro/kernels/replay_tree/"
                              "replay_tree.py:127",
                **{k: tree["set256"][k] for k in TREE_KEYS},

@@ -5,11 +5,14 @@ module layout and parameter trees (nested dicts of tensors, dense ``w``
 stored ``(in, out)``) so weights and checkpoints cross between the two.
 It imports neither ``jax`` nor ``repro``.
 
-What is ported so far: serving (``rl.policy.Policy`` over SAC or TD3
-behind the continuous-batching ``launch.serve_policy.PolicyServer``), SAC
-and TD3 training on the device replay with bitwise checkpoint and resume
-(``rl.experiment.Experiment``), and the kernel micro-benchmark
-``launch.kernels_micro``. Every Pallas kernel of
+What is ported: serving (``rl.policy.Policy`` over SAC or TD3 behind the
+continuous-batching ``launch.serve_policy.PolicyServer``), SAC and TD3
+training on the host or the device replay, solo, sharded
+(``execution.mesh_shards``, ``replay.sharded``) or as a fleet, with
+bitwise checkpoint and resume (``rl.experiment.Experiment``), obs and the
+guard, the paper's figure drivers (``figures``), the quickstart
+(``launch.quickstart``), the static and dynamic gates (``check``) and the
+kernel micro-benchmark ``launch.kernels_micro``. Every Pallas kernel of
 the reference is a hand-written CUDA kernel here (``kernels/``: the
 DenseNet stack forward and backward, the sum-tree sample and write, the
 fused dense layer, flash attention, the SSD chunk); each one's plain

@@ -1025,6 +1025,7 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
         side = _side_stream(dev, main)
         bw = _Backward(m, u, activation, dev, e)
         bws = bw.on(side)
+        # check: disable=R003 -- _dense reads strides, not values
         if not _dense(g, 2):
             g = g.contiguous()
 
@@ -1162,6 +1163,7 @@ def _stacked(t: torch.Tensor, dims: int) -> torch.Tensor:
     """``t`` (E, ...) as the member kernels read it: itself where each
     member is contiguous (any member stride, 0 for a shared operand),
     else a contiguous copy."""
+    # check: disable=R003 -- _dense reads strides, not values
     return t if _dense(t, dims) else t.contiguous()
 
 

@@ -75,6 +75,7 @@ def skipped_writes(device) -> int:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     t = _skipped.get(device)
+    # check: disable=R004 -- the counter's one read, off the hot path
     return 0 if t is None else int(t.item())
 
 
@@ -136,6 +137,7 @@ def _skip_counter(device: torch.device) -> torch.Tensor:
 
 def _check_leaves(idx: torch.Tensor, half: int, what: str) -> None:
     """The CPU path's check of every index, solo ``(n,)`` or ``(E, n)``."""
+    # check: disable=R003 -- CPU tensors only; the card skips and counts (C0)
     if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < half):
         raise IndexError(f"{what}: index outside the {half} leaves "
                          f"(min {int(idx.min())}, max {int(idx.max())})")

@@ -1,1 +1,3 @@
-"""Serving: the continuous-batching ``serve_policy.PolicyServer``."""
+"""Entry points and the run's layout: serving
+(``serve_policy.PolicyServer``), the quickstart, the actor mesh of a
+sharded run (``mesh``) and the card's micro-benchmarks and sweeps."""

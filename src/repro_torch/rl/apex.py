@@ -6,6 +6,7 @@ policy's noise for all actors (``(steps, n, act_dim)``) and reset draws
 for all actors (``(steps, n, len(env.draws))``; every actor draws a reset
 at every step, and only those at an episode end use it, as in the
 reference). ``collect_draws`` makes both from one generator.
+``collect_sharded`` is the reference's mesh-parallel pool on one device.
 """
 from __future__ import annotations
 
@@ -68,6 +69,24 @@ def collect(env: EnvSpec, policy_sample: Callable, params: Params,
                         "boundary": need_reset.to(torch.float32)})
     flat = {k: torch.cat([t[k] for t in trs]) for k in trs[0]}
     return st, flat
+
+
+def collect_sharded(env: EnvSpec, policy_sample: Callable, mesh,
+                    params: Params, states: EnvState,
+                    draws: Dict[str, torch.Tensor]
+                    ) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
+    """The actor pool split into ``mesh``'s shards (``launch.mesh``):
+    shard i owns actors ``[i n / s, (i + 1) n / s)``. ``collect`` runs
+    once over all actors on the one device; the transitions come back
+    as the reference's shards return them: ``(steps * n, ...)``, shard
+    by shard, each shard's rows in its ``(step, actor)`` order."""
+    from repro_torch.launch.mesh import replay_shards
+    from repro_torch.replay.sharded import shard_rows
+    steps = draws["noise"].shape[0]
+    states, trs = collect(env, policy_sample, params, states, draws)
+    rows = shard_rows(trs, steps, replay_shards(mesh))
+    return states, {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                    for k, v in rows.items()}
 
 
 def random_policy(act_dim: int) -> Callable:

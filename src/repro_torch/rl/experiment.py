@@ -54,6 +54,7 @@ from repro_torch.obs.stream import ObsRun
 from repro_torch.obs.trace import annotate
 from repro_torch.rl.envs import ENVS
 from repro_torch.rl.replay import buffer_state, load_buffer_state
+from repro_torch.rl.runner import host_read
 
 ALGOS = ("sac", "td3")
 REPLAY_BACKENDS = ("host", "device")
@@ -451,10 +452,10 @@ class Experiment:
     of the call with ``eval_at_end``) and taking the effective rank of the
     critic's features at those of ``spec.eval.srank_every``."""
 
-    def __init__(self, spec: ExperimentSpec, *, device=None):
+    def __init__(self, spec: ExperimentSpec, *, device=None, mesh=None):
         from repro_torch.rl.runner import Trainer
         self.spec = spec
-        self.trainer = Trainer(spec, device)
+        self.trainer = Trainer(spec, device, mesh=mesh)
         self._obs = ObsRun(spec.obs)
         self._monitor = Monitor(spec.guard) if spec.guard.enabled else None
         self._guard_store = None       # DurableStore via attach_guard()
@@ -470,11 +471,16 @@ class Experiment:
         self._wall = 0.0
 
     @classmethod
-    def from_spec(cls, spec: ExperimentSpec, *, device=None) -> "Experiment":
-        return cls(spec, device=device)
+    def from_spec(cls, spec: ExperimentSpec, *, device=None,
+                  mesh=None) -> "Experiment":
+        """A handle on ``spec``'s run on ``device`` (default: the card);
+        ``mesh`` (``launch.mesh.make_actor_mesh``) shards its device
+        replay, as ``execution.mesh_shards`` does by default."""
+        return cls(spec, device=device, mesh=mesh)
 
     @classmethod
-    def restore(cls, path: str, *, device=None) -> "Experiment":
+    def restore(cls, path: str, *, device=None,
+                mesh=None) -> "Experiment":
         """A handle rebuilt from ``save`` output: the spec from the
         checkpoint's metadata, every state leaf loaded onto ``device``
         (default: the card), the run's generator included. Under
@@ -491,7 +497,8 @@ class Experiment:
             raise FileNotFoundError(
                 f"{path}: no spec-bearing checkpoint metadata — was this "
                 f"saved by Experiment.save?")
-        exp = cls(ExperimentSpec.from_dict(meta["spec"]), device=device)
+        exp = cls(ExperimentSpec.from_dict(meta["spec"]), device=device,
+                  mesh=mesh)
         exp._load_payload(path, meta)
         exp._obs.log_event("restore", step=exp.step, path=str(path))
         exp._obs.drain()
@@ -640,7 +647,8 @@ class Experiment:
                 obs.trace.end()
                 step = stop
                 if do_srank:
-                    srank = int(out["srank"])
+                    with host_read():
+                        srank = int(out["srank"])
                     self.sranks.append(srank)
                     obs.log_event("srank", step=step, srank=srank)
                     if mon is not None:
@@ -651,10 +659,10 @@ class Experiment:
                 if keep_last and stop == end:
                     self._last_batch, self._last_priorities = out["last"]
                 if do_eval:
-                    self._record_eval(
-                        step, float(out["eval"].cpu().numpy().mean()),
-                        {k: float(v) for k, v in out["scal"].items()},
-                        progress)
+                    with host_read():
+                        ret = float(out["eval"].cpu().numpy().mean())
+                        scal = {k: float(v) for k, v in out["scal"].items()}
+                    self._record_eval(step, ret, scal, progress)
         else:
             metrics = batch = None
             snap = (self._guard_snapshot(ls, step)

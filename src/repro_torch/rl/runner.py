@@ -45,8 +45,17 @@ generator registered. A host run's ``StepGraph`` is two graphs with the
 host buffer between them (a graph cannot call the host): collect and the
 n-step ring, then the update.
 
-Not ported yet, and refused at construction with the ROADMAP item that
-brings it: mesh sharding.
+``execution.mesh_shards=n`` (the reference's mesh branches) runs n
+logical replay shards on the run's one device (``launch.mesh``): each
+shard owns ``A / n`` actors, its own store, sum-tree and n-step ring of
+``capacity / n`` rows, stacked on a leading shard axis
+(``replay.sharded``). The collect runs once over all actors; each
+shard's add, the stratified sample of ``batch / n`` rows a shard
+(weights over the global max) and the refresh are ``torch.func.vmap``
+over the shard axis: on the card one member-axis tree launch each for
+all shards. The update runs on the shards' batch joined in shard order,
+as an unsharded run's. At ``n = 1`` a run is bitwise the unsharded run.
+
 The device replay's sum-tree runs where its tensors live: on the card its
 CUDA kernels (``csrc/replay_tree.cu``), on the CPU their plain twins, for
 either value of ``replay.kernel``. That field records which route the
@@ -66,10 +75,13 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.common import tree_leaves, tree_map, tree_size
 from repro_torch.core.effective_rank import effective_rank
+from repro_torch.launch.mesh import (ActorMesh, make_actor_mesh,
+                                     replay_shards)
 from repro_torch.obs.trace import annotate
 from repro_torch.replay import (DeviceReplayConfig, nstep_emit_flat,
                                 nstep_init, replay_add, replay_init,
                                 replay_sample, replay_update)
+from repro_torch.replay import sharded
 from repro_torch.rl import apex, sac as sac_mod, td3 as td3_mod
 from repro_torch.rl.envs import eval_returns, make_env
 from repro_torch.rl.policy import Policy, algo_config
@@ -89,24 +101,6 @@ _ALGOS = {
                                                      d["noise"]),
             ("noise",)),
 }
-
-
-class UnportedError(NotImplementedError):
-    """A spec asks for a part of the reference the port does not have
-    yet; the message names the ROADMAP item that brings it."""
-
-
-def check_ported(spec) -> None:
-    """Raise ``UnportedError`` for every spec choice this slice cannot run
-    as asked (nothing quietly runs something else)."""
-    x = spec.execution
-    missing = []
-    if x.mesh_shards > 0:
-        missing.append("execution.mesh_shards>0 (sharded replay on "
-                       "torch.distributed: ROADMAP A.8)")
-    if missing:
-        raise UnportedError("the port cannot train this spec yet: "
-                            + "; ".join(missing))
 
 
 @dataclasses.dataclass
@@ -249,6 +243,25 @@ def _batch_layout(shapes: Dict[str, tuple], batch: int):
 
 
 @contextlib.contextmanager
+def host_read():
+    """A sanctioned host read of the steady-state loop: the chunk
+    epilogue's explicit reads (the stream's one copy, srank, eval and
+    their scalars, as the reference fetches them there) run with
+    ``torch.cuda.set_sync_debug_mode`` lowered to 0, so the dynamic gate
+    D001 (``repro_torch.check.dynamic``), which runs the loop in mode
+    "error", flags every other sync."""
+    mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_available() \
+        else 0
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+@contextlib.contextmanager
 def _capturing():
     """Python's cyclic garbage collector off for a CUDA graph capture,
     after one collection. A finished run's graph lives in a cycle (its
@@ -383,15 +396,20 @@ class StepGraph:
         to the device (enqueued on the current stream, before B)."""
         tr = self.trainer
         self._rows_host.copy_(self.rows, non_blocking=True)
+        # check: disable=R004 -- the host replay's add needs segment A's rows
         torch.cuda.current_stream().synchronize()
+        # check: disable=R004 -- a page-locked host buffer's view, not a read
         tr.host_add(self._rows_host.numpy())
+        # check: disable=R004 -- a page-locked host buffer's view, not a read
         self._idx = tr.host_sample(self._batch_host.numpy())
         self.batch_flat.copy_(self._batch_host, non_blocking=True)
 
     def _host_refresh(self) -> None:
         """After B: the priorities to the host, then the refresh."""
         self._prio_host.copy_(self.metrics["priorities"], non_blocking=True)
+        # check: disable=R004 -- the host replay's refresh needs B's priorities
         torch.cuda.current_stream().synchronize()
+        # check: disable=R004 -- a page-locked host buffer's view, not a read
         self.trainer.host_refresh(self._idx, self._prio_host.numpy())
 
     def _now(self) -> torch.Tensor:
@@ -409,7 +427,9 @@ class StepGraph:
         as one copy to the host."""
         idx = (self._now().long() - n + self._at[:n]) \
             % self.scalars.shape[0]
-        return self.scalars.index_select(0, idx).cpu().numpy()
+        with host_read():
+            # check: disable=R004 -- the chunk epilogue's one stream copy
+            return self.scalars.index_select(0, idx).cpu().numpy()
 
     def load(self, ls: TrainLoopState) -> None:
         """Copy the tensors and the generator states of ``ls`` into the
@@ -455,14 +475,34 @@ def median(x: torch.Tensor) -> torch.Tensor:
 
 
 class Trainer:
-    """The pieces of one training run on one device."""
+    """The pieces of one training run on one device. ``mesh`` (an
+    ``ActorMesh`` on that device) shards the device replay; by default a
+    spec with ``execution.mesh_shards > 0`` builds its own."""
 
-    def __init__(self, spec, device: DeviceLike = None):
-        check_ported(spec)
+    def __init__(self, spec, device: DeviceLike = None,
+                 mesh: Optional[ActorMesh] = None):
         self.spec = spec
         self.device = resolve_device(device)
         x, r = spec.execution, spec.replay
         self.host = r.backend == "host"
+        if mesh is None and x.mesh_shards > 0:
+            mesh = make_actor_mesh(x.mesh_shards, self.device)
+        self.mesh = mesh
+        shards = 1
+        if mesh is not None:
+            if self.host:
+                raise ValueError("mesh_shards requires replay.backend="
+                                 "'device'")
+            shards = replay_shards(mesh)
+            if (x.n_actors % shards or x.batch_size % shards
+                    or r.capacity % shards):
+                raise ValueError(
+                    f"mesh_shards={shards} must divide n_actors="
+                    f"{x.n_actors}, batch_size={x.batch_size} and "
+                    f"replay_capacity={r.capacity}")
+            if mesh.device != self.device:
+                raise ValueError(f"the mesh's shards live on "
+                                 f"{mesh.device}, the run on {self.device}")
         self.n_step = r.n_step
         self.batch_size = x.batch_size
         self.warmup_steps = x.warmup_steps
@@ -476,8 +516,9 @@ class Trainer:
         self.policy0 = Policy.from_spec(spec, env=env, device=self.device)
         self._train_policy = self.policy0.act_fn
         self._rand_policy = apex.random_policy(env.act_dim)
-        self.dcfg = DeviceReplayConfig(
-            capacity=r.capacity, obs_dim=env.obs_dim, act_dim=env.act_dim,
+        self.dcfg = DeviceReplayConfig(   # a shard's, on a mesh
+            capacity=r.capacity // shards, obs_dim=env.obs_dim,
+            act_dim=env.act_dim,
             uniform=not r.prioritized, n_step=r.n_step)
         self.buffer = self.rng = None
         if self.host:
@@ -521,6 +562,25 @@ class Trainer:
         nstate, flat = nstep_emit_flat(self.n_step, self.gamma, nstate, trs,
                                        steps, drop)
         return actors, nstate, flat
+
+    def _collect_add(self, policy, ls: TrainLoopState, draws, *,
+                     drop: int):
+        """The device replay's collect, n-step ring and add (each shard
+        its own actors' rows on a mesh); returns ``(actors, nstate,
+        replay)``."""
+        params = ls.agent["params"]
+        if self.mesh is None:
+            actors, nstate, flat = self._collect_emit(
+                policy, params, ls.actors, ls.nstep, draws, drop=drop)
+            return actors, nstate, replay_add(self.dcfg, ls.replay, flat,
+                                              step=ls.step)
+        out = sharded.collect_and_add_sharded(
+            self.env, policy, self.mesh, self.dcfg, params, ls.actors, draws,
+            ls.replay, nstep_state=ls.nstep, gamma=self.gamma, step=ls.step,
+            drop=drop)
+        if ls.nstep is None:
+            return out[0], None, out[1]
+        return out
 
     def draws(self, gen: torch.Generator) -> Dict[str, Any]:
         """One superstep's draws: the collect step's policy noise and
@@ -599,11 +659,13 @@ class Trainer:
         update, the priorities to the host, refresh."""
         actors, nstate, rows = self.rows(ls.agent["params"], ls.actors,
                                          ls.nstep, draws["collect"])
+        # check: disable=R004 -- the host replay's eager superstep: rows out
         self.host_add(rows.cpu().numpy())
         flat = np.empty(self.batch_floats, np.float32)
         idx = self.host_sample(flat)
         batch = self.batch_views(torch.from_numpy(flat).to(self.device))
         agent, metrics = self.update_fn(ls.agent, self.acfg, batch, draws)
+        # check: disable=R004 -- the host replay's eager superstep: priorities
         self.host_refresh(idx, metrics["priorities"].cpu().numpy())
         ls = TrainLoopState(agent, actors, nstate, ls.replay, ls.gen,
                             ls.step + 1)
@@ -621,16 +683,24 @@ class Trainer:
             draws = self.draws(ls.gen)
         if self.host:
             return self._host_step(ls, draws)
-        actors, nstate, flat = self._collect_emit(
-            self._train_policy, ls.agent["params"], ls.actors, ls.nstep,
-            draws["collect"], drop=0)
-        rstate = replay_add(self.dcfg, ls.replay, flat, step=ls.step)
-        batch, idx, weights = replay_sample(self.dcfg, rstate, draws["u"],
-                                            self.batch_size)
+        actors, nstate, rstate = self._collect_add(
+            self._train_policy, ls, draws["collect"], drop=0)
+        if self.mesh is None:
+            batch, idx, weights = replay_sample(self.dcfg, rstate, draws["u"],
+                                                self.batch_size)
+        else:
+            batch, idx, weights = sharded.sharded_replay_sample(
+                self.dcfg, self.mesh, rstate,
+                draws["u"].view(self.mesh.shards, -1), self.batch_size)
         staleness = (ls.step - batch.pop("add_step")).to(torch.float32)
         batch["weight"] = weights
         agent, metrics = self.update_fn(ls.agent, self.acfg, batch, draws)
-        rstate = replay_update(self.dcfg, rstate, idx, metrics["priorities"])
+        if self.mesh is None:
+            rstate = replay_update(self.dcfg, rstate, idx,
+                                   metrics["priorities"])
+        else:
+            rstate = sharded.sharded_replay_update(
+                self.dcfg, self.mesh, rstate, idx, metrics["priorities"])
         metrics = dict(metrics, staleness_mean=staleness.mean(),
                        staleness_p50=median(staleness),
                        staleness_max=staleness.max())
@@ -695,6 +765,7 @@ class Trainer:
                     if self.obs_stream:
                         keys = scalar_keys(metrics)
                         rows.append(scalar_row(metrics, keys))
+                # check: disable=R004 -- CPU tensors: no card queue to stall
                 stream = torch.stack(rows).numpy() if rows else None
             else:
                 if self.graph is None:
@@ -718,10 +789,10 @@ class Trainer:
                 out["stream"] = {k: stream[:, j] for j, k in
                                  enumerate(keys)}
             if do_srank:
-                with annotate("repro.srank"):
+                with annotate("repro.srank"), host_read():
                     out["srank"] = effective_rank(metrics["q_features"])
             if do_eval:
-                with annotate("repro.eval"):
+                with annotate("repro.eval"), host_read():
                     out["eval"] = self.evaluate(ls)
             return ls, out
 
@@ -736,13 +807,21 @@ class Trainer:
         self.n_params = tree_size(agent["params"])
         actors = apex.init_actor_states(
             self.env, self.env.draw_reset(self.n_actors, gen))
-        nstate = None
+        nstate, mesh = None, self.mesh
+        obs_dim, act_dim = self.env.obs_dim, self.env.act_dim
         if self.n_step > 1:
-            nstate = nstep_init(self.n_step, self.n_actors, self.env.obs_dim,
-                                self.env.act_dim, dev)
+            nstate = (nstep_init(self.n_step, self.n_actors, obs_dim,
+                                 act_dim, dev) if mesh is None else
+                      sharded.sharded_nstep_init(
+                          mesh, self.n_step, self.n_actors // mesh.shards,
+                          obs_dim, act_dim, dev))
         # a host run's replay is the reference's int32 order token
-        replay = (torch.zeros((), dtype=torch.int32, device=dev)
-                  if self.host else replay_init(self.dcfg, dev))
+        if self.host:
+            replay = torch.zeros((), dtype=torch.int32, device=dev)
+        elif mesh is None:
+            replay = replay_init(self.dcfg, dev)
+        else:
+            replay = sharded.sharded_replay_init(self.dcfg, mesh, dev)
         return TrainLoopState(agent, actors, nstate, replay, gen,
                               torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -761,12 +840,11 @@ class Trainer:
             actors, nstate, rows = self.rows(
                 ls.agent["params"], ls.actors, ls.nstep, draws,
                 policy=self._rand_policy, drop=self.n_step - 1)
+            # check: disable=R004 -- the warm-up's rows into the host replay
             self.host_add(rows.cpu().numpy())
             return ls._replace(actors=actors, nstep=nstate)
-        actors, nstate, flat = self._collect_emit(
-            self._rand_policy, ls.agent["params"], ls.actors, ls.nstep,
-            draws, drop=self.n_step - 1)
-        rstate = replay_add(self.dcfg, ls.replay, flat, step=ls.step)
+        actors, nstate, rstate = self._collect_add(
+            self._rand_policy, ls, draws, drop=self.n_step - 1)
         return ls._replace(actors=actors, nstep=nstate, replay=rstate)
 
     def init(self) -> TrainLoopState:

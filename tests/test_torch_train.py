@@ -21,9 +21,9 @@
   reference's scan loop on the same spec (the values differ: the random
   streams do, ROADMAP C4). On the card (skipped here) the graph's replays
   are bitwise the eager supersteps.
-* What the port does not have raises at once, naming its ROADMAP item
-  (also under obs, which is ported); the presets that take the effective
-  rank build a ``Trainer``.
+* A mesh-sharded spec (``execution.mesh_shards``, once refused) trains,
+  with obs on and off; the presets that take the effective rank build a
+  ``Trainer``.
 """
 import jax
 import numpy as np
@@ -40,8 +40,8 @@ from repro_torch.rl.experiment import (Experiment, ExperimentSpec as TSpec,
                                       resume_seed)
 from repro_torch.rl.policy import Policy
 from repro_torch.rl import presets as tpresets
-from repro_torch.rl.runner import (TrainLoopState, Trainer, UnportedError,
-                                   _copy_into, clone_state, median,
+from repro_torch.rl.runner import (TrainLoopState, Trainer, _copy_into,
+                                   clone_state, median,
                                    state_leaves)
 
 _BASE = dict(env="pendulum", num_units=16, num_layers=2, use_ofenet=True,
@@ -176,19 +176,26 @@ def test_experiment_runs_and_serves_on_cpu():
     assert Policy.from_experiment(exp).params is exp._ls.agent["params"]
 
 
-# ids as they were when td3 (A.1, now ported) was the first case; obs
-# (A.5) and the guard (A.4) are ported, and the obs case now holds that a
-# mesh still refuses with it; the host replay (A.6) is ported, its cases
-# gone with its refusal (tests/test_torch_host_replay.py trains it)
-@pytest.mark.parametrize("over,item", [
-    ({"obs.enabled": True, "execution.mesh_shards": 2,
-      "execution.loop": "scan"}, "A.8"),
-    ({"execution.mesh_shards": 2, "execution.loop": "scan"}, "A.8")],
-    ids=["over3-obs-A.8", "over4-A.8"])
-def test_unported_choices_raise_with_their_roadmap_item(over, item):
-    spec = TSpec().override(**dict(_BASE, **over))
-    with pytest.raises(UnportedError, match=item):
-        Experiment.from_spec(spec, device="cpu")
+# the two specs once refused for A.8 (tests/test_torch_sharded.py holds
+# the sharded path against the reference)
+@pytest.mark.parametrize("over", [
+    {"obs.enabled": True, "obs.log_every": 1, "execution.mesh_shards": 2,
+     "execution.loop": "scan"},
+    {"execution.mesh_shards": 2, "execution.loop": "scan"}],
+    ids=["obs-mesh2", "mesh2"])
+def test_mesh_sharded_specs_train_on_cpu(over):
+    exp = Experiment.from_spec(TSpec().override(**dict(_BASE, **over)),
+                               device="cpu")
+    res = exp.run(4, keep_last=True)
+    assert exp.trainer.mesh.shards == 2 and res.eval_steps == [3]
+    assert exp._ls.replay["tree"].shape[0] == 2
+    assert all(np.isfinite(res.returns))
+    for k in ("critic_loss", "actor_loss", "staleness_mean"):
+        assert np.isfinite(res.metrics[k]), k
+    assert all(torch.isfinite(t).all() for t in tree_leaves(res.state))
+    if over.get("obs.enabled"):      # the stream's train rows, step 1..4
+        rows = [r for r in exp.obs.rows if r["kind"] == "train"]
+        assert [r["step"] for r in rows] == [1, 2, 3, 4], rows
 
 
 def test_td3_trains_on_cpu():
