@@ -113,7 +113,8 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    writes for all shards), 20 replays bitwise 20 eager supersteps; the
    graph's wall beside the unsharded one in turns, each replay's CUDA-event
    time, idle share and kernels under the profiler; ``run(17); save;
-   Experiment.restore; run(23)`` bitwise ``run(40)``.
+   Experiment.restore; run(23)`` bitwise ``run(40)``; obs and the guard
+   on in both loops, bitwise the scan loop with both off.
    TD3 training (``phase_td3``, ``[td3]`` lines): the same spec with
    ``algo="td3"``: the warm-up, one superstep on the card against the CPU
    plain path, the launches of the warm-up and the captured superstep
@@ -4496,9 +4497,41 @@ def phase_sharded(gen, train_spec, steps=40):
     del keep, graphs, runs
     _free()
     graph_checkpoint(base.override(mesh_shards=SHARDS), "sharded")
+    sharded_obs_guard(base.override(mesh_shards=SHARDS))
     log(f"[sharded] phase wall {time.perf_counter() - t0:.1f}s")
     return tree, launches, {k: dict(v, wall_ms=walls[k])
                             for k, v in times.items()}
+
+
+def sharded_obs_guard(spec, steps=10):
+    """The sharded spec with obs and the guard on (memory sink, every
+    step; the guard halting) in both loops, against the scan loop with
+    both off: ``steps`` supersteps each, bitwise one state, the stream's
+    rows every step, every parameter finite."""
+    import torch
+    from repro_torch.guard.monitor import all_finite
+    from repro_torch.rl.experiment import Experiment
+    on = {"obs.enabled": True, "obs.log_every": 1, "guard.enabled": True}
+    runs = {}
+    for name, over in (("scan", {}), ("scan+obs+guard", on),
+                       ("python+obs+guard", dict(on, loop="python"))):
+        e = Experiment.from_spec(spec.override(**over))
+        e.run(steps)
+        torch.cuda.synchronize()
+        runs[name] = e
+    base = runs["scan"]
+    for name, e in runs.items():
+        bad = state_diff(base._ls, e._ls)
+        rows = [r["step"] for r in e.obs.rows if r["kind"] == "train"]
+        if bad or not all_finite(e._ls.agent["params"]) or (
+                e.spec.obs.enabled and rows != list(range(1, steps + 1))):
+            raise AssertionError(f"sharded {name}: state {bad[:8]}, train "
+                                 f"rows {rows}")
+    log(f"[sharded] obs and the guard on, both loops, {steps} supersteps "
+        f"at mesh_shards={SHARDS}: bitwise the scan loop with both off, "
+        f"a stream row every step, every parameter finite")
+    del runs, base
+    _free()
 
 
 def phase_check(train_spec):

@@ -181,8 +181,11 @@ def test_experiment_runs_and_serves_on_cpu():
 @pytest.mark.parametrize("over", [
     {"obs.enabled": True, "obs.log_every": 1, "execution.mesh_shards": 2,
      "execution.loop": "scan"},
-    {"execution.mesh_shards": 2, "execution.loop": "scan"}],
-    ids=["obs-mesh2", "mesh2"])
+    {"execution.mesh_shards": 2, "execution.loop": "scan"},
+    {"guard.enabled": True, "execution.mesh_shards": 2,
+     "execution.loop": "python"}],
+    ids=["obs-mesh2", "mesh2", "guard-mesh2-python"])
+@pytest.mark.filterwarnings("ignore:execution.mesh_shards")
 def test_mesh_sharded_specs_train_on_cpu(over):
     exp = Experiment.from_spec(TSpec().override(**dict(_BASE, **over)),
                                device="cpu")
