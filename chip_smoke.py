@@ -272,8 +272,9 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    within relative 1e-4.
 9. One JSON line of seven kernel records (the stack and tree records'
    ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
-   all four ``sharded``: the sharded phase's runs (the tree records'
-   ``sharded`` entries the member launches at the shards' shapes),
+   all four ``sharded``: the sharded phase's ``mesh_shards=4`` runs (the
+   tree records' ``sharded`` entries the member launches at the shards'
+   shapes),
    the stack records' also the host replay's (``train_host``), the tree
    records' also the fleet run's, the stack records' also the fused
    fleets' (``fleet``: fig3-width, ``fleet_train``: the training cell's
@@ -4433,8 +4434,9 @@ def phase_sharded(gen, train_spec, steps=40):
     shards the graph bitwise the eager loop (n_step 1 and 3); the walls in
     turns beside the unsharded graph, CUDA events, the profiler's idle
     share and kernels a replay; ``run(17); save; restore; run(23)`` ==
-    ``run(40)``. Returns ``(tree records, launches over the phase's runs,
-    {mesh_shards: device time record})``."""
+    ``run(40)``. Returns ``(tree records, launches over the
+    mesh_shards=4 runs (init, warm-up, capture, eager and graph
+    supersteps, n_step 1 and 3), {mesh_shards: device time record})``."""
     import torch
     from repro_torch.rl.experiment import Experiment
     from repro_torch.rl.runner import clone_state
@@ -4442,7 +4444,6 @@ def phase_sharded(gen, train_spec, steps=40):
     tree = phase_fleet_tree(gen, e=SHARDS, capacity=25_000, b=64,
                             ns=(8, 64), tag="sharded-tree")
     base = train_spec.override(loop="scan")
-    _reset_counts()
     runs = {}
     for n in (0, 1):
         e = Experiment.from_spec(base.override(mesh_shards=n))
@@ -4459,6 +4460,7 @@ def phase_sharded(gen, train_spec, steps=40):
         f" (flat: the shard axis of 1) and the generator")
     graphs = {"n=0": runs[0].trainer.graph}
     del runs[1]
+    _reset_counts()          # counted: the mesh_shards=4 runs alone
     for ns in (1, 3):
         exp = Experiment.from_spec(base.override(mesh_shards=SHARDS,
                                                  n_step=ns))
@@ -4480,7 +4482,7 @@ def phase_sharded(gen, train_spec, steps=40):
     log(f"[sharded] store {tuple(rep['store']['data']['obs'].shape)}, tree "
         f"{tuple(rep['tree'].shape)}, add_step "
         f"{tuple(rep['add_step'].shape)} a state; wrapper launches over "
-        f"the phase's runs, counted from 0: "
+        f"the mesh_shards={SHARDS} runs (n_step 1 and 3), counted from 0: "
         + ", ".join(f"{k} {v}" for k, v in launches.items()))
     walls = walls_in_turns(graphs, "sharded")
     times = {k: graph_device_time(g, f"sharded {k}", f"sharded-prof {k}")

@@ -104,16 +104,13 @@ def sharded_replay_add(cfg: DeviceReplayConfig, mesh: ActorMesh,
                        priorities: Optional[torch.Tensor] = None,
                        step: Optional[torch.Tensor] = None) -> ReplayState:
     """Each shard appends its contiguous slice of the ``(N, ...)`` actor
-    batch (one member-axis tree write for all shards). ``priorities``,
-    when given, are split the same way; the reference's sharded add
-    drops them (ROADMAP C16)."""
+    batch (one member-axis tree write for all shards), its rows at the
+    shard's ``max_priority``. ``priorities`` is ignored, as by the
+    reference's sharded add."""
     n = replay_shards(mesh)
     rows = {k: _split(v, n) for k, v in batch.items()}
-    if priorities is None:
-        return _in_place(lambda st, b: replay_add(cfg, st, b, step=step),
-                         state, rows)
-    return _in_place(lambda st, b, p: replay_add(cfg, st, b, p, step=step),
-                     state, rows, _split(priorities, n))
+    return _in_place(lambda st, b: replay_add(cfg, st, b, step=step),
+                     state, rows)
 
 
 def sharded_replay_sample(cfg: DeviceReplayConfig, mesh: ActorMesh,

@@ -474,8 +474,9 @@ class Experiment:
     def from_spec(cls, spec: ExperimentSpec, *, device=None,
                   mesh=None) -> "Experiment":
         """A handle on ``spec``'s run on ``device`` (default: the card);
-        ``mesh`` (``launch.mesh.make_actor_mesh``) shards its device
-        replay, as ``execution.mesh_shards`` does by default."""
+        ``mesh`` (``launch.mesh.make_actor_mesh``), when given, must
+        have ``execution.mesh_shards`` shards on that device: the spec is
+        what ``save`` records and ``restore`` rebuilds."""
         return cls(spec, device=device, mesh=mesh)
 
     @classmethod

@@ -67,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+from functools import partial
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -475,9 +476,10 @@ def median(x: torch.Tensor) -> torch.Tensor:
 
 
 class Trainer:
-    """The pieces of one training run on one device. ``mesh`` (an
-    ``ActorMesh`` on that device) shards the device replay; by default a
-    spec with ``execution.mesh_shards > 0`` builds its own."""
+    """The pieces of one training run on one device. A spec with
+    ``execution.mesh_shards > 0`` shards the device replay on an
+    ``ActorMesh`` of that device; ``mesh``, when given, must agree with
+    the spec, which is what a checkpoint records."""
 
     def __init__(self, spec, device: DeviceLike = None,
                  mesh: Optional[ActorMesh] = None):
@@ -485,6 +487,10 @@ class Trainer:
         self.device = resolve_device(device)
         x, r = spec.execution, spec.replay
         self.host = r.backend == "host"
+        if mesh is not None and replay_shards(mesh) != x.mesh_shards:
+            raise ValueError(f"the mesh's {replay_shards(mesh)} shards != "
+                             f"execution.mesh_shards={x.mesh_shards}: set "
+                             f"the shards in the spec")
         if mesh is None and x.mesh_shards > 0:
             mesh = make_actor_mesh(x.mesh_shards, self.device)
         self.mesh = mesh
@@ -520,6 +526,27 @@ class Trainer:
             capacity=r.capacity // shards, obs_dim=env.obs_dim,
             act_dim=env.act_dim,
             uniform=not r.prioritized, n_step=r.n_step)
+        # the device replay's ops, bound once: the unsharded ones or, on
+        # a mesh, their vmaps over the shard axis
+        dcfg, obs_dim, act_dim = self.dcfg, env.obs_dim, env.act_dim
+        if mesh is None:
+            self._replay_init = partial(replay_init, dcfg)
+            self._nstep_init = partial(nstep_init, r.n_step, x.n_actors,
+                                       obs_dim, act_dim)
+            self._collect_add = self._collect_add_flat
+            self._sample = partial(replay_sample, dcfg)
+            self._refresh = partial(replay_update, dcfg)
+        else:
+            self._replay_init = partial(sharded.sharded_replay_init, dcfg,
+                                        mesh)
+            self._nstep_init = partial(sharded.sharded_nstep_init, mesh,
+                                       r.n_step, x.n_actors // shards,
+                                       obs_dim, act_dim)
+            self._collect_add = self._collect_add_sharded
+            self._sample = lambda st, u, b: sharded.sharded_replay_sample(
+                dcfg, mesh, st, u.view(shards, -1), b)
+            self._refresh = partial(sharded.sharded_replay_update, dcfg,
+                                    mesh)
         self.buffer = self.rng = None
         if self.host:
             buf_cls = PrioritizedReplay if r.prioritized else UniformReplay
@@ -563,21 +590,24 @@ class Trainer:
                                        steps, drop)
         return actors, nstate, flat
 
-    def _collect_add(self, policy, ls: TrainLoopState, draws, *,
-                     drop: int):
-        """The device replay's collect, n-step ring and add (each shard
-        its own actors' rows on a mesh); returns ``(actors, nstate,
-        replay)``."""
-        params = ls.agent["params"]
-        if self.mesh is None:
-            actors, nstate, flat = self._collect_emit(
-                policy, params, ls.actors, ls.nstep, draws, drop=drop)
-            return actors, nstate, replay_add(self.dcfg, ls.replay, flat,
-                                              step=ls.step)
-        out = sharded.collect_and_add_sharded(
-            self.env, policy, self.mesh, self.dcfg, params, ls.actors, draws,
-            ls.replay, nstep_state=ls.nstep, gamma=self.gamma, step=ls.step,
+    def _collect_add_flat(self, policy, ls: TrainLoopState, draws, *,
+                          drop: int):
+        """The device replay's collect, n-step ring and add; returns
+        ``(actors, nstate, replay)``."""
+        actors, nstate, flat = self._collect_emit(
+            policy, ls.agent["params"], ls.actors, ls.nstep, draws,
             drop=drop)
+        return actors, nstate, replay_add(self.dcfg, ls.replay, flat,
+                                          step=ls.step)
+
+    def _collect_add_sharded(self, policy, ls: TrainLoopState, draws, *,
+                             drop: int):
+        """``_collect_add_flat`` on the mesh: each shard its own actors'
+        rows."""
+        out = sharded.collect_and_add_sharded(
+            self.env, policy, self.mesh, self.dcfg, ls.agent["params"],
+            ls.actors, draws, ls.replay, nstep_state=ls.nstep,
+            gamma=self.gamma, step=ls.step, drop=drop)
         if ls.nstep is None:
             return out[0], None, out[1]
         return out
@@ -685,22 +715,12 @@ class Trainer:
             return self._host_step(ls, draws)
         actors, nstate, rstate = self._collect_add(
             self._train_policy, ls, draws["collect"], drop=0)
-        if self.mesh is None:
-            batch, idx, weights = replay_sample(self.dcfg, rstate, draws["u"],
-                                                self.batch_size)
-        else:
-            batch, idx, weights = sharded.sharded_replay_sample(
-                self.dcfg, self.mesh, rstate,
-                draws["u"].view(self.mesh.shards, -1), self.batch_size)
+        batch, idx, weights = self._sample(rstate, draws["u"],
+                                           self.batch_size)
         staleness = (ls.step - batch.pop("add_step")).to(torch.float32)
         batch["weight"] = weights
         agent, metrics = self.update_fn(ls.agent, self.acfg, batch, draws)
-        if self.mesh is None:
-            rstate = replay_update(self.dcfg, rstate, idx,
-                                   metrics["priorities"])
-        else:
-            rstate = sharded.sharded_replay_update(
-                self.dcfg, self.mesh, rstate, idx, metrics["priorities"])
+        rstate = self._refresh(rstate, idx, metrics["priorities"])
         metrics = dict(metrics, staleness_mean=staleness.mean(),
                        staleness_p50=median(staleness),
                        staleness_max=staleness.max())
@@ -807,21 +827,10 @@ class Trainer:
         self.n_params = tree_size(agent["params"])
         actors = apex.init_actor_states(
             self.env, self.env.draw_reset(self.n_actors, gen))
-        nstate, mesh = None, self.mesh
-        obs_dim, act_dim = self.env.obs_dim, self.env.act_dim
-        if self.n_step > 1:
-            nstate = (nstep_init(self.n_step, self.n_actors, obs_dim,
-                                 act_dim, dev) if mesh is None else
-                      sharded.sharded_nstep_init(
-                          mesh, self.n_step, self.n_actors // mesh.shards,
-                          obs_dim, act_dim, dev))
+        nstate = self._nstep_init(dev) if self.n_step > 1 else None
         # a host run's replay is the reference's int32 order token
-        if self.host:
-            replay = torch.zeros((), dtype=torch.int32, device=dev)
-        elif mesh is None:
-            replay = replay_init(self.dcfg, dev)
-        else:
-            replay = sharded.sharded_replay_init(self.dcfg, mesh, dev)
+        replay = (torch.zeros((), dtype=torch.int32, device=dev)
+                  if self.host else self._replay_init(dev))
         return TrainLoopState(agent, actors, nstate, replay, gen,
                               torch.zeros((), dtype=torch.int32, device=dev))
 

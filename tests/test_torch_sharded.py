@@ -67,6 +67,8 @@ mesh = make_actor_mesh(S)
 env = make_env("pendulum")
 rand = apex.random_policy(env.act_dim)
 out = {}
+# each call under jax.jit: an eager shard_map dispatches its body op by op
+# (about 3x the time on the CPU, with the same results)
 
 def put(prefix, tree):
     for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
@@ -107,29 +109,36 @@ for ns in (1, 3):
             out[f"{p}/draws{call}/{k}"] = v
         step = None if stamp is None else jnp.int32(stamp)
         if ns > 1:
-            states, nst, st = collect_and_add_sharded(
-                env, rand, mesh, cfg, {}, states, steps, key, st,
-                nstep_state=nst, gamma=0.99, step=step, drop=drop)
+            states, nst, st = jax.jit(
+                lambda a, k, r, b, t: collect_and_add_sharded(
+                    env, rand, mesh, cfg, {}, a, steps, k, r,
+                    nstep_state=b, gamma=0.99, step=t, drop=drop))(
+                        states, key, st, nst, step)
             put(f"{p}/nstep{call}", nst)
         else:
-            states, st = collect_and_add_sharded(
-                env, rand, mesh, cfg, {}, states, steps, key, st, step=step)
+            states, st = jax.jit(
+                lambda a, k, r, t: collect_and_add_sharded(
+                    env, rand, mesh, cfg, {}, a, steps, k, r, step=t))(
+                        states, key, st, step)
         put(f"{p}/actors{call}", (states.q, states.qd, states.t))
         put(f"{p}/replay{call}", st)
     ks = jax.random.key(3)
     out[f"{p}/u"] = np.stack([np.asarray(jax.random.uniform(
         jax.random.fold_in(ks, i), (B // S,))) for i in range(S)])
-    batch, idx, w = sharded_replay_sample(cfg, mesh, st, ks, B)
+    batch, idx, w = jax.jit(lambda r, k: sharded_replay_sample(
+        cfg, mesh, r, k, B))(st, ks)
     put(f"{p}/batch", batch)
     out[f"{p}/idx"], out[f"{p}/w"] = np.asarray(idx), np.asarray(w)
     pr = jnp.abs(jax.random.normal(jax.random.key(4), (B,))) + 0.1
     out[f"{p}/pr"] = np.asarray(pr)
-    put(f"{p}/updated", sharded_replay_update(cfg, mesh, st, idx, pr))
+    put(f"{p}/updated", jax.jit(lambda r, i, q: sharded_replay_update(
+        cfg, mesh, r, i, q))(st, idx, pr))
 
 key = jax.random.key(5)
 for k, v in draws(key, 2).items():
     out[f"pool/draws/{k}"] = v
-states, trs = apex.collect_sharded(env, rand, mesh, {}, states0, 2, key)
+states, trs = jax.jit(lambda a, k: apex.collect_sharded(
+    env, rand, mesh, {}, a, 2, k))(states0, key)
 put("pool/actors", (states.q, states.qd, states.t))
 put("pool/trs", trs)
 np.savez(out_path, **out)
@@ -334,16 +343,28 @@ def test_four_shards_loops_band_n_step_and_resume(tmp_path):
     assert _same(resumed._ls, scan._ls) and resumed.returns == r4.returns
 
 
-def test_mesh_rules():
+def test_mesh_rules(tmp_path):
     with pytest.raises(ValueError, match="must divide"):
-        Experiment.from_spec(ExperimentSpec().override(**_RUN),
-                             device="cpu", mesh=make_actor_mesh(3, "cpu"))
+        ExperimentSpec().override(**_RUN, mesh_shards=3)
+    spec = ExperimentSpec().override(**_RUN, mesh_shards=2, loop="scan")
+    # a given mesh must agree with the spec, which a checkpoint records
+    for n, m in ((0, 2), (2, 4)):
+        with pytest.raises(ValueError, match="execution.mesh_shards"):
+            Experiment.from_spec(spec.override(mesh_shards=n), device="cpu",
+                                 mesh=make_actor_mesh(m, "cpu"))
     with pytest.raises(ValueError, match="live on"):
-        Experiment.from_spec(ExperimentSpec().override(**_RUN),
-                             device="cpu", mesh=make_actor_mesh(2, "meta"))
-    exp = Experiment.from_spec(ExperimentSpec().override(**_RUN),
-                               device="cpu", mesh=make_actor_mesh(2, "cpu"))
+        Experiment.from_spec(spec, device="cpu",
+                             mesh=make_actor_mesh(2, "meta"))
+    exp = Experiment.from_spec(spec, device="cpu",
+                               mesh=make_actor_mesh(2, "cpu"))
     assert exp.trainer.dcfg.capacity == 256
+    exp.run(3)
+    path = str(tmp_path / "mesh2.npz")
+    exp.save(path)
+    back = Experiment.restore(path, device="cpu")
+    assert back.trainer.mesh.shards == 2 and _same(back._ls, exp._ls)
+    with pytest.raises(ValueError, match="execution.mesh_shards"):
+        Experiment.restore(path, device="cpu", mesh=make_actor_mesh(4, "cpu"))
     with pytest.raises(ValueError, match="shards"):
         make_actor_mesh(0, "cpu")
 
