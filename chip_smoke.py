@@ -15,13 +15,16 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    1e-4 and bfloat16 within 2e-2, as rtol and atol * max|plain|):
    - the stack forward (its four kernels: the whole-stack kernel for the
      narrow densenet stacks at every M, weight-streaming at M <= 32,
-     register tile over ``stream^T`` at M=256 with U >= 128, the old tile
-     for mlp/d2rl past 32 rows) for every fused connectivity x {swish,
-     relu, tanh, identity}, at a ragged small shape, at the model's
-     shapes (OFENet ``phi_s`` and the actor at every serving slot, 1, 2,
-     4, 8, 16, 32, and at 256; the critic at 1, 8, 32, 256; ``phi_s`` and
-     ``phi_sa`` at 33, 100, 128, 256, 257) and at two ragged shapes of the
-     register tile (201/203 rows), with non-zero biases: |kernel - plain|
+     register tile over a transposed input at M=256 with U >= 128 (every
+     connectivity: densenet's stream^T, mlp's and d2rl's h^T), the old
+     tile for mlp/d2rl past 32 rows below U=128) for every fused
+     connectivity x {swish, relu, tanh, identity}, at a ragged small
+     shape, at the model's shapes (OFENet ``phi_s`` and the actor at every
+     serving slot, 1, 2, 4, 8, 16, 32, and at 256; the critic at 1, 8, 32,
+     256; ``phi_s`` and ``phi_sa`` at 33, 100, 128, 256, 257; fig3-width's
+     actor and critic, d0=3 and 4, U=2048, at 256) and at two ragged
+     shapes of the register tile (201/203 rows), with non-zero biases:
+     |kernel - plain|
      <= 1e-4 * |plain| + 1e-4 * max|plain|, and two calls bitwise equal;
      the whole-stack kernel's pre-activations (``zs``, autograd's) within
      1e-4 of the plain ones, its output bitwise the same with and without
@@ -31,7 +34,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
      (actor, critic, ``phi_s``, ``phi_sa``) and at two ragged shapes of the
      register tile (201/203 rows): within 1e-3 (rtol and atol * max; relu's
      slope at the kernel forward's pre-activations), and two calls bitwise
-     equal;
+     equal; the whole-stack backward alone (``phase_whole_bwd``: ``phi_s``
+     and ``phi_sa`` at 256 and 257 rows, every activation, each row tile,
+     with every gradient, dx alone, the weights alone and the top layers'
+     alone) within 1e-3, one launch a call, bitwise from call to call;
    - the sum-tree sample (B=256, edge targets 0 and total) and write
      (n=32, 256 with duplicates and siblings, 9,984, and 100,000 with
      repeats: many of the write's 1,024-entry passes) at capacity
@@ -197,8 +203,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    ``[fleet-fused-train]`` lines): the stack kernels with a member axis
    at E=5 (the whole-stack kernel on ``phi_s`` and ``phi_sa`` at 256
    rows, streaming on the actor at 1 and 32, the register tile on the
-   critic at 256, ``dense_tile.cuh`` on fig3-width's mlp actor at 256;
-   the backward of the critic and of ``phi_s``): one launch per solo
+   critic at 256 and, over h^T, on fig3-width's mlp actor and critic and
+   a d2rl stack at U=2048, each beside the old ``dense_tile.cuh`` path;
+   the backward of the critic and, whole, of ``phi_s`` and ``phi_sa``,
+   each beside the per-layer kernels): one launch per solo
    launch for all members, bitwise five solo launches (output,
    pre-activations, every gradient), within 1e-4 / 1e-3 of the members
    twin, timed beside five solo calls, the twin, the jnp fleet's
@@ -206,7 +214,14 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    fleet with ``block_backend="fused"`` from the jnp fleet's initial
    state, its warm-up and captured supersteps each launching one solo
    superstep's kernels (``expected_launches``), 40 supersteps, member 0
-   against a solo fused run of seed 0 at ``SOLO_PARITY``, its walls in
+   against a solo fused run of seed 0 at ``SOLO_PARITY`` after every
+   superstep (a sample flip, a superstep whose batches differ, which a
+   rounding difference in the priorities can make and no tolerance
+   covers, passes only where ``launch/fleet_parity.py``'s ``flip_cause``
+   rebuilds both runs' trees and draws, reproduces both batches and
+   finds each differing row's draw within float32 rounding of the
+   boundary between its two rows in both trees; the solo run then
+   restarts from member 0's state), its walls in
    turns with the jnp fleet's graph, CUDA-event time, idle share and
    kernels per replay; the training cell's spec (fig10-ablation U=2048,
    densenet, OFENet, device replay, 32 actors) as a fused fleet of 2
@@ -225,8 +240,11 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    and 3xTF32 operations, bf16 SSD its operations at 989): the stack
    forward of the actor and
    ``phi_s`` at slots 1, 8, 32, 256 and of the critic and ``phi_sa`` at
-   256 (weights read cold); the
-   full stack backward of each net at M=256, and
+   256 (weights read cold); fig3-width's mlp actor and critic and a d2rl
+   stack at U=2048, M=256 (``time_hidden``: the register tile, the old
+   ``dense_tile.cuh`` path, plain, ``addmm`` + silu, bound); the
+   full stack backward of each net at M=256 (``phi_s`` and ``phi_sa``
+   beside their old per-layer kernels), and
    the critic's and the actor's product by product (``bwd_breakdown``:
    act_grad, db, dW, W^T, dx, each beside ``torch.mm`` of its shape and
    its bound) with the training profile's per-superstep time of the
@@ -270,7 +288,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    critics on a replay batch of 256, through the stack forward kernel and
    through its plain twin on the card with the same directions, pointwise
    within relative 1e-4.
-9. One JSON line of seven kernel records (the stack and tree records'
+9. One JSON line of seven kernel records for the eight ``pallas_call``
+   sites (``tree_set`` also replaces the one-hot write; the stack
+   records' ``launches_by_kernel``: the forward's by kernel, the
+   backward's ``whole`` and ``layers``; the stack and tree records'
    ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
    all four ``sharded``: the sharded phase's ``mesh_shards=4`` runs (the
    tree records' ``sharded`` entries the member launches at the shards'
@@ -349,6 +370,9 @@ TRAIN_NETS = (("actor", 256, 259, 2048, 2), ("critic", 256, 516, 2048, 2),
 # 4 (scalar loads), and strides that allow 16-byte loads
 RAGGED_RT = (("ragged_rt", 201, 37, 301, 3),
              ("ragged_rt_vec", 203, 36, 300, 3))
+# a wide stack whose first layer's backward products are thin (d0 < 128):
+# fig10-ablation's actor as shipped (its 16-unit OFENet features)
+THIN_NETS = (("fig10_actor", 128, 35, 128, 2),)
 
 
 def phase_parity(gen):
@@ -362,6 +386,10 @@ def phase_parity(gen):
         shapes += [("phi_s", m, 3, 64, 4), ("actor", m, 259, 2048, 2)]
     shapes += [("critic", m, 516, 2048, 2) for m in SLOTS]
     shapes += list(RAGGED_RT)
+    # fig3-width's stacks at U=2048 (mlp and d2rl: the register tile over
+    # h^T, layer 0's K = 3 and 4, the pendulum's observation and action)
+    shapes += [("fig3_actor", 256, 3, 2048, 2), ("fig3_critic", 256, 4,
+                                                 2048, 2)]
     # the OFENet stacks past 32 rows (the whole-stack kernel for densenet)
     # at full and ragged blocks of its 4 rows
     shapes += [(name, m, d0, 64, 4) for m in WHOLE_ROWS
@@ -469,7 +497,7 @@ def phase_backward_parity(gen):
     ``dense_stack_grads_ref``), and bitwise-equal across two calls."""
     import torch
     from repro_torch.kernels.dense_block import stack
-    shapes = (("ragged", 5, 7, 40, 3),) + TRAIN_NETS + RAGGED_RT
+    shapes = (("ragged", 5, 7, 40, 3),) + TRAIN_NETS + RAGGED_RT + THIN_NETS
     worst = 0.0
     for conn in stack.FUSED_CONNECTIVITIES:
         for act in ("swish", "relu", "tanh", "identity"):
@@ -502,6 +530,79 @@ def phase_backward_parity(gen):
     log(f"[parity] dense_stack backward == plain (dx, dW, db): 3 "
         f"connectivities x 4 activations x {len(shapes)} shapes, max abs "
         f"err {worst:.3e}; two calls bitwise equal")
+    return worst
+
+
+def phase_whole_bwd(gen):
+    """The whole-stack backward on its own (phi_s and phi_sa at 256 and a
+    ragged 257 rows, every activation): at each of its row tiles, with
+    every gradient, dx alone (the actor loss through phi_sa), the weights
+    alone and the top layers' alone (a lowest layer above 0), against
+    autograd of the plain version (relu's slope at the kernel forward's
+    pre-activations) within 1e-3, bitwise from call to call, one launch a
+    call, and against the per-layer kernels (``whole=False``)."""
+    import torch
+    from repro_torch.kernels.dense_block import stack
+    needs = {"all": (True, [True] * 4, [True] * 4),
+             "dx": (True, [False] * 4, [False] * 4),
+             "weights": (False, [True] * 4, [True] * 4),
+             "top": (False, [False, False, True, True],
+                     [False, True, True, True])}
+    worst, worst_layers, cases = 0.0, 0.0, 0
+    for name, d0 in (("phi_s", 3), ("phi_sa", 260)):
+        for m in (256, 257):
+            for act in ("swish", "relu", "tanh", "identity"):
+                x, ws, bs = stack_inputs("densenet", 4, d0, 64, m, gen)
+                g = torch.randn((m, d0 + 4 * 64), generator=gen,
+                                device="cuda")
+                zs = torch.empty((m, 4 * 64), device="cuda")
+                out = stack._kernel_forward(x, ws, bs, "densenet", act, zs)
+                want = stack.dense_stack_grads_ref(
+                    x, ws, bs, g, activation=act, zs=zs)
+                flat_want = [want[0], *want[1], *want[2]]
+                layers = stack._kernel_backward(
+                    (out, zs), ws, g, "densenet", act, True, [True] * 4,
+                    [True] * 4, whole=False)
+                ok, err = grads_close([layers[0], *layers[1], *layers[2]],
+                                      flat_want)
+                worst_layers = max(worst_layers, err)
+                for rows in stack._WHOLE_BWD_ROW_TILES:
+                    for what, (ndx, ndw, ndb) in needs.items():
+                        lowest = 0 if ndx else min(
+                            i for i in range(4) if ndw[i] or ndb[i])
+                        before = stack.bwd_launch_count("whole")
+                        runs = [stack._launch_whole_bwd(
+                            out, zs, ws, g, stack._ACT_CODE[act], ndx, ndw,
+                            ndb, lowest, rows) for _ in range(2)]
+                        if stack.bwd_launch_count("whole") - before != 2:
+                            raise AssertionError("whole backward: not one "
+                                                 "launch a call")
+                        got = [runs[0][0], *runs[0][1], *runs[0][2]]
+                        again = [runs[1][0], *runs[1][1], *runs[1][2]]
+                        asked = [ndx, *ndw, *ndb]
+                        if [t is not None for t in got] != asked:
+                            raise AssertionError(f"whole backward {name} "
+                                                 f"{what}: returned {got}")
+                        pairs = [(a, b, w) for a, b, w, k in
+                                 zip(got, again, flat_want, asked) if k]
+                        ok, err = grads_close([a for a, _, _ in pairs],
+                                              [w for _, _, w in pairs])
+                        worst = max(worst, err)
+                        cases += 1
+                        if not ok:
+                            raise AssertionError(
+                                f"whole backward != plain: {name} M={m} "
+                                f"{act} rows={rows} {what}: {err:.3e}")
+                        if not all(torch.equal(a, b) for a, b, _ in pairs):
+                            raise AssertionError(
+                                f"whole backward not bitwise repeatable: "
+                                f"{name} M={m} {act} rows={rows} {what}")
+    log(f"[parity] whole-stack backward == plain: phi_s and phi_sa at M=256 "
+        f"and 257 x 4 activations x row tiles "
+        f"{list(stack._WHOLE_BWD_ROW_TILES)} x {{all, dx alone, weights "
+        f"alone, top layers alone}} ({cases} cases), max abs err "
+        f"{worst:.3e} (the per-layer kernels {worst_layers:.3e}); one "
+        f"launch a call, two calls bitwise equal")
     return worst
 
 
@@ -899,6 +1000,73 @@ def time_stack(name, ws, bs, m, gen):
     return r
 
 
+# fig3-width's stacks at the paper's widest point (mlp, U=2048: the
+# actor d0=3 and the critic d0=4) and a d2rl stack of the same width
+HIDDEN_NETS = (("fig3_actor", "mlp", 3), ("fig3_critic", "mlp", 4),
+               ("d2rl", "d2rl", 4))
+
+
+def time_hidden(name, conn, d0, gen, m=256, u=2048, L=2):
+    """One mlp or d2rl stack forward (swish) at M rows: the register tile
+    over h^T (``plan_fwd``'s), the path before it (``dense_tile.cuh``,
+    ``mlp_rt=False``), the plain version and the library yardstick
+    (``addmm`` + ``silu`` a layer), each cycling its weights through
+    copies larger than the 50 MB L2, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.dense_block import stack
+    x, ws, bs = stack_inputs(conn, L, d0, u, m, gen)
+    wbytes = 4 * sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    copies = [([w.clone() for w in ws], [b.clone() for b in bs])
+              for _ in range(max(2, math.ceil(120e6 / wbytes)))]
+
+    def kernel(c):
+        return stack.dense_stack(x, c[0], c[1], connectivity=conn)
+
+    def old(c):
+        return stack._kernel_forward(x, c[0], c[1], conn, "swish",
+                                     mlp_rt=False)
+
+    def plain(c):
+        return stack.dense_stack_ref(x, c[0], c[1], connectivity=conn)
+
+    def library(c):
+        h = x
+        for i, (w, b) in enumerate(zip(*c)):
+            inp = torch.cat([h, x], 1) if conn == "d2rl" and i else h
+            h = F.silu(torch.addmm(b, inp, w))
+        return h
+    before = stack.launch_count("rt")
+    got = kernel(copies[0])
+    if stack.launch_count("rt") - before != L:
+        raise AssertionError(f"{name}: not on the register tile")
+    _, err = close_enough(got, plain(copies[0]))
+    _, err_old = close_enough(old(copies[0]), plain(copies[0]))
+    t_o, _ = time_ms(old, copies)
+    t_k, h_k = time_ms(kernel, copies)
+    t_p, _ = time_ms(plain, copies)
+    t_l, _ = time_ms(library, copies)
+    t_k2, _ = time_ms(kernel, copies)
+    t_o2, _ = time_ms(old, copies)
+    flops = 2 * m * sum(w.shape[0] * w.shape[1] for w in ws)
+    nbytes = wbytes + 4 * m * (d0 + u)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    r = dict(ms=min(t_k, t_k2), old_tile_ms=min(t_o, t_o2), plain_ms=t_p,
+             library_ms=t_l, bound_ms=bound_ms, bound_by=bound_by,
+             max_abs_err=err, host_ms=h_k)
+    log(f"[time] {name} ({conn}) stack M={m} d0={d0} U={u} L={L}: register "
+        f"tile {r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
+        f"{t_k2 * 1e3:.1f}), the old path (dense_tile.cuh) "
+        f"{r['old_tile_ms'] * 1e3:8.1f} us (runs {t_o * 1e3:.1f}/"
+        f"{t_o2 * 1e3:.1f}; new / old x{r['ms'] / r['old_tile_ms']:.3f}), "
+        f"plain {t_p * 1e3:8.1f} us, addmm + silu {t_l * 1e3:8.1f} us "
+        f"({'faster' if r['ms'] <= t_l else 'SLOWER'} than it), bound "
+        f"{bound_ms * 1e3:6.1f} us ({bound_by}: {flops / 1e9:.2f} GFLOP), "
+        f"{100 * bound_ms / r['ms']:.0f}% of bound; max abs err {err:.2e} "
+        f"(old {err_old:.2e})")
+    return r
+
+
 def phase_times(params, gen):
     """The stack forward's times: the served actor (its weights) and the
     OFENet ``phi_s`` stack at every slot, the critic and ``phi_sa`` stacks
@@ -916,6 +1084,8 @@ def phase_times(params, gen):
         rows[("phi_s", m)] = time_stack("phi_s", ws, bs, m, gen)
     _, ws, bs = stack_inputs("densenet", 4, 260, 64, 256, gen)
     rows[("phi_sa", 256)] = time_stack("phi_sa", ws, bs, 256, gen)
+    for name, conn, d0 in HIDDEN_NETS:
+        rows[(name, 256)] = time_hidden(name, conn, d0, gen)
     return rows
 
 
@@ -946,8 +1116,11 @@ def expected_launches(tr):
     ``fwd_<kernel>`` counts launches by the kernel ``plan_fwd`` gives each
     call: one a layer, but one a stack on the whole-stack kernel (phi_s
     and phi_sa at the batch); the actor and the critics take the register
-    tile at 256 rows, every stack the streaming kernel at 32; ``fwd_t``
-    counts the register tile's stream^T inits, one per wide stack call.
+    tile at 256 rows (densenet, mlp and d2rl alike at U >= 128), every
+    stack the streaming kernel at 32; ``fwd_t`` counts the register
+    tile's transposed inits, one per wide stack call. ``bwd_whole``: the
+    backwards of the narrow densenet stacks, each ONE launch of the
+    whole-stack backward kernel (SAC and TD3: phi_sa twice, phi_s once).
     Tree: one sample, two writes (the add, the priority refresh); none
     with the host replay."""
     from repro_torch.kernels.dense_block import stack
@@ -961,7 +1134,7 @@ def expected_launches(tr):
         nonlocal layers
         dense = blk.connectivity == "densenet"
         kind = stack.fwd_kernel_of(stack.plan_fwd(
-            m, blk.num_units, blk.in_dim, num_sms(), transposed=dense,
+            m, blk.num_units, blk.in_dim, num_sms(),
             stack=(blk.in_dim, blk.num_layers) if dense else None)[0])
         want[f"fwd_{kind}"] += n * (1 if kind == "whole"
                                     else blk.num_layers)
@@ -984,8 +1157,19 @@ def expected_launches(tr):
                              f"{layers}, {want}")
     want["fwd"] = sum(want[f"fwd_{k}"] for k in stack.FWD_KERNELS)
     bwd = (7 if lo else 4) if td3 else (8 if lo else 5)
+
+    def whole(blk):                 # one launch a backward, if narrow
+        return int(blk.connectivity == "densenet" and stack.whole_bwd_smem(
+            blk.in_dim, blk.num_units, blk.num_layers) is not None)
+    # backward calls on the narrow stacks: phi_sa twice (aux, actor
+    # loss), phi_s once (aux); the actor once, the critics 4 (SAC) or 3
+    bwd_whole = whole(acfg.actor_block()) \
+        + (3 if td3 else 4) * whole(acfg.critic_block())
+    if acfg.ofenet:
+        bwd_whole += 2 * whole(phi_sa) + whole(phi_s)
     # the host replay's tree is NumPy: no tree kernel
-    want.update(bwd=bwd, sample=0 if tr.host else 1, set=0 if tr.host else 2)
+    want.update(bwd=bwd, bwd_whole=bwd_whole, sample=0 if tr.host else 1,
+                set=0 if tr.host else 2)
     return want
 
 
@@ -996,6 +1180,7 @@ def _counts():
             **{f"fwd_{k}": stack.launch_count(k) for k in stack.FWD_KERNELS},
             "fwd_t": stack.transpose_count(),
             "bwd": stack.bwd_launch_count(),
+            "bwd_whole": stack.bwd_launch_count("whole"),
             "sample": ops.launch_count("sample"),
             "set": ops.launch_count("set")}
 
@@ -1206,12 +1391,15 @@ def _solo_name(key):
 
 
 def bwd_product_class(key):
-    """'dW', 'dx', 'act_grad' or None for a profiler kernel name: the
-    register-tiled kernels by name (dx with the transpose of W it reads,
-    act_grad with its db pass), dense_tile.cuh's by their layout template
-    arguments (TA, TW): (true, false) for dW, (false, true) for dx; member
-    kernels as their solo kernels."""
+    """'dW', 'dx', 'act_grad', 'whole' or None for a profiler kernel name:
+    the register-tiled kernels by name (dx with the transpose of W it
+    reads, act_grad with its db pass), dense_tile.cuh's by their layout
+    template arguments (TA, TW): (true, false) for dW, (false, true) for
+    dx; the whole-stack backward by name; member kernels as their solo
+    kernels."""
     key = _solo_name(key)
+    if "whole_bwd_kernel<" in key:
+        return "whole"
     if "act_grad_kernel" in key or "db_sum_kernel" in key:
         return "act_grad"
     tile = _template_args(key, "tile_kernel")
@@ -1230,12 +1418,12 @@ def fwd_class(key):
     'wide' (the register tile over stream^T), 'whole' (the whole-stack
     kernel), 'narrow' (dense_tile.cuh's forward: its layout template
     arguments are (false, false)), 'stream' (the weight-streaming kernel)
-    or 'transpose' (the stream^T init, the copying case of dense_tile.cuh's
-    transpose; the backward's W^T is the other); member kernels as their
-    solo kernels."""
+    or 'transpose' (the transposed init: densenet's the copying case of
+    dense_tile.cuh's transpose, the backward's W^T the other; mlp's and
+    d2rl's ``xt_kernel``); member kernels as their solo kernels."""
     key = _solo_name(key)
     tr = _template_args(key, "transpose_kernel")
-    if tr and tr[0] == "true":
+    if (tr and tr[0] == "true") or _template_args(key, "xt_kernel"):
         return "transpose"
     if "whole_stack_kernel<" in key:
         return "whole"
@@ -1287,7 +1475,7 @@ def phase_train_profile(exp, steps=10):
     if not events:
         log("[train-prof] the profiler saw no device time: busy share not "
             "measured")
-    classes = {c: [0.0, 0.0] for c in ("dW", "dx", "act_grad")}
+    classes = {c: [0.0, 0.0] for c in ("dW", "dx", "act_grad", "whole")}
     fwd = {c: [0.0, 0.0] for c in ("wide", "whole", "narrow", "stream",
                                    "transpose")}
     fills = 0.0
@@ -1992,10 +2180,21 @@ def phase_bwd_times(gen, profile_classes=None):
         want = stack.dense_stack_grads_ref(x, ws, bs, g)
         _, err = grads_close([got[0], *got[1], *got[2]],
                              [want[0], *want[1], *want[2]])
+        narrow = stack.whole_bwd_smem(d0, u, L) is not None
+        t_o = t_o2 = None
+
+        def old(_):                 # the per-layer kernels
+            return stack._kernel_backward((out, zs), ws, g, "densenet",
+                                          "swish", True, need, need,
+                                          whole=False)
+        if narrow:
+            t_o, _ = time_ms(old, [0])
         t_k, h_k = time_ms(kernel, [0])
         t_p, _ = time_ms(plain, [0])
         t_l, _ = time_ms(library, [0])
         t_k2, _ = time_ms(kernel, [0])
+        if narrow:
+            t_o2, _ = time_ms(old, [0])
         ksum = sum(w.shape[0] * w.shape[1] for w in ws)
         flops = 4 * m * ksum
         nbytes = 4 * (2 * m * feat + m * L * u + 2 * ksum + L * u + m * d0)
@@ -2006,13 +2205,20 @@ def phase_bwd_times(gen, profile_classes=None):
                           bound_by="bytes" if t_bytes >= t_ops
                           else "operations")
         r = rows[name]
-        log(f"[time] backward {name} M={m} d0={d0} U={u} L={L}: kernel "
+        if narrow:
+            r["old_layers_ms"] = min(t_o, t_o2)
+        log(f"[time] backward {name} M={m} d0={d0} U={u} L={L}"
+            f"{' (whole-stack)' if narrow else ''}: kernel "
             f"{r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
             f"{t_k2 * 1e3:.1f}), plain {t_p * 1e3:8.1f} us, library "
             f"{t_l * 1e3:8.1f} us, bound {bound_ms * 1e3:6.1f} us "
             f"({r['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
             f"GFLOP), {100 * bound_ms / r['ms']:.0f}% of bound, max abs err "
-            f"{err:.2e}")
+            f"{err:.2e}"
+            + ("" if not narrow else f"; the per-layer kernels "
+               f"{r['old_layers_ms'] * 1e3:.1f} us (runs {t_o * 1e3:.1f}/"
+               f"{t_o2 * 1e3:.1f}), new / old "
+               f"x{r['ms'] / r['old_layers_ms']:.3f}"))
         if name in ("critic", "actor"):
             r["products"] = bwd_breakdown(name, x, ws, out, zs, g)
     if profile_classes is not None:
@@ -3481,8 +3687,10 @@ FUSED_CASES = (("phi_s", "densenet", 256, 3, 64, 4),
                ("actor M=1", "densenet", 1, 259, 2048, 2),
                ("actor M=32", "densenet", 32, 259, 2048, 2),
                ("critic", "densenet", 256, 516, 2048, 2),
-               ("fig3 mlp", "mlp", 256, 3, 2048, 2))
-FUSED_BWD = ("critic", "phi_s")
+               ("fig3 mlp", "mlp", 256, 3, 2048, 2),
+               ("fig3 critic", "mlp", 256, 4, 2048, 2),
+               ("d2rl U=2048", "d2rl", 256, 4, 2048, 2))
+FUSED_BWD = ("critic", "phi_s", "phi_sa")
 FUSED_TRAIN_E = 2        # the training cell's spec as a fleet of 2 seeds
 FUSED_TRAIN_STEPS = 20
 
@@ -3505,8 +3713,9 @@ def _library_members(x, ws, bs, conn):
     import torch.nn.functional as F
     if conn != "densenet":
         h = x
-        for w, b in zip(ws, bs):
-            h = F.silu(torch.baddbmm(b[:, None, :], h, w))
+        for i, (w, b) in enumerate(zip(ws, bs)):
+            inp = torch.cat([h, x], -1) if conn == "d2rl" and i else h
+            h = F.silu(torch.baddbmm(b[:, None, :], inp, w))
         return h
     d0, u = x.shape[-1], ws[0].shape[-1]
     stream = torch.empty((*x.shape[:-1], d0 + len(ws) * u), device="cuda")
@@ -3563,6 +3772,10 @@ def fused_member_kernels(gen, e=FLEET_E):
         t_p, _ = time_ms(lambda _: stack.dense_stack_members_ref(
             x, ws, bs, connectivity=conn), [0])
         t_l, _ = time_ms(lambda _: _library_members(x, ws, bs, conn), [0])
+        t_o = None                      # mlp/d2rl: dense_tile.cuh's path
+        if conn != "densenet" and "rt" in kinds:
+            t_o, _ = time_ms(lambda _: stack._kernel_forward(
+                x, ws, bs, conn, "swish", mlp_rt=False), [0])
         kw = sum(w[0].numel() + b_[0].numel() for w, b_ in zip(ws, bs))
         feat = stack.feature_dim(conn, L, d0, u)
         bound_ms, bound_by = _bound(
@@ -3574,6 +3787,8 @@ def fused_member_kernels(gen, e=FLEET_E):
             solo_x_e_ms=t_s, plain_ms=t_p, library_ms=t_l,
             library="baddbmm + silu a layer (the jnp fleet's products)",
             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        if t_o is not None:
+            out["fwd"][name]["old_tile_ms"] = t_o
         log(f"[fleet-fused] forward {name} ({conn}, M={m}, d0={d0}, U={u},"
             f" L={L}; {'+'.join(kinds)}) E={e}: {member['fwd']} launches "
             f"(+{member['fwd_t']} stream^T) for all members, {e} solo calls "
@@ -3582,15 +3797,18 @@ def fused_member_kernels(gen, e=FLEET_E):
             f"{t_m * 1e3:.1f} us, {e} solo calls {t_s * 1e3:.1f} us "
             f"(x{t_s / t_m:.2f}), twin {t_p * 1e3:.1f} us, baddbmm + silu "
             f"{t_l * 1e3:.1f} us, bound x {e} {bound_ms * 1e3:.1f} us "
-            f"({bound_by}), {100 * bound_ms / t_m:.0f}% of bound")
+            f"({bound_by}), {100 * bound_ms / t_m:.0f}% of bound"
+            + ("" if t_o is None else f"; the old path (dense_tile.cuh) "
+               f"{t_o * 1e3:.1f} us, new / old x{t_m / t_o:.3f}"))
         if name not in FUSED_BWD:
             continue
         g = torch.randn(got.shape, generator=gen, device="cuda")
         keep = got if conn == "densenet" else x
-        b = stack.bwd_launch_count()
+        b, bw_ = stack.bwd_launch_count(), stack.bwd_launch_count("whole")
         grads = stack.dense_stack_members_grads(
             x, ws, bs, g, connectivity=conn, saved=(keep, zs))
         n_member = stack.bwd_launch_count() - b
+        n_whole = stack.bwd_launch_count("whole") - bw_
         flat = [grads[0], *grads[1], *grads[2]]
         for i, ((xe, we, be), (o, z)) in enumerate(zip(solo, want)):
             dx, dws, dbs = stack._kernel_backward(
@@ -3619,20 +3837,30 @@ def fused_member_kernels(gen, e=FLEET_E):
             for k, z, we, gi in saved_solo], [0])
         t_bp, _ = time_ms(lambda _: stack.dense_stack_members_grads_ref(
             x, ws, bs, g, connectivity=conn, zs=zs), [0])
+        t_bo = None                 # narrow densenet: the per-layer path
+        if n_whole:
+            t_bo, _ = time_ms(lambda _: stack._kernel_backward(
+                (keep, zs), ws, g, conn, "swish", True, [True] * L,
+                [True] * L, whole=False), [0])
         kk = sum(w.shape[1] * w.shape[2] for w in ws)
         bound_ms, bound_by = _bound(
             4 * e * (2 * kk + L * u + m * (2 * feat + L * u + d0)),
             4 * e * m * kk)
         out["bwd"][name] = dict(
-            E=e, launches=n_member, ms=t_bm, solo_x_e_ms=t_bs,
-            plain_ms=t_bp, library_ms=None, bound_ms=bound_ms,
-            bound_by=bound_by, max_abs_err=gerr)
+            E=e, launches=n_member, whole_launches=n_whole, ms=t_bm,
+            solo_x_e_ms=t_bs, plain_ms=t_bp, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=gerr)
+        if t_bo is not None:
+            out["bwd"][name]["old_layers_ms"] = t_bo
         log(f"[fleet-fused] backward {name} E={e}: one call for all "
-            f"members, bitwise {e} solo backwards (dx, every dW and db), "
-            f"max abs err vs the members twin {gerr:.2e}; member call "
-            f"{t_bm * 1e3:.1f} us, {e} solo {t_bs * 1e3:.1f} us "
-            f"(x{t_bs / t_bm:.2f}), twin {t_bp * 1e3:.1f} us, bound x {e} "
-            f"{bound_ms * 1e3:.1f} us ({bound_by})")
+            f"members ({'the whole-stack kernel' if n_whole else 'the '
+            'per-layer kernels'}), bitwise {e} solo backwards (dx, every "
+            f"dW and db), max abs err vs the members twin {gerr:.2e}; "
+            f"member call {t_bm * 1e3:.1f} us, {e} solo {t_bs * 1e3:.1f} us"
+            f" (x{t_bs / t_bm:.2f}), twin {t_bp * 1e3:.1f} us, bound x {e} "
+            f"{bound_ms * 1e3:.1f} us ({bound_by})"
+            + ("" if t_bo is None else f"; the per-layer kernels "
+               f"{t_bo * 1e3:.1f} us, new / old x{t_bm / t_bo:.3f}"))
         del grads, flat, twin_g, saved_solo
     _free()
     return out
@@ -3667,10 +3895,15 @@ def fused_fleet_fig3(jnp_fleet, fls0):
     """fig3-width U=2048 x 5 seeds with fused blocks from the jnp fleet's
     initial state (the warm-up's random policy reads no network: the same
     state), 40 supersteps under one graph with its launches counted at
-    capture; member 0 against a solo fused run of seed 0 at SOLO_PARITY;
-    its walls in turns with the jnp fleet's graph, its device time and
-    idle share. Returns ``(launches over the run, record)``."""
+    capture; member 0 against a solo fused run of seed 0 at SOLO_PARITY
+    after every superstep (``fleet_parity.hold_members``: a superstep whose
+    batches differ, a sample flip, passes only where ``flip_cause`` shows
+    that the draw lay within float32 rounding of the boundary between the
+    two rows in both trees; the solo run then restarts from member 0's
+    state). Then its walls in turns with the jnp fleet's graph, its device
+    time and idle share. Returns ``(launches over the run, record)``."""
     import torch
+    from repro_torch.launch import fleet_parity
     from repro_torch.rl.experiment import Experiment
     from repro_torch.rl.runner import clone_state, member_state
     from repro_torch.rl.sweep import Fleet
@@ -3681,36 +3914,39 @@ def fused_fleet_fig3(jnp_fleet, fls0):
     fl._fls = clone_state(fls0)
     tr, per_call = fl.trainer, []
     _count_steps(tr, per_call)
-    t0 = time.perf_counter()
-    try:
-        fl.run(1)
-        torch.cuda.synchronize()
-    finally:
-        del tr.fleet_step
-    t_cap = time.perf_counter() - t0
-    at_capture = _capture_counts(tr, per_call, "fleet-fused")
-    fl.run(FLEET_STEPS - 1)
-    torch.cuda.synchronize()
-    launches = _counts()
     exp = Experiment.from_spec(specs[0])
     exp._ls = clone_state(member_state(fls0, 0))
-    exp.run(FLEET_STEPS)
-    torch.cuda.synchronize()
-    rel, ratio, top = param_rel_diff(fl._fls.agent["params"],
-                                     exp._ls.agent["params"])
+    first = {}
+
+    def after_first():
+        # every fleet launch of the run is counted here: the replays that
+        # follow pass no wrapper, and no solo run has started
+        torch.cuda.synchronize()
+        del tr.fleet_step
+        first.update(t_cap=time.perf_counter() - t0, launches=_counts(),
+                     at_capture=_capture_counts(tr, per_call,
+                                                "fleet-fused"))
+    t0 = time.perf_counter()
+    try:
+        held = fleet_parity.hold_members(fl, {0: exp}, FLEET_STEPS,
+                                         after_first)[0]
+    finally:
+        tr.__dict__.pop("fleet_step", None)
+    flips = [(t, rows, round(ratio, 4)) for t, rows, ratio, _ in
+             held["flips"]]
     log(f"[fleet-fused] fig3-width U=2048 x {FLEET_E} seeds, fused blocks: "
-        f"capture {t_cap:.2f}s (with its eager warm-up superstep); "
+        f"capture {first['t_cap']:.2f}s (with its eager warm-up superstep); "
         f"launches at the warm-up and at the capture, each one solo "
         f"superstep's (one launch a solo launch for all members): "
-        f"{at_capture}; over the run (warm-up, capture, "
-        f"{FLEET_STEPS - 1} supersteps; replays pass no wrapper) {launches};"
-        f" member 0 vs the solo fused run of seed 0 after {FLEET_STEPS} "
-        f"supersteps: largest |diff| / max|leaf| {rel:.3e} (worst {top}), "
-        f"largest |diff| / (atol + rtol |solo|) {ratio:.3f} at SOLO_PARITY "
-        f"(<= 1)")
-    if ratio > 1.0:
-        raise AssertionError(f"fused fleet member 0 outside SOLO_PARITY "
-                             f"(ratio {ratio:.3f})")
+        f"{first['at_capture']}; over the run (warm-up, capture, "
+        f"{FLEET_STEPS - 1} supersteps; replays pass no wrapper) "
+        f"{first['launches']}; member 0 vs the solo fused run of seed 0 "
+        f"after each of {FLEET_STEPS} supersteps: largest |diff| / (atol + "
+        f"rtol |solo|) {held['worst']:.4f} at SOLO_PARITY (<= 1); sample "
+        f"flips (superstep, rows, ratio; the solo run restarted from member "
+        f"0) {flips}: {fleet_parity.flips_line(held)}")
+    if held["fault"] is not None:
+        raise AssertionError(f"fused fleet member 0: {held['fault']}")
     walls = walls_in_turns({"fused": fl.graph, "jnp": jnp_fleet.graph},
                            "fleet-fused")
     dev = graph_device_time(fl.graph, "fleet-fused", "fleet-fused-prof")
@@ -3722,10 +3958,11 @@ def fused_fleet_fig3(jnp_fleet, fls0):
                member_superstep_ms=walls["fused"] / FLEET_E,
                jnp_replay_ms=walls["jnp"], events_ms=dev["events_ms"],
                idle=dev["idle"], kernels_per_replay=dev["kernels"],
-               solo_parity_ratio=ratio, launches_at_capture=at_capture)
+               solo_parity_ratio=held["worst"], sample_flips=flips,
+               launches_at_capture=first["at_capture"])
     del fl, exp
     _free()
-    return launches, rec
+    return first["launches"], rec
 
 
 def fused_fleet_train(train_spec):
@@ -4714,6 +4951,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     phase_parity(gen)
     phase_backward_parity(gen)
+    phase_whole_bwd(gen)
     phase_tree_parity(gen)
     phase_dense_parity(gen)
     phase_flash_parity(gen)
@@ -4776,11 +5014,15 @@ def main() -> int:
                           "figs": figs_launches["fwd"]},
         launches_by_kernel={k: train_launches[f"fwd_{k}"]
                             for k in stack.FWD_KERNELS},
+        launches_by_kernel_fleet_fig3={
+            k: fused["launches"]["fleet"][f"fwd_{k}"]
+            for k in stack.FWD_KERNELS},
         fleet=fused["kernels"]["fwd"]["critic"],
         fleet_by_shape=fused["kernels"]["fwd"],
         fleet_fig3=fused["fig3"], fleet_train=fused["train"],
         stream_t_inits=train_launches["fwd_t"],
-        by_shape={f"{name} M={m}": {k: v[k] for k in keys}
+        by_shape={f"{name} M={m}": {k: v[k] for k in (*keys, "old_tile_ms")
+                                     if k in v}
                   for (name, m), v in rows.items()},
         profile_ms=dict(profile_classes[2]))
     print(json.dumps({"kernels": [
@@ -4798,6 +5040,16 @@ def main() -> int:
                                      fused["launches"]["fleet_train"]["bwd"],
                                  "sharded": sharded_launches["bwd"],
                                  "figs": figs_launches["bwd"]},
+               launches_by_kernel={
+                   "whole": train_launches["bwd_whole"],
+                   "layers": train_launches["bwd"]
+                   - train_launches["bwd_whole"]},
+               launches_by_kernel_td3={
+                   "whole": td3_launches["bwd_whole"],
+                   "layers": td3_launches["bwd"] - td3_launches["bwd_whole"]},
+               by_shape={name: {k: v for k, v in bwd[name].items()
+                                if k != "products"}
+                         for name in ("phi_s", "phi_sa")},
                fleet=fused["kernels"]["bwd"]["critic"],
                fleet_by_shape=fused["kernels"]["bwd"]),
         record("tree_sample",

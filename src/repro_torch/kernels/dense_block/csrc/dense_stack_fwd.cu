@@ -37,17 +37,29 @@
 //     Warps split each stage's rows (and, past 8 rows of M, the rows of
 //     M); their sums meet in shared memory in fixed order. A K split
 //     sums in the strip's last block, 16 float4 loads a thread in flight.
-//   M >= 128 with U >= 128 (densenet: the actor and critic stacks at the
-//     batch of 256): the register tile of dense_tile_rt.cuh (128x64 tiles,
-//     8x4 outputs a thread, 16 FMAs per shared load, a cp.async ring). It
-//     computes A^T @ B with both operands stored along K, and W already
-//     is; the stream is not, so the wrapper keeps a transposed copy of it
-//     (`stream^T`, rows padded to 4 floats): dense_tile.cuh's
-//     transpose_kernel writes x into the stream and x^T into stream^T once
-//     a call, and each layer's epilogue writes y_i into the stream and
-//     y_i^T into stream^T (one 16-byte store per 4 rows), where the next
-//     layer reads it. The fp32 operations bound it (the actor: 2.7 GFLOP,
-//     ~40 us at 67 TFLOP/s).
+//   M >= 128 with U >= 128 (the actor and critic stacks at the batch of
+//     256, every connectivity): the register tile of dense_tile_rt.cuh
+//     (128x64 tiles, 8x4 outputs a thread, 16 FMAs per shared load, a
+//     cp.async ring). It computes A^T @ B with both operands stored along
+//     K, and W already is; the layer's input is not, so the wrapper keeps
+//     it transposed (rows padded to 4 floats) and one init launch a call
+//     writes x^T, and each layer's epilogue writes y_i^T (one 16-byte
+//     store per 4 rows) where the next layer reads it:
+//       densenet: `stream^T`; dense_tile.cuh's transpose_kernel also
+//         writes x into the stream, and every layer y_i into its slot;
+//       mlp: two ping-pong slots of h^T after x^T (xt_kernel writes x^T);
+//         the layers below the last write only h_i^T (their row-major
+//         output would be read by nobody: the backward recomputes h from
+//         zs), the last one only the row-major feature;
+//       d2rl: two slabs [h^T | x^T] of U + d0 rows, x^T written into both
+//         by the one init (xt_kernel<true>): the input [h_{i-1} | x] of
+//         layer i > 0 is then ONE operand of consecutive rows in W's row
+//         order, so K stays one reduction and the tile needs no second
+//         segment; layer 0 reads slab 0's x^T (K = d0: 3-4 at pendulum,
+//         one zero-padded K step), layer i slab i % 2 whole, and writes
+//         h_i^T into the other slab's first U rows.
+//     The fp32 operations bound it (the actor: 2.7 GFLOP, ~40 us at 67
+//     TFLOP/s; fig3's U=2048 mlp critic 2.15 GFLOP, ~32 us).
 //   M > 32, densenet with U < 128 (the OFENet stacks phi_s and phi_sa at
 //     the batch of 256: 0.01-0.05 GFLOP, 0.1-0.4 MB of weights): the whole
 //     stack in ONE launch, whole_stack_kernel. Latency binds it, not work:
@@ -64,9 +76,10 @@
 //     between layers; no split, no atomics, no counters: bitwise the same
 //     from call to call. What bounds it: each block streams every weight
 //     from L2 (phi_sa: 364 KB), at an SM's share of the L2 rate.
-//   otherwise (mlp and d2rl past 32 rows; a densenet stack too wide for
-//     whole_stack_kernel's shared memory): the tile product of
-//     dense_tile.cuh with a register prefetch.
+//   otherwise (mlp and d2rl past 32 rows with U or M under 128; a
+//     densenet stack too wide for whole_stack_kernel's shared memory and
+//     narrower than 128): the tile product of dense_tile.cuh with a
+//     register prefetch.
 //
 // The streaming kernel, the whole-stack kernel and dense_tile.cuh's are
 // programmatic dependent launches (dense_tile.cuh's launch_pdl; the whole-
@@ -113,9 +126,11 @@ using dense_tile_rt::aligned16;
 // ---- M >= 128: the register tile's epilogue --------------------------------
 
 // z = v + bias (to `z` if given); y = act(z) into the stream's column slot
-// and, if given, y^T into rows [gn, gn + 4) of stream^T (columns gm0 ..
-// gm0 + 3: one float4 a column); 16 bytes at a time where a destination
-// allows it, masked at the ragged edge.
+// (or mlp/d2rl's output; null for their layers below the last, which
+// only the next layer reads, from y^T) and, if given, y^T into rows [gn,
+// gn + 4) of stream^T (columns gm0 .. gm0 + 3: one float4 a column); 16
+// bytes at a time where a destination allows it, masked at the ragged
+// edge.
 struct FwdEpi {
   const float* bias;
   float* z; long long ldz;
@@ -156,7 +171,7 @@ struct FwdEpi {
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[r][j] = apply_act(v[r][j], act);
-    rows(y, ldy, vy, gm0, gn, v);
+    if (y != nullptr) rows(y, ldy, vy, gm0, gn, v);
     if (yt == nullptr) return;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -200,7 +215,7 @@ fwd_tile_members(const dense_tile_rt::Args p, const FwdEpi epi,
   FwdEpi q = epi;
   q.bias += e * es.bias;
   if (q.z != nullptr) q.z += e * es.z;
-  q.y += e * es.y;
+  if (q.y != nullptr) q.y += e * es.y;
   if (q.yt != nullptr) q.yt += e * es.yt;
   dense_tile_rt::tile_body<kRtM, kRtN, true, VB>(
       dense_tile_rt::at_member(p, s), q);
@@ -798,13 +813,15 @@ int layer_fwd_rt(int config, int vec_w, const float* at, long long ldat,
                               chunks_per_split};
   const int vec = 1 | (vec_w ? 2 : 0);
   if (config != 4 || !dense_tile_rt::args_ok(p, vec) ||
-      !dense_tile_rt::strides_ok(s, vec) || b == nullptr || y == nullptr ||
+      !dense_tile_rt::strides_ok(s, vec) || b == nullptr ||
+      (y == nullptr && yt == nullptr) ||
       act < dense_tile::kIdentity || act > dense_tile::kSwish ||
       (yt != nullptr && !member_aligned(yt, ldt, es.yt)))
     return static_cast<int>(cudaErrorInvalidValue);
   const FwdEpi epi{b, zout, ldz, y, ldy, yt, ldt, m, n, act,
                    zout != nullptr && member_aligned(zout, ldz, es.z),
-                   member_aligned(y, ldy, es.y), yt != nullptr};
+                   y != nullptr && member_aligned(y, ldy, es.y),
+                   yt != nullptr};
   const dim3 grid(((m + kRtM - 1) / kRtM) * ((n + kRtN - 1) / kRtN), splits,
                   members > 0 ? members : 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1003,30 +1020,36 @@ extern "C" int dense_layer_fwd_stream_members(
                           {sa1, sa2, sw, sb, so, sz, sac}, stream);
 }
 
-// dst (rows, cols) = src and dst_t (cols, rows) = src^T: x into the stream
-// and stream^T before the register tile's first layer.
+// dst_t (cols, rows) = src^T before the register tile's first layer, and:
+// densenet, dst (rows, cols) = src (x into the stream and stream^T); mlp,
+// dst null (x^T alone); d2rl, dst null and a second copy of x^T `dup`
+// elements past dst_t (one in each ping-pong buffer), else dup = 0.
 extern "C" int dense_fwd_stream_init(const float* src, long long lds,
                                      float* dst, long long ldd, float* dst_t,
-                                     long long ldt, int rows, int cols,
-                                     void* stream) {
-  if (dst == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                                     long long ldt, long long dup, int rows,
+                                     int cols, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dst == nullptr)
+    return dense_tile::launch_xt(src, lds, dst_t, ldt, dup, rows, cols, st);
+  if (dup != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dense_tile::launch_transpose(src, lds, dst_t, ldt, dst, ldd, rows,
-                                      cols,
-                                      static_cast<cudaStream_t>(stream));
+                                      cols, st);
 }
 
 // dense_fwd_stream_init for `members` members in one launch; ss, sd, st:
 // the member strides of src, dst and dst_t.
 extern "C" int dense_fwd_stream_init_members(
     const float* src, long long lds, float* dst, long long ldd, float* dst_t,
-    long long ldt, int rows, int cols, int members, long long ss,
-    long long sd, long long st, void* stream) {
-  if (dst == nullptr || members < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+    long long ldt, long long dup, int rows, int cols, int members,
+    long long ss, long long sd, long long st, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dst == nullptr)
+    return dense_tile::launch_xt(src, lds, dst_t, ldt, dup, rows, cols, s,
+                                 members, ss, st);
+  if (dup != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dense_tile::launch_transpose(src, lds, dst_t, ldt, dst, ldd, rows,
-                                      cols,
-                                      static_cast<cudaStream_t>(stream),
-                                      members, ss, st, sd);
+                                      cols, s, members, ss, st, sd);
 }
 
 // The whole narrow densenet stack (U <= 128, up to 16 layers) in one

@@ -164,6 +164,78 @@ inline int launch_transpose(const float* src, long long lds, float* dst_t,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The forward's x^T for an mlp or d2rl stack on the register tile
+// (dense_stack_fwd.cu): dst_t = src^T as transpose_run<false>, and with
+// DUP a second copy `dup` elements further on (x^T into both of d2rl's
+// ping-pong buffers, whose layers read [h | x]^T from one of them). A
+// kernel of its own, so a profile tells it from the backward's W^T.
+template <bool DUP>
+__device__ __forceinline__ void xt_run(const float* src, long long lds,
+                                       float* dst_t, long long ldt,
+                                       long long dup, int rows, int cols) {
+  __shared__ float tile[kTrTile][kTrTile + 1];
+  const int tx = threadIdx.x % kTrTile, ty = threadIdx.x / kTrTile;
+  const int r0 = blockIdx.y * kTrTile, c0 = blockIdx.x * kTrTile;
+#pragma unroll
+  for (int j = 0; j < kTrTile / kTrRowGroups; ++j) {
+    const int r = r0 + ty + j * kTrRowGroups, c = c0 + tx;
+    if (r < rows && c < cols) tile[ty + j * kTrRowGroups][tx] = src[r * lds + c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kTrTile / kTrRowGroups; ++j) {
+    const int c = c0 + ty + j * kTrRowGroups, r = r0 + tx;
+    if (c < cols && r < rows) {
+      const float v = tile[tx][ty + j * kTrRowGroups];
+      dst_t[c * ldt + r] = v;
+      if constexpr (DUP) dst_t[dup + c * ldt + r] = v;
+    }
+  }
+}
+
+template <bool DUP>
+__global__ void __launch_bounds__(kTrTile * kTrRowGroups)
+xt_kernel(const float* src, long long lds, float* dst_t, long long ldt,
+          long long dup, int rows, int cols) {
+  xt_run<DUP>(src, lds, dst_t, ldt, dup, rows, cols);
+}
+
+// member blockIdx.z; ss, st: the member strides of src and dst_t
+template <bool DUP>
+__global__ void __launch_bounds__(kTrTile * kTrRowGroups)
+xt_members(const float* src, long long lds, float* dst_t, long long ldt,
+           long long dup, int rows, int cols, long long ss, long long st) {
+  const long long e = blockIdx.z;
+  xt_run<DUP>(src + e * ss, lds, dst_t + e * st, ldt, dup, rows, cols);
+}
+
+// Launches xt_kernel (DUP when `dup` > 0: it must clear the first copy);
+// with `members` > 0, one launch of xt_members for that many members.
+inline int launch_xt(const float* src, long long lds, float* dst_t,
+                     long long ldt, long long dup, int rows, int cols,
+                     cudaStream_t stream, int members = 0, long long ss = 0,
+                     long long st = 0) {
+  if (rows <= 0 || cols <= 0 || lds < cols || ldt < rows || members < 0 ||
+      dup < 0 || (dup > 0 && dup < cols * ldt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((cols + kTrTile - 1) / kTrTile,
+                  (rows + kTrTile - 1) / kTrTile, members > 0 ? members : 1);
+  const int threads = kTrTile * kTrRowGroups;
+  if (members > 0 && dup > 0)
+    xt_members<true><<<grid, threads, 0, stream>>>(src, lds, dst_t, ldt, dup,
+                                                   rows, cols, ss, st);
+  else if (members > 0)
+    xt_members<false><<<grid, threads, 0, stream>>>(src, lds, dst_t, ldt,
+                                                    dup, rows, cols, ss, st);
+  else if (dup > 0)
+    xt_kernel<true><<<grid, threads, 0, stream>>>(src, lds, dst_t, ldt, dup,
+                                                  rows, cols);
+  else
+    xt_kernel<false><<<grid, threads, 0, stream>>>(src, lds, dst_t, ldt, dup,
+                                                   rows, cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
 struct TileArgs {
   const float* a1; long long lda1; int k1;   // A segment 1 (logical k 0..k1)
   const float* a2; long long lda2; int k2;   // A segment 2 (k2 may be 0)

@@ -13,18 +13,22 @@ the last hidden layer for mlp and d2rl.
   launch of the whole-stack kernel where its shared memory fits
   (``whole_smem``); otherwise, up to 32 rows (serving slots) the
   weight-streaming kernel, once per layer; from 128 rows, where U is too
-  (densenet: the actor and critic stacks in training), the register tile
-  of ``csrc/dense_tile_rt.cuh`` over a transposed copy of the stream,
-  which one ``dense_fwd_stream_init`` launch per call starts and every
-  layer's epilogue extends; otherwise ``csrc/dense_tile.cuh``, once per
-  layer.
+  (the actor and critic stacks in training, every connectivity), the
+  register tile of ``csrc/dense_tile_rt.cuh`` over a transposed copy of
+  the layer's input, which one ``dense_fwd_stream_init`` launch per call
+  starts (x^T) and every layer's epilogue extends (densenet's stream^T;
+  mlp's and d2rl's ping-pong buffers of h^T, ``_rt_hidden``); otherwise
+  ``csrc/dense_tile.cuh``, once per layer.
   When autograd will differentiate the call, the forward also keeps every
   layer's pre-activation in an ``(M, L*U)`` side buffer, and the backward
   (``_StackKernel.backward``, the port of ``_bwd_kernel``) launches
-  ``csrc/dense_stack_bwd.cu`` layer by layer in reverse, W^T, dW and db on
-  a side stream beside the act_grad -> dx chain; products of at least 128
-  x 128 x 128 (every one of the actor and the critic) take the register
-  tile of ``csrc/dense_tile_rt.cuh`` as ``plan_bwd`` plans them.
+  ``csrc/dense_stack_bwd.cu``: a narrow densenet stack whose shared memory
+  fits (``whole_bwd_smem``: the OFENet stacks) in ONE launch of the
+  whole-stack backward kernel, every other stack layer by layer in
+  reverse, W^T, dW and db on a side stream beside the act_grad -> dx
+  chain; products of at least 128 x 128 x 128 (every one of the actor and
+  the critic) take the register tile of ``csrc/dense_tile_rt.cuh`` as
+  ``plan_bwd`` plans them.
   It computes only the gradients autograd asks for, and it is bitwise the
   same from run to run (no floating-point atomics).
 * On a CPU tensor it runs ``dense_stack_ref``, the plain PyTorch concat
@@ -63,7 +67,10 @@ buffer, which is returned (and, on the register tile, layer i's output
 transposed into rows ``[d0 + i*U, d0 + (i+1)*U)`` of the scratch
 ``stream^T``, which is not kept for autograd); mlp and d2rl alternate
 between two ``(M, U)`` buffers, and d2rl hands the kernel its input as the
-segments ``[h | x]``, the order of the weight's logical rows.
+segments ``[h | x]``, the order of the weight's logical rows; on the
+register tile they alternate between two slots of h^T instead (d2rl's
+each followed by its own x^T, so ``[h | x]^T`` is one operand), and only
+the last layer writes the row-major feature.
 """
 from __future__ import annotations
 
@@ -100,6 +107,15 @@ _RT_CONFIGS = {3: (128, 128, 8), 4: (128, 64, 8)}
 _RT_MIN = 128
 # ... and gives each split at least this many BK chunks
 _RT_MIN_CHUNKS_PER_SPLIT = 8
+# a wide stack's thin backward product (only the layer's input width under
+# _RT_MIN) takes the register tile from this input width, its dx unsplit
+# below this reduction (launch/bwd_sweep.py --only thin, H100: the
+# presets' 35- to 68-wide first layers at M=U=128 11.1-12.7 us against
+# dense_tile.cuh's 15.1-17.3, dx 11.6-11.9 unsplit against 12.4-18.1 in
+# two; fig3's 4-wide first layer at U=2048 slower on the tile, dW 12.8 us
+# against 10.8, dx 35.8 against 13.9)
+_RT_THIN_MIN = 32
+_RT_THIN_SPLIT_K = 256
 # what a split of dx costs, in BK chunks of one block's work: its partials
 # written, read back and summed by the tile's last block (fit to the split
 # sweeps of launch/bwd_sweep.py at the four dx products, M=256, H100)
@@ -133,13 +149,31 @@ _WHOLE_CHUNK = 32
 _WHOLE_STAGES = 6
 _WHOLE_THREADS = 256
 _SMEM_MAX = 232448
+# the backward's whole-stack kernel (dense_stack_bwd.cu whole_bwd_kernel):
+# narrow densenet stacks (U < _RT_MIN) at any M in one launch; the rows of
+# a sweep block and the row tiles it has (16 only at U <= 64: a thread
+# keeps rows x U/8 of gz in registers), and its shared-memory layout: the
+# sweep's ring of _WHOLE_STAGES stages of _WHOLE_CHUNK W rows (U rounded
+# up to 64 or 128, plus 4), a reduction task's ring of
+# _WHOLE_BWD_TASK_STAGES stages of _WHOLE_BWD_TASK_M batch rows of a
+# _WHOLE_BWD_TASK_K-row stream tile and of gz
+_WHOLE_BWD_ROWS = 4
+_WHOLE_BWD_ROW_TILES = (4, 8, 16)
+_WHOLE_BWD_TASK_K = 32
+_WHOLE_BWD_TASK_M = 32
+_WHOLE_BWD_TASK_STAGES = 4
+# ... and its counters, a 128-byte line apart (whole::counters_of)
+_WHOLE_BWD_LINE = 32
 # forward kernels by the name their launch counts go under
 FWD_KERNELS = ("stream", "rt", "tile", "whole")
+# backward kernels by the name their launch counts go under: the per-layer
+# kernels (one count a stack backward) and the whole-stack kernel
+BWD_KERNELS = ("layers", "whole")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(FWD_KERNELS, 0)
 _transposes = 0
-_bwd_launches = 0
+_bwd_launches = dict.fromkeys(BWD_KERNELS, 0)
 
 
 def launch_count(kernel: Optional[str] = None) -> int:
@@ -171,28 +205,32 @@ def transpose_count() -> int:
     return _transposes
 
 
-def bwd_launch_count() -> int:
-    """Backward calls on the card since the last ``reset_launch_count``
-    (one per stack backward; each launches the kernels of
-    ``dense_stack_bwd.cu`` for every layer it reaches)."""
-    return _bwd_launches
+def bwd_launch_count(kernel: Optional[str] = None) -> int:
+    """Backward calls on the card since the last ``reset_launch_count``:
+    of every stack backward, or of one of ``BWD_KERNELS``: ``"layers"``
+    (a stack backward that launched the per-layer kernels of
+    ``dense_stack_bwd.cu`` for every layer it reaches) or ``"whole"`` (one
+    launch of the whole-stack kernel)."""
+    if kernel is None:
+        return sum(_bwd_launches.values())
+    return _bwd_launches[kernel]
 
 
 def reset_launch_count() -> None:
-    global _transposes, _bwd_launches
+    global _transposes
     with _count_lock:
         _launches.update(dict.fromkeys(FWD_KERNELS, 0))
+        _bwd_launches.update(dict.fromkeys(BWD_KERNELS, 0))
         _transposes = 0
-        _bwd_launches = 0
 
 
 def _count_launch(kind: str) -> None:
     """One launch of a forward kernel (``FWD_KERNELS``), of
-    ``"transpose"`` or of ``"bwd"``."""
-    global _transposes, _bwd_launches
+    ``"transpose"``, or of a backward (``"bwd_layers"``, ``"bwd_whole"``)."""
+    global _transposes
     with _count_lock:
-        if kind == "bwd":
-            _bwd_launches += 1
+        if kind.startswith("bwd_"):
+            _bwd_launches[kind[4:]] += 1
         elif kind == "transpose":
             _transposes += 1
         else:
@@ -332,7 +370,8 @@ def _library() -> ctypes.CDLL:
         lib.dense_layer_fwd_stream.argtypes = [i, p, ll, i, p, ll, i, p, ll,
                                                p, p, ll, p, ll, p, ll, p, p,
                                                i, i, i, i, i, p]
-        lib.dense_fwd_stream_init.argtypes = [p, ll, p, ll, p, ll, i, i, p]
+        lib.dense_fwd_stream_init.argtypes = [p, ll, p, ll, p, ll, ll, i, i,
+                                              p]
         lib.dense_stack_fwd_whole.argtypes = [i, i, p, ll, i, p, p, i, i, p,
                                               ll, p, ll, i, i, p]
         # the member entries: the solo arguments, the member count and
@@ -363,12 +402,19 @@ def _bwd_library() -> ctypes.CDLL:
                                        p, ll, i, p, p, i, i, i, i, p]
         lib.dense_bwd_gemm_rt.argtypes = [i, i, i, p, ll, p, ll, p, ll, p,
                                           ll, p, p, i, i, i, i, i, p]
-        strides = {"dense_bwd_act_grad": 5, "dense_bwd_db": 2,
-                   "dense_bwd_act": 2, "dense_bwd_transpose": 2,
-                   "dense_bwd_gemm": 4, "dense_bwd_gemm_rt": 4}
-        for name, n in strides.items():
+        lib.dense_bwd_whole.argtypes = [i, i, i, p, p, p, p, ll, p, ll, p,
+                                        ll, p, ll, p, p, i, i, i, i, i, p]
+        # the member entries: the solo arguments, the member count and each
+        # operand's member stride (the whole stack's w, dW and db as arrays
+        # of one a layer), then the stream
+        strides = {"dense_bwd_act_grad": [ll] * 5, "dense_bwd_db": [ll] * 2,
+                   "dense_bwd_act": [ll] * 2,
+                   "dense_bwd_transpose": [ll] * 2,
+                   "dense_bwd_gemm": [ll] * 4, "dense_bwd_gemm_rt": [ll] * 4,
+                   "dense_bwd_whole": [ll] * 5 + [p] * 3}
+        for name, types in strides.items():
             solo, members = getattr(lib, name), getattr(lib, name + "_members")
-            members.argtypes = solo.argtypes[:-1] + [i] + [ll] * n + [p]
+            members.argtypes = solo.argtypes[:-1] + [i] + types + [p]
             solo.restype = members.restype = ctypes.c_int
     return lib
 
@@ -402,10 +448,20 @@ def plan_bwd(m: int, n: int, k: int, num_sms: int,
 
     Outputs of at least ``_RT_MIN`` rows and columns with a reduction at
     least as long take a register-tiled config of ``_RT_CONFIGS``
-    (``config`` forces one); smaller products (the narrow OFENet stacks,
-    small test shapes) keep the forward's ``plan``. The rules follow the
-    card (``launch/bwd_sweep.py``: both tiles and every split at the
-    critic's and the actor's products, H100):
+    (``config`` forces one), and so do a wide stack's thin products, whose
+    only side under ``_RT_MIN`` is the layer's input width (dW's rows, dx's
+    columns: the first layer's where d0 < 128), from ``_RT_THIN_MIN`` wide
+    (the presets' 35- to 68-wide OFENet features; the tile masks the
+    ragged edge), a thin dx unsplit below ``_RT_THIN_SPLIT_K``. Other
+    small products (a narrow mlp or d2rl stack, a narrow densenet stack
+    the whole-stack backward does not take or ``_kernel_backward(...,
+    whole=False)``, a batch under 128, fig3's 3- or 4-wide first layer,
+    where ``dense_tile.cuh`` is the faster, small test shapes) keep the
+    forward's ``plan``; the OFENet stacks run whole,
+    in one launch of the whole-stack backward kernel, and plan no product
+    (``whole_bwd_smem``). The rules follow the card (``launch/bwd_sweep.py``:
+    both tiles and every split at the critic's and the actor's products,
+    and the thin products of the presets on both paths, H100):
 
     * dW reduces over only the batch, and its output is large: 128x128
       tiles where they are one wave or more and ``vec`` (the stream takes
@@ -416,7 +472,9 @@ def plan_bwd(m: int, n: int, k: int, num_sms: int,
       added nothing, so the plan counts waves of one block per SM: it
       takes 128x64 tiles and the split that minimises waves x chunks per
       split + splits x ``_RT_SPLIT_CHUNKS``; ties go to fewer splits."""
-    if min(m, n, k) < _RT_MIN:
+    thin = min(m, n) < _RT_MIN and k >= _RT_MIN \
+        and (m if dx else n) >= _RT_MIN and (n if dx else m) >= _RT_THIN_MIN
+    if min(m, n, k) < _RT_MIN and not thin:
         if config is not None:
             raise ValueError(f"config {config} forced on a ({m}, {n}) x "
                              f"{k} product below the register tile")
@@ -434,6 +492,8 @@ def plan_bwd(m: int, n: int, k: int, num_sms: int,
     tiles, bk = tiles_of(config), _RT_CONFIGS[config][2]
     chunks = -(-k // bk)
     max_splits = max(1, chunks // _RT_MIN_CHUNKS_PER_SPLIT)
+    if dx and thin and k < _RT_THIN_SPLIT_K:
+        max_splits = 1
     if not dx:
         want = -(-num_sms // tiles) if 2 * tiles < num_sms else 1
         per_split = -(-chunks // min(want, max_splits))
@@ -468,6 +528,46 @@ def whole_smem(d0: int, u: int, n_layers: int,
     return size if size <= _SMEM_MAX else None
 
 
+def whole_bwd_smem(d0: int, u: int, n_layers: int,
+                   rows: int = _WHOLE_BWD_ROWS) -> Optional[int]:
+    """Bytes of dynamic shared memory the backward's whole-stack kernel
+    takes for a densenet stack (input width ``d0``, ``n_layers`` layers of
+    ``u``) at ``rows`` rows a sweep block, or None where it does not take
+    the stack (U of ``_RT_MIN`` or more, more than ``_WHOLE_MAX_LAYERS``
+    layers, a row tile it lacks, or more than the 227 KB a block may
+    have): the larger of a sweep's (its rows of the gradient stream, rows
+    padded to 4 floats; its gz rows; the W ring, ``_WHOLE_STAGES`` stages
+    of ``_WHOLE_CHUNK`` rows of U rounded up to 64 or 128, plus 4) and a
+    reduction task's (its ring of batch rows of a stream tile and of gz)
+    (dense_stack_bwd.cu ``whole::smem_bytes``)."""
+    if u >= _RT_MIN or not 1 <= n_layers <= _WHOLE_MAX_LAYERS:
+        return None
+    uc = 64 if u <= 64 else 128
+    if rows not in _WHOLE_BWD_ROW_TILES or rows * uc > 1024:
+        return None
+    sweep = rows * _pad4(d0 + n_layers * u) + rows * uc \
+        + _WHOLE_STAGES * _WHOLE_CHUNK * (uc + 4)
+    task = _WHOLE_BWD_TASK_STAGES * _WHOLE_BWD_TASK_M \
+        * (_WHOLE_BWD_TASK_K + uc)
+    size = 4 * max(sweep, task)
+    return size if size <= _SMEM_MAX else None
+
+
+def whole_bwd_blocks(m: int, d0: int, u: int, n_layers: int,
+                     need_dw: Sequence[bool], need_db: Sequence[bool],
+                     lowest: int = 0, rows: int = _WHOLE_BWD_ROWS
+                     ) -> Tuple[int, int]:
+    """``(sweeps, tasks)`` of one whole-stack backward: a sweep block a
+    ``rows`` rows of the batch; a reduction task a
+    ``_WHOLE_BWD_TASK_K``-row tile of each asked-for dW_i (or one for db_i
+    alone), layers ``lowest`` and up, summed over the whole batch."""
+    def tiles_of(i):
+        if need_dw[i]:
+            return -(-(d0 + i * u) // _WHOLE_BWD_TASK_K)
+        return int(bool(need_db[i]))
+    return -(-m // rows), sum(tiles_of(i) for i in range(lowest, n_layers))
+
+
 def plan_fwd(m: int, n: int, k: int, num_sms: int,
              transposed: bool = True,
              stack: Optional[Tuple[int, int]] = None
@@ -493,17 +593,23 @@ def plan_fwd(m: int, n: int, k: int, num_sms: int,
       ``_STREAM_MIN_K`` and at most ``_STREAM_MAX_K`` rows (``per_split``
       counts rows here, not chunks).
     * at least ``_RT_MIN`` rows and columns where the wrapper keeps the
-      stream transposed (``transposed``: densenet), the register tile's
+      layer's input transposed (``transposed``: every connectivity;
+      densenet's stream^T, mlp's and d2rl's h^T), the register tile's
       128x64 tiles (``_RT_FWD_CONFIG``) with K split into up to
       ``_BLOCKS_PER_SM`` blocks per SM, each with at least
       ``_RT_FWD_MIN_CHUNKS`` chunks. The rules follow the card
       (``launch/bwd_sweep.py``: the actor's and the critic's layers at
-      M=256, H100): a second block per SM hides the first one's loads
-      (the actor's layer 1: 84.4 us at 4 splits, 94.0 at 2), and a short K
-      keeps fewer splits.
-    * otherwise (mlp and d2rl past 32 rows, a densenet stack too wide for
-      the whole-stack kernel), ``dense_tile.cuh`` as ``plan`` plans it
-      (config 2)."""
+      M=256, fig3-width's mlp critic, H100): a second block per SM hides
+      the first one's loads (the actor's layer 1: 84.4 us at 4 splits,
+      94.0 at 2; fig3's critic layer 1, K=2048: 76.5 us at 4, 85.5 at 2,
+      121.0 on ``dense_tile.cuh``), and a short K keeps fewer splits (K=4:
+      one zero-padded chunk, unsplit).
+    * otherwise (mlp and d2rl past 32 rows with U or M under
+      ``_RT_MIN``, or with ``transposed=False``: the path before the
+      register tile took them, ``_kernel_forward(..., mlp_rt=False)``; a
+      densenet stack too wide for the whole-stack kernel and narrower
+      than ``_RT_MIN``), ``dense_tile.cuh`` as ``plan`` plans it (config
+      2)."""
     if transposed and stack is not None and whole_smem(
             stack[0], n, stack[1]) is not None:
         return _WHOLE_CONFIG, -(-m // _WHOLE_ROWS), 1, _WHOLE_ROWS
@@ -644,18 +750,23 @@ def _launch_layer(lib, plan, seg1: Tuple[torch.Tensor, int],
     """``out[:, col:col+N] = act([seg1 | seg2] @ w + b)`` by the kernel of
     ``plan`` (``plan_fwd``'s); a segment is ``(tensor, first column)`` and
     spans ``w``'s matching rows. ``z`` ``(tensor, first column)`` receives
-    the pre-activation when given. The register tile reads the stream from
-    ``at`` (``stream^T``, rows padded to 4 floats) instead of ``seg1`` and
-    writes its output transposed into ``yt`` (rows of ``stream^T``) when
-    given. The streaming kernel also copies ``seg1``'s columns into the
-    first columns of ``acopy`` when given (x into densenet's stream). A
-    3-D ``out`` is E members' (every tensor then with a leading member
-    axis, of stride 0 where the members share it): one member launch."""
+    the pre-activation when given. The register tile reads its input from
+    ``at`` (transposed: ``w``'s rows of it, rows padded to 4 floats)
+    instead of the segments and writes its output transposed into ``yt``
+    when given; its ``out`` may then be None (mlp and d2rl's layers below
+    the last, read only transposed), ``yt``'s columns ``[0, M)`` giving M.
+    The streaming kernel also copies ``seg1``'s columns into the first
+    columns of ``acopy`` when given (x into densenet's stream). A 3-D
+    ``out`` (or ``yt``) is E members' (every tensor then with a leading
+    member axis, of stride 0 where the members share it): one member
+    launch."""
     config, tiles, splits, per_split = plan
-    a1, c1 = seg1
-    e = _members(out)
+    a1, c1 = seg1 if seg1 is not None else (None, 0)
+    rows_of = out if out is not None else yt
+    e = _members(rows_of)
     lead = () if e is None else (e,)
-    m, n = out.shape[-2], w.shape[-1]
+    m = out.shape[-2] if out is not None else yt.shape[-1]
+    n = w.shape[-1]
     k2 = 0 if seg2 is None else seg2[0].shape[-1] - seg2[1]
     k1 = w.shape[-2] - k2
     kind = fwd_kernel_of(config)
@@ -663,17 +774,18 @@ def _launch_layer(lib, plan, seg1: Tuple[torch.Tensor, int],
     if splits > 1:
         ws_buf = torch.empty((*lead, splits, m,
                               _pad4(n) if kind != "tile" else n),
-                             device=out.device, dtype=torch.float32)
-        counters = _tile_counters(tiles * (e or 1), out.device, stream)
+                             device=w.device, dtype=torch.float32)
+        counters = _tile_counters(tiles * (e or 1), w.device, stream)
     z_ptr, ldz = (None, 0) if z is None else (_ptr(*z), z[0].stride(-2))
     sz = 0 if z is None else _ms(z[0])
     vec_w = int(_vec(_op(w)))
     if kind == "rt":
         err = _call(lib, "dense_layer_fwd_rt", (
             config, vec_w, at.data_ptr(), at.stride(-2), w.data_ptr(),
-            w.stride(-2), b.data_ptr(), _ptr(out, col), out.stride(-2),
-            z_ptr, ldz, _ptr(yt), 0 if yt is None else yt.stride(-2),
-            _ptr(ws_buf), _ptr(counters), m, n, k1, act, splits, per_split),
+            w.stride(-2), b.data_ptr(), _ptr(out, col),
+            0 if out is None else out.stride(-2), z_ptr, ldz, _ptr(yt),
+            0 if yt is None else yt.stride(-2), _ptr(ws_buf),
+            _ptr(counters), m, n, k1, act, splits, per_split),
             e, (_ms(at), _ms(w), _ms(b, 1), _ms(out), sz, _ms(yt)), stream)
     else:
         a2_ptr, lda2, sa2 = None, 0, 0
@@ -764,16 +876,38 @@ def _check_cuda(x: torch.Tensor, ws, bs, connectivity: str) -> None:
                              f"b {tuple(b.shape)}; want w {want}, b ({u},)")
 
 
+def _stream_init(lib, x: torch.Tensor, dst: Optional[torch.Tensor],
+                 dst_t: torch.Tensor, dup: int, stream: int) -> None:
+    """x^T into ``dst_t`` (rows of 4-float-padded stride) before the
+    register tile's first layer, and x into ``dst`` (densenet's stream)
+    when given, or a second x^T ``dup`` floats past ``dst_t`` (d2rl's
+    other ping-pong buffer) when ``dup`` > 0: one launch."""
+    e = _members(x)
+    m, d0 = x.shape[-2:]
+    err = _call(lib, "dense_fwd_stream_init", (
+        x.data_ptr(), x.stride(-2), _ptr(dst),
+        0 if dst is None else dst.stride(-2), dst_t.data_ptr(),
+        dst_t.stride(-2), dup, m, d0), e,
+        (_ms(x), _ms(dst), _ms(dst_t)), stream)
+    if err != 0:
+        raise RuntimeError(f"dense_fwd_stream_init launch failed: CUDA "
+                           f"error {err} (m={m}, d0={d0}, dup={dup}, "
+                           f"members={e})")
+    _count_launch("transpose")
+
+
 def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
                     activation: str, zs: Optional[torch.Tensor] = None,
-                    whole: bool = True) -> torch.Tensor:
+                    whole: bool = True, mlp_rt: bool = True) -> torch.Tensor:
     """The stack's feature; with ``zs`` (``(M, L*U)``), layer i also stores
     its pre-activation into columns ``[i*U, (i+1)*U)``. ``whole=False``
     keeps a narrow densenet stack on the per-layer kernels (what the card
-    sweep compares the whole-stack kernel with). With a leading member
-    axis (``x`` (E, M, d0), ``ws`` (E, K_i, U), ``bs`` (E, U), ``zs`` (E,
-    M, L*U)) E members run in one launch per solo launch, planned as one
-    solo member."""
+    sweep compares the whole-stack kernel with); ``mlp_rt=False`` keeps
+    mlp and d2rl past 32 rows on ``dense_tile.cuh`` (what the card's timing
+    compares their register tile with). With a leading member axis (``x``
+    (E, M, d0), ``ws`` (E, K_i, U), ``bs`` (E, U), ``zs`` (E, M, L*U)) E
+    members run in one launch per solo launch, planned as one solo
+    member."""
     _check_cuda(x, ws, bs, connectivity)
     lead = tuple(x.shape[:-2])
     e = lead[0] if lead else None
@@ -805,15 +939,7 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
             if plans[0][0] in _RT_CONFIGS:      # every layer alike: m, u
                 st = torch.empty((*lead, d0 + (n_layers - 1) * u, _pad4(m)),
                                  device=dev, dtype=torch.float32)
-                err = _call(lib, "dense_fwd_stream_init", (
-                    x.data_ptr(), x.stride(-2), out.data_ptr(),
-                    out.stride(-2), st.data_ptr(), st.stride(-2), m, d0), e,
-                    (_ms(x), _ms(out), _ms(st)), stream)
-                if err != 0:
-                    raise RuntimeError(f"dense_fwd_stream_init launch failed:"
-                                       f" CUDA error {err} (m={m}, d0={d0}, "
-                                       f"members={e})")
-                _count_launch("transpose")
+                _stream_init(lib, x, out, st, 0, stream)
             elif plans[0][0] != _STREAM_CONFIG:
                 out[..., :d0].copy_(x)
             for i in range(n_layers):
@@ -826,18 +952,73 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
                               None, ws[i], bs[i], out, d, act, stream,
                               z_slot(i), st, yt, out if first else None)
             return out
+        plans = [plan_fwd(m, u, w.shape[-2], num_sms, transposed=mlp_rt)
+                 for w in ws]
+        if plans[0][0] in _RT_CONFIGS:          # every layer alike: m, u
+            return _rt_hidden(lib, x, ws, bs, connectivity, plans, zs, act,
+                              stream)
         bufs = [torch.empty((*lead, m, u), device=dev, dtype=torch.float32)
                 for _ in range(min(n_layers, 2))]
         h = x
         for i in range(n_layers):
             dst = bufs[i % 2]
             seg2 = (x, 0) if connectivity == "d2rl" and i > 0 else None
-            plan_i = plan_fwd(m, u, ws[i].shape[-2], num_sms,
-                              transposed=False)
-            _launch_layer(lib, plan_i, (h, 0), seg2, ws[i], bs[i], dst, 0,
+            _launch_layer(lib, plans[i], (h, 0), seg2, ws[i], bs[i], dst, 0,
                           act, stream, z_slot(i))
             h = dst
         return h
+
+
+def _rt_hidden(lib, x: torch.Tensor, ws, bs, connectivity: str, plans,
+               zs: Optional[torch.Tensor], act: int, stream: int
+               ) -> torch.Tensor:
+    """An mlp or d2rl stack on the register tile, which reads its input
+    transposed (along K): one init writes x^T, each layer below the last
+    writes only its output transposed (y_i^T), where the next layer reads
+    it, and the last layer writes the row-major feature; every layer
+    writes z_i into ``zs`` when given.
+
+    One buffer of rows padded to 4 floats holds two ping-pong slots. mlp:
+    ``[x^T | h_a^T | h_b^T]`` (d0 + 2U rows); layer 0 reads x^T, layer i
+    reads the slot layer i-1 wrote. d2rl: two slabs ``[h^T | x^T]`` of U +
+    d0 rows, x^T written into both by the one init (``dup``), so that the
+    input ``[h | x]`` of every layer past the first is one operand of
+    consecutive rows in the weight's row order; layer 0 reads slab 0's
+    x^T, layer i slab ``i % 2`` whole, and writes h_i^T into the other."""
+    lead = tuple(x.shape[:-2])
+    m, d0 = x.shape[-2:]
+    n_layers, u = len(ws), ws[0].shape[-1]
+    mp = _pad4(m)
+    d2rl = connectivity == "d2rl"
+    slab = u + d0 if d2rl else u
+    rows = 2 * slab if d2rl else d0 + min(2, n_layers - 1) * u
+    buf = torch.empty((*lead, rows, mp), device=x.device,
+                      dtype=torch.float32)[..., :m]
+    if d2rl:
+        _stream_init(lib, x, None, buf[..., u:slab, :], slab * mp, stream)
+    else:
+        _stream_init(lib, x, None, buf[..., :d0, :], 0, stream)
+
+    def read(i):                        # layer i's input, transposed
+        if d2rl:
+            return buf[..., u:slab, :] if i == 0 else \
+                buf[..., (i % 2) * slab:(i % 2 + 1) * slab, :]
+        if i == 0:
+            return buf[..., :d0, :]
+        at = d0 + ((i - 1) % 2) * u
+        return buf[..., at:at + u, :]
+
+    def written(i):                     # where layer i's h_i^T goes
+        at = (1 - i % 2) * slab if d2rl else d0 + (i % 2) * u
+        return buf[..., at:at + u, :]
+    out = torch.empty((*lead, m, u), device=x.device, dtype=torch.float32)
+    for i in range(n_layers):
+        last = i == n_layers - 1
+        _launch_layer(lib, plans[i], None, None, ws[i], bs[i],
+                      out if last else None, 0, act, stream,
+                      None if zs is None else (zs, i * u), read(i),
+                      None if last else written(i))
+    return out
 
 
 def _pad4(n: int) -> int:
@@ -987,13 +1168,66 @@ class _Backward:
                       self.u, accumulate, add)
 
 
+def _launch_whole_bwd(out: torch.Tensor, zs: torch.Tensor, ws,
+                      g: torch.Tensor, act: int, need_dx: bool, need_dw,
+                      need_db, lowest: int, rows: int = _WHOLE_BWD_ROWS):
+    """``(dx, dws, dbs)`` of a narrow densenet stack from the forward's
+    output ``out`` and ``zs`` in ONE launch of the whole-stack backward
+    kernel at ``rows`` rows a sweep block; E members' at once for a 3-D
+    ``zs``; None where not asked for."""
+    n_layers, u = len(ws), ws[0].shape[-1]
+    d0 = ws[0].shape[-2]
+    m = zs.shape[-2]
+    e = _members(zs)
+    lead = () if e is None else (e,)
+    dev = zs.device
+    uc = 64 if u <= 64 else 128
+
+    def empty(*shape):
+        return torch.empty((*lead, *shape), device=dev, dtype=torch.float32)
+    dws = [empty(d0 + i * u, u) if need_dw[i] else None
+           for i in range(n_layers)]
+    dbs = [empty(u) if need_db[i] else None for i in range(n_layers)]
+    dx = empty(m, d0) if need_dx else None
+    gz = empty(n_layers, m, uc) if any(need_dw) or any(need_db) else None
+    _, stream = _device_info(dev)
+    counters = _tile_counters(_WHOLE_BWD_LINE * (n_layers + 1) * (e or 1),
+                              dev, stream)
+    vec_w = int(u % 4 == 0 and all(_vec(_op(w)) for w in ws))
+
+    def arr(values):
+        return (ctypes.c_longlong * n_layers)(*values)
+    err = _call(_bwd_library(), "dense_bwd_whole", (
+        rows, vec_w, n_layers, arr(w.data_ptr() for w in ws),
+        arr(0 if t is None else t.data_ptr() for t in dws),
+        arr(0 if t is None else t.data_ptr() for t in dbs),
+        out.data_ptr(), out.stride(-2), zs.data_ptr(), zs.stride(-2),
+        g.data_ptr(), g.stride(-2), _ptr(dx), 0 if dx is None else d0,
+        _ptr(gz), counters.data_ptr(), m, d0, u, lowest, act), e,
+        (_ms(out), _ms(zs), _ms(g), _ms(dx), _ms(gz, 3),
+         arr(_ms(w) for w in ws), arr(_ms(t) for t in dws),
+         arr(_ms(t, 1) for t in dbs)), stream)
+    if err != 0:
+        raise RuntimeError(f"dense_stack backward (whole) launch failed: "
+                           f"CUDA error {err} (m={m}, d0={d0}, u={u}, "
+                           f"layers={n_layers}, rows={rows}, members={e})")
+    _count_launch("bwd_whole")
+    return dx, dws, dbs
+
+
 def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
-                     activation: str, need_dx: bool, need_dw, need_db):
+                     activation: str, need_dx: bool, need_dw, need_db,
+                     whole: bool = True):
     """``(dx, dws, dbs)`` on the card, None where not asked for. ``saved``
     is the forward's output stream (densenet) or its input ``x`` (mlp,
     d2rl), then the pre-activations ``zs``. With a leading member axis on
     ``zs`` (E, M, L*U) (and on the rest: ``ws`` (E, K_i, U), ``g``), E
     members' in one launch per solo launch, their gradients with it.
+
+    A narrow densenet stack whose shared memory fits (``whole_bwd_smem``:
+    the OFENet stacks) runs whole, in ONE launch of the whole-stack
+    backward kernel; ``whole=False`` keeps it on the per-layer kernels
+    below (what the card's timing compares it with).
 
     The chain act_grad_i -> dx_i -> act_grad_{i-1} runs on the caller's
     stream. Off it, on a side stream: (densenet) every W_i^T the dx
@@ -1021,13 +1255,18 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                         f"got {g.dtype}")
     dev = g.device
     with torch.cuda.device(dev):
+        # check: disable=R003 -- _dense reads strides, not values
+        if not _dense(g, 2):
+            g = g.contiguous()
+        if whole and connectivity == "densenet" and \
+                whole_bwd_smem(d0, u, n_layers) is not None:
+            return _launch_whole_bwd(stream_or_x, zs, ws, g,
+                                     _ACT_CODE[activation], need_dx,
+                                     need_dw, need_db, lowest)
         main = torch.cuda.current_stream(dev)
         side = _side_stream(dev, main)
         bw = _Backward(m, u, activation, dev, e)
         bws = bw.on(side)
-        # check: disable=R003 -- _dense reads strides, not values
-        if not _dense(g, 2):
-            g = g.contiguous()
 
         def off_chain(i, gz, part, segments):
             """db_i and dW_i on the side stream, once the caller's stream
@@ -1123,7 +1362,7 @@ def _kernel_backward(saved, ws, g: torch.Tensor, connectivity: str,
                     gh = inputs[0][2]
             dx = gx
         main.wait_stream(side)
-    _count_launch("bwd")
+    _count_launch("bwd_layers")
     return dx, dws, dbs
 
 

@@ -17,7 +17,14 @@ weights cycled through copies larger than the L2 as a serving tick finds
 them. Then the whole-stack kernel at the OFENet stacks (``phi_s``,
 ``phi_sa``) at 1, 8, 32 and 256 rows, every row tile, beside the per-layer
 kernels those stacks took before it (streaming up to 32 rows,
-``dense_tile.cuh`` past them); and the fused dense kernel
+``dense_tile.cuh`` past them); the backward's whole-stack kernel at the
+same stacks at the batch, every row tile of a sweep block, beside the
+per-layer kernels; the register tile on fig3-width's mlp critic over h^T
+(U=2048, M=256), every split of each layer, beside ``dense_tile.cuh``;
+the thin first-layer backward products of the presets' wide stacks
+(``THIN``: d0 under 128) on ``dense_tile.cuh`` and the register tile at
+every split (``--only thin`` for these alone; ``--only stack`` runs the
+whole-stack, fig3 and thin rows); and the fused dense kernel
 (``fused_dense.cu``, 3xTF32) at the paper's Ant DenseNet layer 3 and the
 ``kernels_micro`` row, every tile config and split, beside
 ``silu(addmm)``; and the card's TF32 ``mma.sync`` rate
@@ -57,6 +64,8 @@ of three runs; the card must be there (``resolve_device``).
     python -m repro_torch.launch.bwd_sweep --only tree    # the tree rows
     python -m repro_torch.launch.bwd_sweep --only flash   # the flash rows
     python -m repro_torch.launch.bwd_sweep --only ssd     # the SSD rows
+    python -m repro_torch.launch.bwd_sweep --only stack   # the whole-stack
+                                            # kernels and fig3's mlp rows
 """
 from __future__ import annotations
 
@@ -84,6 +93,16 @@ STREAM_SLOTS = (1, 8, 32)
 # kernel is swept at: the serving slots and the training batch
 OFENET = (("phi_s", 3, 64, 4), ("phi_sa", 260, 64, 4))
 WHOLE_M = (1, 8, 32, 256)
+# the rows the backward's whole-stack kernel is swept at: the batch
+WHOLE_BWD_M = (256,)
+# a wide stack's thin first-layer products, as the presets run them
+# (name, connectivity, M, d0, U): fig10-ablation's actor and critic (their
+# 16-unit OFENet features), rl-distributed's actor, fig3-width's critic at
+# 2048 units
+THIN = (("fig10 actor", "densenet", 128, 35, 128),
+        ("fig10 critic", "densenet", 128, 68, 128),
+        ("rl-distributed actor", "densenet", 128, 67, 128),
+        ("fig3 critic", "mlp", 256, 4, 2048))
 # (name, M, parts, N) of the fused dense rows: the paper's Ant DenseNet
 # layer 3 and the kernels_micro row
 DENSE = (("ant_layer3", 256, (111, 2048, 2048), 2048),
@@ -687,21 +706,21 @@ def sweep(seed: int = 0) -> List[dict]:
             wt = bw.transpose(ws[i])
             dw = torch.empty((k, u), device=dev)
             gb = torch.zeros((m, stack._pad4(k)), device=dev)[:, :k]
-            a_dw = stack.operand(out)
+            a_dw = stack._op(out)
             for dx in (False, True):
                 mm, nn, kk = (m, k, u) if dx else (k, u, m)
                 pick = stack.plan_bwd(mm, nn, kk, num_sms, dx=dx,
-                                      vec=stack.vec_aligned(a_dw))
+                                      vec=stack._vec(a_dw))
                 for plan in candidates(mm, nn, kk, num_sms, dx):
                     if dx:
                         def run(plan=plan):
-                            bw._product(plan, True, stack.operand(gzt),
-                                        stack.operand(wt), gb, 0, 0, mm, nn,
+                            bw._product(plan, True, stack._op(gzt),
+                                        stack._op(wt), gb, 0, 0, mm, nn,
                                         kk, True)
                     else:
                         def run(plan=plan):
                             bw._product(plan, False, a_dw,
-                                        stack.operand(gz), dw, 0, 0, mm, nn,
+                                        stack._op(gz), dw, 0, 0, mm, nn,
                                         kk, False)
                     rows.append(dict(net=name, layer=i,
                                      product="dx" if dx else "dW",
@@ -808,6 +827,175 @@ def whole_rows(seed: int = 0) -> List[dict]:
     return rows
 
 
+def whole_bwd_rows(seed: int = 0) -> List[dict]:
+    """The backward's whole-stack kernel at every row tile of a sweep
+    block, and the per-layer kernels (``whole=False``), for each OFENet
+    stack at the training batch (``WHOLE_BWD_M``), every gradient asked
+    for; then its parts at the planned tile (the sweeps alone, the
+    reductions without dx, ...);
+    weights cycled through 64 copies (they stay in L2, as in
+    training)."""
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    act = stack._ACT_CODE["swish"]
+    rows = []
+    for name, d0, u, n_layers in OFENET:
+        ws = [torch.empty((d0 + i * u, u), device=dev).uniform_(
+            -1 / math.sqrt(d0 + i * u), 1 / math.sqrt(d0 + i * u),
+            generator=gen) for i in range(n_layers)]
+        bs = [torch.zeros((u,), device=dev) for _ in range(n_layers)]
+        copies = [[w.clone() for w in ws] for _ in range(64)]
+        need = [True] * n_layers
+        for m in WHOLE_BWD_M:
+            x = torch.randn((m, d0), generator=gen, device=dev)
+            zs = torch.empty((m, n_layers * u), device=dev)
+            out = stack._kernel_forward(x, ws, bs, "densenet", "swish", zs)
+            g = torch.randn(out.shape, generator=gen, device=dev)
+            rows.append(dict(net=name, layer="all", product=f"bwd M={m}",
+                             shape=(m, d0, u, n_layers),
+                             plan="per-layer kernels", picked=False,
+                             us=_time_us(lambda i: stack._kernel_backward(
+                                 (out, zs), copies[i], g, "densenet",
+                                 "swish", True, need, need, whole=False),
+                                 copies=len(copies))))
+            for r in stack._WHOLE_BWD_ROW_TILES:
+                if stack.whole_bwd_smem(d0, u, n_layers, r) is None:
+                    continue
+
+                def run(i, r=r):
+                    stack._launch_whole_bwd(out, zs, copies[i], g, act,
+                                            True, need, need, 0, r)
+                rows.append(dict(
+                    net=name, layer="all", product=f"bwd M={m}",
+                    shape=(m, d0, u, n_layers),
+                    plan=f"whole, {r} rows a sweep block",
+                    picked=r == stack._WHOLE_BWD_ROWS,
+                    us=_time_us(run, copies=len(copies))))
+            # the parts at the planned rows: the sweeps alone (dx only: no
+            # reduction task), and without dx (the sweep stops a layer
+            # early, the reductions all there)
+            none = [False] * n_layers
+            top = [i == n_layers - 1 for i in range(n_layers)]
+            bottom = [i == 0 for i in range(n_layers)]
+            for what, args in (
+                    ("dx alone", (True, none, none, 0)),
+                    ("weights alone", (False, need, need, 0)),
+                    ("db alone", (False, none, need, 0)),
+                    ("the top layer's dW alone", (False, top, none,
+                                                  n_layers - 1)),
+                    ("dx and layer 0's dW", (True, bottom, none, 0))):
+                def run(i, args=args):
+                    stack._launch_whole_bwd(out, zs, copies[i], g, act,
+                                            *args)
+                rows.append(dict(net=name, layer="all", product=f"bwd M={m}",
+                                 shape=(m, d0, u, n_layers),
+                                 plan=f"whole, {what}", picked=False,
+                                 us=_time_us(run, copies=len(copies))))
+    return rows
+
+
+def thin_rows(seed: int = 0) -> List[dict]:
+    """The first layer's dW and dx of each ``THIN`` stack on
+    ``dense_tile.cuh`` (``plan``, the path before) and on the register
+    tile at every candidate, ``plan_bwd``'s pick marked."""
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for name, conn, m, d0, u in THIN:
+        ws = [torch.empty((k, u), device=dev).uniform_(
+            -1 / math.sqrt(k), 1 / math.sqrt(k), generator=gen)
+            for k in (d0, d0 + u if conn == "densenet" else u)]
+        bs = [torch.zeros((u,), device=dev) for _ in ws]
+        x = torch.randn((m, d0), generator=gen, device=dev)
+        zs = torch.empty((m, 2 * u), device=dev)
+        out = stack._kernel_forward(x, ws, bs, conn, "swish", zs)
+        bw = stack._Backward(m, u, "swish", dev)
+        if conn == "densenet":
+            g = torch.randn(out.shape, generator=gen, device=dev)
+            gz, gzt, _ = bw.act_grad(g, d0, zs, 0, False, True)
+            a_dw = stack._op(out)
+        else:
+            g = torch.randn((m, u), generator=gen, device=dev)
+            gz, gzt, _ = bw.act_grad(g, 0, zs, 0, False, True)
+            a_dw = stack._op(x)
+        wt = bw.transpose(ws[0])
+        dw = torch.empty((d0, u), device=dev)
+        dx = torch.empty((m, stack._pad4(d0)), device=dev)[:, :d0]
+        for is_dx in (False, True):
+            mm, nn, kk = (m, d0, u) if is_dx else (d0, u, m)
+            pick = stack.plan_bwd(mm, nn, kk, num_sms, dx=is_dx,
+                                  vec=stack._vec(a_dw))
+            plans = [stack.plan(mm, nn, kk, num_sms)] + \
+                candidates(mm, nn, kk, num_sms, is_dx)
+            for plan in plans:
+                rt = plan[0] in stack._RT_CONFIGS
+                if is_dx:
+                    a, b = (gzt, wt) if rt else (gz, ws[0])
+
+                    def run(plan=plan, a=a, b=b):
+                        bw._product(plan, True, stack._op(a),
+                                    stack._op(b), dx, 0, 0, mm, nn, kk,
+                                    False)
+                else:
+                    def run(plan=plan):
+                        bw._product(plan, False, a_dw, stack._op(gz),
+                                    dw, 0, 0, mm, nn, kk, False)
+                rows.append(dict(net=name, layer=0,
+                                 product="dx" if is_dx else "dW",
+                                 shape=(mm, nn, kk),
+                                 plan=plan if rt else
+                                 f"dense_tile.cuh, config {plan[0]}, "
+                                 f"{plan[2]} splits",
+                                 picked=plan == pick,
+                                 us=_time_us(lambda _: run())))
+    return rows
+
+
+def hidden_rows(seed: int = 0) -> List[dict]:
+    """The register tile on fig3-width's mlp critic at the batch (d0=4,
+    U=2048, two layers, M=256) over h^T: each layer at every split of its
+    128x64 tiles, marking ``plan_fwd``'s, beside the layer on
+    ``dense_tile.cuh`` as ``plan`` plans it (the path before)."""
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = stack._library()
+    stream_h = torch.cuda.current_stream(dev).cuda_stream
+    act = stack._ACT_CODE["swish"]
+    m, d0, u = 256, 4, 2048
+    rows = []
+    x = torch.randn((m, max(d0, u)), generator=gen, device=dev)
+    xt = torch.empty((x.shape[1], stack._pad4(m)), device=dev)
+    xt[:, :m].copy_(x.t())
+    y = torch.empty((m, u), device=dev)
+    yt = torch.empty((u, stack._pad4(m)), device=dev)[:, :m]
+    for i, k in enumerate((d0, u)):
+        w = torch.empty((k, u), device=dev).uniform_(
+            -1 / math.sqrt(k), 1 / math.sqrt(k), generator=gen)
+        b = torch.zeros((u,), device=dev)
+        pick = stack.plan_fwd(m, u, k, num_sms)
+        for plan in candidates(m, u, k, num_sms, True):
+            if plan[0] != stack._RT_FWD_CONFIG:
+                continue
+
+            def run(_, plan=plan):
+                stack._launch_layer(lib, plan, None, None, w, b, None, 0, act,
+                                    stream_h, at=xt[:k, :m], yt=yt)
+            rows.append(dict(net="fig3_critic", layer=i, product="fwd h^T",
+                             shape=(m, u, k), plan=plan, picked=plan == pick,
+                             us=_time_us(run)))
+        old = stack.plan(m, u, k, num_sms)
+
+        def run_old(_):
+            stack._launch_layer(lib, old, (x[:, :k], 0), None, w, b, y, 0,
+                                act, stream_h)
+        rows.append(dict(net="fig3_critic", layer=i, product="fwd h^T",
+                         shape=(m, u, k), plan=old, picked=False,
+                         us=_time_us(run_old)))
+    return rows
+
+
 def dense_rows(seed: int = 0) -> List[dict]:
     """The fused dense kernel at each ``DENSE`` shape, every candidate of
     ``dense_candidates``, and ``silu(addmm)`` on the built concat; W cycled
@@ -883,13 +1071,19 @@ def mma_peak_rows(iters: int = 4096) -> List[dict]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("all", "tree", "flash", "ssd"),
-                        default="all")
+    parser.add_argument("--only", choices=("all", "tree", "flash", "ssd",
+                                           "stack", "thin"), default="all")
     only = parser.parse_args().only
-    rows = {"flash": flash_rows, "ssd": ssd_rows}.get(only, tree_rows)()
+    if only == "stack":
+        rows = whole_rows() + whole_bwd_rows() + hidden_rows() + thin_rows()
+    elif only == "thin":
+        rows = thin_rows()
+    else:
+        rows = {"flash": flash_rows, "ssd": ssd_rows}.get(only, tree_rows)()
     if only == "all":
-        rows = sweep() + whole_rows() + dense_rows() + mma_peak_rows() + \
-            rows + flash_rows() + ssd_rows()
+        rows = sweep() + whole_rows() + whole_bwd_rows() + hidden_rows() + \
+            thin_rows() + dense_rows() + mma_peak_rows() + rows + \
+            flash_rows() + ssd_rows()
     print(f"# {torch.cuda.get_device_name(0)}; config 3 = 128x128 (the "
           f"backward only), 4 = 128x64, 5 = the weight-streaming kernel (its "
           f"last number counts rows); fused dense configs by (BM, BN): "

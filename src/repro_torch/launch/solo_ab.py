@@ -1,21 +1,26 @@
-"""The solo training superstep of two checkouts of the port on one card.
+"""The training superstep of two checkouts of the port on one card.
 
     python src/repro_torch/launch/solo_ab.py <other checkout>
+        [--cells sac,td3,fig3]
 
 Run from the root of one checkout ("change") with the path of another
 ("parent", e.g. a ``git archive`` of the commit before). It builds both
 checkouts' stack and tree kernels at once, compares the machine code
 (``cuobjdump -sass``) of every kernel of the two stack libraries by name,
-then runs the training cell's solo SAC superstep under the graph
-(``fig10-ablation``, 2048 units, fused blocks, the device replay) in one
-process a checkout, in turns (parent, change, change, parent). Each
-process prints its launches at the warm-up and the capture (forward,
-stream^T, backward), its wall per replay (host clock, 7 runs of 40
-replays), its device time per replay (CUDA events, the card held busy)
-and its device time by kernel (``torch.profiler``, 20 replays). The last
-line is one JSON object of those numbers.
+then runs each cell under the graph in one process a checkout, in turns
+(parent, change, change, parent): ``sac``, the training cell's solo SAC
+superstep (``fig10-ablation``, 2048 units, fused blocks, the device
+replay); ``td3``, the same with ``algo="td3"``; ``fig3``, the fused fleet
+of ``fig3-width`` at 2048 units and 5 seeds (mlp, the device replay; the
+vmapped superstep, one graph). Each process prints its launches at the
+warm-up and the capture (forward, stream^T, backward), its wall per
+replay (host clock, 7 runs of 40 replays), its device time per replay
+(CUDA events, the card held busy) and its device time by kernel
+(``torch.profiler``, 20 replays). The last line is one JSON object of
+those numbers.
 
-``--graph`` runs one such process on the ``repro_torch`` its path gives.
+``--graph TAG --cell CELL`` runs one such process on the ``repro_torch``
+its path gives.
 """
 from __future__ import annotations
 
@@ -36,8 +41,11 @@ _BUILD = ("import threading; from repro_torch.kernels.dense_block import "
           "[t.join() for t in th]")
 
 
-def graph(tag: str) -> dict:
-    """The solo superstep under the graph of the imported checkout."""
+CELLS = ("sac", "td3", "fig3")
+
+
+def graph(tag: str, cell: str = "sac") -> dict:
+    """The cell's superstep under the graph of the imported checkout."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -45,16 +53,25 @@ def graph(tag: str) -> dict:
     from repro_torch.rl import presets
     from repro_torch.rl.experiment import Experiment
     torch.backends.cuda.matmul.allow_tf32 = False
-    spec = presets.get("fig10-ablation").override(
-        total_steps=1_000_000, warmup_steps=10_000, num_units=2048,
-        block_backend="fused", replay_backend="device", loop="scan")
-    exp = Experiment.from_spec(spec)
+    budget = dict(total_steps=1_000_000, warmup_steps=10_000,
+                  num_units=2048, block_backend="fused",
+                  replay_backend="device", loop="scan")
+    if cell == "fig3":
+        from repro_torch.rl.sweep import Fleet
+        spec = presets.get("fig3-width").override(
+            **budget, eval_every=10_000, eval_episodes=10,
+            replay_capacity=100_000, batch_size=256)
+        run = Fleet([spec.override(seed=s) for s in range(5)])
+    else:
+        spec = presets.get("fig10-ablation").override(
+            **budget, algo=cell)
+        run = Experiment.from_spec(spec)
     stack.reset_launch_count()
-    exp.run(1)
+    run.run(1)
     torch.cuda.synchronize()
     launches = [stack.launch_count(), stack.transpose_count(),
                 stack.bwd_launch_count()]
-    g = exp.trainer.graph
+    g = run.graph if cell == "fig3" else run.trainer.graph
     walls, events = [], []
     for _ in range(7):
         torch.cuda.synchronize()
@@ -83,16 +100,18 @@ def graph(tag: str) -> dict:
         ms, n = by_kernel.get(name, (0.0, 0.0))
         by_kernel[name] = (ms + ev.self_device_time_total / 20 / 1e3,
                            n + ev.count / 20)
-    out = dict(tag=tag, launches=launches, wall_ms=float(np.median(walls)),
-               walls=walls, events_ms=float(np.median(events)),
-               by_kernel=by_kernel)
-    print(f"[solo-ab] {tag}: launches at warm-up + capture (fwd, stream^T, "
+    out = dict(tag=tag, cell=cell, launches=launches,
+               wall_ms=float(np.median(walls)), walls=walls,
+               events_ms=float(np.median(events)), by_kernel=by_kernel)
+    print(f"[solo-ab] {cell} {tag}: launches at warm-up + capture (fwd, "
+          f"stream^T, "
           f"bwd) {launches}; wall per replay {out['wall_ms']:.4f} ms ("
           + ", ".join(f"{w:.3f}" for w in walls) + f"); device "
           f"{out['events_ms']:.4f} ms", flush=True)
     for name, (ms, n) in sorted(by_kernel.items(),
                                 key=lambda kv: -kv[1][0])[:12]:
-        print(f"[solo-ab] {tag}   {ms:.4f} ms {n:5.1f}x {name}", flush=True)
+        print(f"[solo-ab] {cell} {tag}   {ms:.4f} ms {n:5.1f}x {name}",
+              flush=True)
     return out
 
 
@@ -144,12 +163,20 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", nargs="?", help="the other checkout's root")
     ap.add_argument("--graph", metavar="TAG",
-                    help="one solo-superstep process of the checkout on "
-                         "the path, printing its numbers under TAG")
+                    help="one superstep process of the checkout on the "
+                         "path, printing its numbers under TAG")
+    ap.add_argument("--cell", choices=CELLS, default="sac",
+                    help="the cell of a --graph process")
+    ap.add_argument("--cells", default="sac",
+                    help="comma-separated cells to run in turns: "
+                         + ", ".join(CELLS))
     args = ap.parse_args()
     if args.graph:
-        print(json.dumps(graph(args.graph)), flush=True)
+        print(json.dumps(graph(args.graph, args.cell)), flush=True)
         return
+    cells = args.cells.split(",")
+    if not set(cells) <= set(CELLS):
+        raise SystemExit(f"--cells: {cells} not all in {CELLS}")
     parent = os.path.abspath(args.parent)
     roots = {"parent": parent, "change": os.getcwd()}
     env = {k: dict(os.environ, PYTHONPATH=os.path.join(r, "src"))
@@ -159,13 +186,15 @@ def main() -> None:
     if any([p.wait() for p in builds]):
         raise RuntimeError("a checkout's kernels did not build")
     result = {"sass": sass_diff(parent), "runs": []}
-    for tag in ("parent", "change", "change", "parent"):
-        run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--graph", tag], env=env[tag], check=True,
-                             capture_output=True, text=True)
-        lines = run.stdout.strip().splitlines()
-        print("\n".join(lines[:-1]), flush=True)
-        result["runs"].append(json.loads(lines[-1]))
+    for cell in cells:
+        for tag in ("parent", "change", "change", "parent"):
+            run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--graph", tag, "--cell", cell],
+                                 env=env[tag], check=True,
+                                 capture_output=True, text=True)
+            lines = run.stdout.strip().splitlines()
+            print("\n".join(lines[:-1]), flush=True)
+            result["runs"].append(json.loads(lines[-1]))
     print(json.dumps(result), flush=True)
 
 

@@ -129,8 +129,10 @@ def test_launch_plan_fills_the_card_at_serving_slots():
     """Serving slots of 1-32 rows get their parallelism from the columns
     and a split of K: the actor's wide layer launches one wave of about 2
     blocks per SM of the weight-streaming kernel (128-column strips, K
-    split by rows), and so does the register tile at the batch of 256;
-    dense_tile.cuh, which mlp and d2rl keep there, >= 2 blocks per SM."""
+    split by rows), and so does the register tile at the batch of 256
+    (every connectivity's, over its transposed input); dense_tile.cuh,
+    which mlp and d2rl took there before (``transposed=False``), >= 2
+    blocks per SM."""
     for m in (1, 8, 32):
         config, tiles, splits, rows = tstack.plan_fwd(m, 2048, 2307, 132)
         assert config == tstack._STREAM_CONFIG
@@ -165,10 +167,11 @@ def test_cuda_kernel_matches_plain(cuda_device, conn, act):
     densenet at U >= 128 only), the whole-stack kernel (densenet at U < 128:
     5, 4 and 256 rows, U = 61 at 37 rows (4-byte W copies) and U = 100 at
     7 (128-column ring rows); one launch a stack), dense_tile.cuh (mlp and
-    d2rl at every shape of 37 rows or more), the register tile over
-    stream^T (densenet: the actor at 256 rows and a ragged shape of 201
-    rows); within 1e-4, one launch per layer (per stack on the whole-stack
-    kernel), and two calls bitwise equal."""
+    d2rl at 37 rows or more below U=128 or M=128), the register tile over
+    a transposed input (the actor's widths at 256 rows and a ragged shape
+    of 201 rows: densenet over stream^T, mlp and d2rl over h^T); within
+    1e-4, one launch per layer (per stack on the whole-stack kernel), and
+    two calls bitwise equal."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for L, d0, u, m in ((3, 7, 40, 5), (2, 259, 2048, 1), (2, 259, 2048, 2),
                         (4, 3, 64, 4), (2, 259, 2048, 16), (2, 259, 2048, 32),
@@ -183,7 +186,7 @@ def test_cuda_kernel_matches_plain(cuda_device, conn, act):
         again = tstack.dense_stack(*inputs, connectivity=conn,
                                    activation=act)
         torch.cuda.synchronize()
-        plan = tstack.plan_fwd(m, u, d0, 132, transposed=conn == "densenet",
+        plan = tstack.plan_fwd(m, u, d0, 132,
                                stack=(d0, L) if conn == "densenet" else None)
         whole = tstack.fwd_kernel_of(plan[0]) == "whole"
         assert tstack.launch_count() - before == 2 * (1 if whole else L)

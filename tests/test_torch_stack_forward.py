@@ -6,17 +6,23 @@ large enough for the register tile.
 the width and the rows of the call: the whole-stack kernel for a densenet
 stack with U < 128 whose shared memory fits (the narrow OFENet stacks, at
 every row count: one launch a stack), the weight-streaming kernel up to 32
-rows (the serving slots), the register tile over ``stream^T`` from 128
-rows where U is at least 128 too (densenet: the actor and critic stacks at
-the batch of 256), and ``dense_tile.cuh`` otherwise (mlp and d2rl past 32
-rows). The launch sequence of ``_kernel_forward`` is plain Python: it runs
-here against a recording stand-in for the CUDA library, which shows one
-launch per layer by the planned kernel (one per stack on the whole-stack
-kernel), one stream^T init per register-tiled call, and split counters
-taken from ``_tile_counters`` with no zeroed buffer per launch. The
+rows (the serving slots), the register tile over a transposed input from
+128 rows where U is at least 128 too (densenet's ``stream^T``: the actor
+and critic stacks at the batch of 256; mlp's and d2rl's ping-pong
+buffers of h^T: fig3's and the other mlp presets' stacks), and
+``dense_tile.cuh`` otherwise (mlp and d2rl past 32 rows with U < 128).
+The launch sequence of ``_kernel_forward`` is plain Python: it runs here
+against a recording stand-in for the CUDA library, which shows one launch
+per layer by the planned kernel (one per stack on the whole-stack kernel),
+one transposed init per register-tiled call, and split counters taken
+from ``_tile_counters`` with no zeroed buffer per launch; and against an
+emulating stand-in, which runs the register tile's launches on the CPU
+memory the wrapper hands it, so the mlp/d2rl buffers' layout (which rows
+each layer reads and writes) is held to the plain version here. The
 kernels themselves are held against the plain version on the card
 (``tests/test_torch_stack.py -k cuda``, ``chip_smoke.py``).
 """
+import ctypes
 import contextlib
 
 import numpy as np
@@ -172,8 +178,11 @@ def test_plan_fwd_follows_the_sweep_at_the_wide_products():
 
 
 def test_plan_fwd_register_tile_needs_the_transposed_stream():
-    """mlp and d2rl keep no stream^T: they take dense_tile.cuh at 256 rows;
-    densenet's wide layers take the register tile whatever their K."""
+    """Without a transposed input (``transposed=False``: mlp and d2rl on
+    the path before the register tile took them, ``_kernel_forward(...,
+    mlp_rt=False)``) a wide layer takes dense_tile.cuh at 256 rows; with
+    it (every connectivity's default) the register tile, whatever its
+    K."""
     for m, n, k in WIDE + [(201, 301, 37)]:
         assert tstack.plan_fwd(m, n, k, 132, transposed=False) \
             == tstack.plan(m, n, k, 132)
@@ -268,15 +277,20 @@ def _stack(conn, m, d0, u, n_layers, seed=0):
     ("densenet", 8, 40, 128, 2),        # streaming, split K at layer 1
     ("densenet", 1, 259, 512, 2),       # streaming, a serving slot
     ("densenet", 256, 260, 64, 4),      # phi_sa: the whole-stack kernel
-    ("mlp", 128, 130, 128, 2),          # no stream^T: dense_tile.cuh
+    ("mlp", 128, 130, 128, 2),          # register tile over h^T
+    ("mlp", 201, 3, 301, 4),            # register tile, ragged, K = 3
+    ("d2rl", 256, 4, 128, 3),           # register tile over [h | x]^T
     ("d2rl", 8, 40, 64, 3),             # streaming, two segments
-    ("d2rl", 256, 20, 64, 3)])
+    ("d2rl", 256, 20, 64, 3)])          # U < 128: dense_tile.cuh
 def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
     """One launch per layer by the kernel ``plan_fwd`` gives it (one per
-    stack on the whole-stack kernel), one stream^T init per register-tiled
-    call (x into the stream and stream^T), and every split's counters from
-    ``_tile_counters`` on the launch's stream: no zeroed buffer per
-    launch."""
+    stack on the whole-stack kernel), one transposed init per
+    register-tiled call (densenet: x into the stream and stream^T; mlp:
+    x^T; d2rl: x^T into both ping-pong slabs), and every split's counters
+    from ``_tile_counters`` on the launch's stream: no zeroed buffer per
+    launch. On the register tile mlp's and d2rl's layers below the last
+    write only h_i^T (no row-major output), which the next layer reads:
+    for d2rl with x^T right after it, its input ``[h | x]`` one operand."""
     lib, counters, asked, zeros = recorded
     x, ws, bs = _stack(conn, m, d0, u, n_layers)
     zs = torch.empty((m, n_layers * u))
@@ -295,8 +309,7 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
     split_launches = 0
     for i, (name, args) in enumerate(layers):
         pos = _ARGS[name]
-        plan = tstack.plan_fwd(m, u, ws[i].shape[0], 132,
-                               transposed=conn == "densenet")
+        plan = tstack.plan_fwd(m, u, ws[i].shape[0], 132)
         kinds.append(_KIND[name])
         assert _KIND[name] == tstack.fwd_kernel_of(plan[0])
         assert (args[pos["m"]], args[pos["n"]], args[pos["splits"]]) \
@@ -319,27 +332,143 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
                 assert (args[14], args[15]) == (out.data_ptr(),
                                                 d0 + n_layers * u)
         if name == "dense_layer_fwd_rt":
-            # stream^T: (d0 + (L-1) U, m rounded up to 4); the last layer's
-            # output is read by no later layer, so it is not transposed
+            # the transposed input: rows of m rounded up to 4; the last
+            # layer's output is read by no later layer, so it is not
+            # transposed, and only densenet's others write the row-major
+            # stream
             ldt = args[3]
-            assert ldt == m + -m % 4
+            assert ldt == m + -m % 4 and args[12] in (0, ldt)
+            assert args[17] == ws[i].shape[0]       # K: the whole input
             assert (args[11] is None) == (i == n_layers - 1)
-    assert asked == [(tstack.plan_fwd(m, u, w.shape[0], 132,
-                                      transposed=conn == "densenet")[1], 77)
+            assert (args[7] is None) == (conn != "densenet"
+                                         and i < n_layers - 1)
+    assert asked == [(tstack.plan_fwd(m, u, w.shape[0], 132)[1], 77)
                      for w in ws if tstack.plan_fwd(
-                         m, u, w.shape[0], 132,
-                         transposed=conn == "densenet")[2] > 1]
+                         m, u, w.shape[0], 132)[2] > 1]
     assert len(asked) == split_launches
     wide = kinds[0] == "rt"
     assert len(inits) == int(wide)
     assert set(kinds) == {kinds[0]}                 # one kernel a stack
     if wide:
-        src, lds, dst, ldd, dst_t, ldt, rows, cols, stream = inits[0]
-        assert (lds, rows, cols, stream) == (d0, m, d0, 77)
-        assert ldd == d0 + n_layers * u and ldt == m + -m % 4
+        src, lds, dst, ldd, dst_t, ldt, dup, rows, cols, stream = inits[0]
+        assert (src, lds, rows, cols, stream) == (x.data_ptr(), d0, m, d0,
+                                                  77)
+        assert ldt == m + -m % 4
+        if conn == "densenet":
+            assert (dst, ldd, dup) == (out.data_ptr(), d0 + n_layers * u, 0)
+        else:
+            assert (dst, ldd) == (None, 0)
+            # d2rl: x^T into both slabs [h^T | x^T] of U + d0 rows
+            assert dup == ((u + d0) * ldt if conn == "d2rl" else 0)
+        if conn != "densenet":
+            rt = [a for _, a in layers]
+            # layer 0 reads x^T; layer i reads what layer i-1 wrote
+            assert rt[0][2] == dst_t
+            for i in range(1, n_layers):
+                assert rt[i][2] == rt[i - 1][11]
+                if conn == "d2rl":              # x^T right after h^T
+                    assert rt[i][2] + 4 * u * ldt \
+                        == dst_t + 4 * (i % 2) * dup
+            assert rt[-1][7] == out.data_ptr()
     assert tstack.launch_count() == n_layers
     assert tstack.launch_count(kinds[0]) == n_layers
     assert tstack.transpose_count() == int(wide)
+
+
+def floats(ptr, rows, cols, ld):
+    """A numpy view of ``rows`` x ``cols`` float32 at the CPU address
+    ``ptr``, rows ``ld`` floats apart (what a kernel reads or writes)."""
+    n = (rows - 1) * ld + cols
+    base = np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
+    return np.lib.stride_tricks.as_strided(base, (rows, cols), (4 * ld, 4))
+
+
+ACT_NP = {"swish": lambda z: z / (1 + np.exp(-z)), "relu":
+          lambda z: np.maximum(z, 0), "tanh": np.tanh,
+          "identity": lambda z: z}
+
+
+class _EmulatingLib(_RecordingLib):
+    """Records every call, and runs the transposed init and the register
+    tile's layer (solo entries) in float64 on the CPU memory it is handed,
+    as the kernels' C interface describes them."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self.act = ACT_NP[activation]
+
+    def dense_fwd_stream_init(self, src, lds, dst, ldd, dst_t, ldt, dup,
+                              rows, cols, stream):
+        self.calls.append(("dense_fwd_stream_init", (
+            src, lds, dst, ldd, dst_t, ldt, dup, rows, cols, stream)))
+        x = floats(src, rows, cols, lds)
+        floats(dst_t, cols, rows, ldt)[:] = x.T
+        if dup:
+            floats(dst_t + 4 * dup, cols, rows, ldt)[:] = x.T
+        if dst is not None:
+            floats(dst, rows, cols, ldd)[:] = x
+        return 0
+
+    def dense_layer_fwd_rt(self, config, vec_w, at, ldat, w, ldw, b, y, ldy,
+                           z, ldz, yt, ldt, ws, counters, m, n, k, act,
+                           splits, per_split, stream):
+        self.calls.append(("dense_layer_fwd_rt", (
+            config, vec_w, at, ldat, w, ldw, b, y, ldy, z, ldz, yt, ldt, ws,
+            counters, m, n, k, act, splits, per_split, stream)))
+        zz = floats(at, k, m, ldat).T.astype(np.float64) \
+            @ floats(w, k, n, ldw) + floats(b, 1, n, n)[0]
+        if z is not None:
+            floats(z, m, n, ldz)[:] = zz
+        yy = self.act(zz)
+        if y is not None:
+            floats(y, m, n, ldy)[:] = yy
+        if yt is not None:
+            floats(yt, n, m, ldt)[:] = yy.T
+        return 0
+
+
+@pytest.mark.parametrize("act", ("swish", "relu"))
+@pytest.mark.parametrize("conn,m,d0,u,n_layers", [
+    ("mlp", 128, 130, 128, 1), ("mlp", 128, 3, 128, 2),
+    ("mlp", 201, 3, 301, 4), ("mlp", 256, 4, 256, 3),
+    ("d2rl", 128, 4, 128, 2), ("d2rl", 203, 5, 300, 4),
+    ("densenet", 201, 37, 301, 3)])
+def test_register_tile_buffers_hold_the_plain_stack(recorded, monkeypatch,
+                                                    conn, m, d0, u,
+                                                    n_layers, act):
+    """The register tile's launches emulated on the wrapper's own buffers
+    (``_EmulatingLib``): the feature and every layer's pre-activation are
+    the plain version's, so each layer read the input the stack defines
+    (mlp: h_{i-1}^T; d2rl: [h_{i-1} | x]^T; densenet: the stream prefix^T)
+    and wrote where the next reads, for 1 to 4 layers, ragged rows and
+    K = 3 to 5 at layer 0 (the pendulum's observation)."""
+    lib = _EmulatingLib(act)
+    monkeypatch.setattr(tstack, "_library", lambda: lib)
+    x, ws, bs = _stack(conn, m, d0, u, n_layers, seed=n_layers)
+    ws = [w / np.sqrt(w.shape[0]) for w in ws]
+    zs = torch.full((m, n_layers * u), float("nan"))
+    with torch.no_grad():
+        out = tstack._kernel_forward(x, ws, bs, conn, act, zs)
+    assert {n for n, _ in lib.calls} == {"dense_fwd_stream_init",
+                                         "dense_layer_fwd_rt"}
+    want = tstack.dense_stack_ref(x, ws, bs, connectivity=conn,
+                                  activation=act)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    stream = x if conn != "densenet" else None
+    h = x
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        if conn == "densenet":
+            inp = want[:, :w.shape[0]]
+        elif conn == "d2rl" and i > 0:
+            inp = torch.cat([h, stream], 1)
+        else:
+            inp = h
+        z = inp @ w + b
+        np.testing.assert_allclose(zs[:, i * u:(i + 1) * u].numpy(),
+                                   z.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(z.abs().max()))
+        h = tstack.get_activation(act)(z)
 
 
 def _check_whole_launch(lib, asked, x, ws, bs, out, zs):

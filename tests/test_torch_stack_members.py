@@ -15,7 +15,8 @@ the members twins loop the solo plain version. On the CPU:
   libraries, are the solo call's: the same kernels in the same order with
   the same plans (tiles, splits, 16-byte copies), each once for all
   members, the member count and every operand's member stride passed
-  (0 for a shared one), E sets of split counters.
+  (0 for a shared one), E sets of split counters; the register tile's
+  mlp and d2rl stacks and the whole-stack backward included.
 
 On the card (skipped without one), each member kernel is bitwise E solo
 launches, forward and backward, at every forward kernel's shapes, a shared
@@ -248,9 +249,11 @@ def _same_plan(solo, member, e):
     ("densenet", 8, 40, 64, 2),         # the whole-stack kernel
     ("densenet", 8, 40, 128, 2),        # streaming, split K
     ("densenet", 1, 3, 256, 2),         # streaming, a 12-byte member x
-    ("mlp", 128, 130, 128, 2),          # dense_tile.cuh
+    ("mlp", 128, 130, 128, 2),          # register tile over h^T
+    ("d2rl", 128, 4, 128, 3),           # register tile over [h | x]^T
+    ("densenet", 256, 260, 64, 4),      # phi_sa: whole forward and back
     ("d2rl", 8, 40, 64, 3),             # streaming, two segments
-    ("d2rl", 256, 20, 64, 3)])
+    ("d2rl", 256, 20, 64, 3)])          # U < 128: dense_tile.cuh
 def test_member_launches_are_the_solo_plans(recorded, conn, m, d0, u,
                                             n_layers):
     """Forward and backward: the member call launches what one solo
@@ -317,7 +320,9 @@ def cuda_device():
     ("densenet", 1, 3, 64, 4),          # phi_s at a slot: whole stack
     ("densenet", 256, 260, 64, 4),      # phi_sa: whole stack
     ("densenet", 201, 37, 301, 3),      # register tile, ragged
-    ("mlp", 256, 3, 2048, 2),           # fig3's mlp: dense_tile.cuh
+    ("mlp", 256, 3, 2048, 2),           # fig3's mlp: register tile
+    ("d2rl", 256, 4, 128, 3),           # register tile over [h | x]^T
+    ("mlp", 256, 3, 64, 3),             # U < 128: dense_tile.cuh
     ("d2rl", 8, 40, 64, 3)])            # streaming, two segments
 def test_cuda_member_kernels_are_bitwise_solo_launches(cuda_device, conn, m,
                                                        d0, u, n_layers):
