@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.common import (is_batched, tree_leaves, tree_map,
                                 tree_unflatten)
+from repro_torch.obs.trace import stamp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +85,20 @@ def adamw_update(cfg: AdamWConfig, grads: Any, state: Any, params: Any
                  ) -> Tuple[Any, Any]:
     """Returns ``(new_params, new_state)``; nothing is updated in place.
     ``adamw_update_ref``'s arithmetic as foreach ops over all leaves
-    (under ``vmap``: ``adamw_update_ref`` itself)."""
+    (under ``vmap``: ``adamw_update_ref`` itself). In a superstep graph
+    captured with phase stamps the call is the ``adamw`` phase, inside the
+    ``update`` one (``obs.trace.stamp``)."""
+    stamp("adamw")
     if is_batched(params) or is_batched(grads):
-        return adamw_update_ref(cfg, grads, state, params)
+        out = adamw_update_ref(cfg, grads, state, params)
+    else:
+        out = _adamw_foreach(cfg, grads, state, params)
+    stamp("update")
+    return out
+
+
+def _adamw_foreach(cfg: AdamWConfig, grads: Any, state: Any, params: Any
+                   ) -> Tuple[Any, Any]:
     ps, gs = tree_leaves(params), tree_leaves(grads)
     if cfg.grad_clip_norm is not None:
         gs = torch._foreach_mul(gs, _clip_scale(global_norm(gs),

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.common import tree_map
 from repro_torch.launch.mesh import ActorMesh, replay_shards
+from repro_torch.obs.trace import stamp
 from repro_torch.replay.device import (DeviceReplayConfig, ReplayState,
                                        _sample_raw, replay_add, replay_init,
                                        replay_update)
@@ -178,8 +179,10 @@ def collect_and_add_sharded(env, policy_sample, mesh: ActorMesh,
     rows = shard_rows(trs, steps, n)
     add = lambda st, b: replay_add(cfg, st, b, step=step)
     if nstep_state is None:
+        stamp("replay")
         return states, _in_place(add, replay_state, rows)
     nbuf, flat = torch.func.vmap(
         lambda buf, tr: nstep_emit_flat(cfg.n_step, gamma, buf, tr, steps,
                                         drop))(nstep_state, rows)
+    stamp("replay")
     return states, nbuf, _in_place(add, replay_state, flat)

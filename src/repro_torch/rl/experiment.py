@@ -578,9 +578,8 @@ class Experiment:
             tree["host"] = {"data": host.pop("data"),
                             "tree": host.pop("tree")}
             state["buffer"] = host
-        with annotate("repro.ckpt_save"):
-            ckpt.save(path, tree, metadata={"spec": self.spec.to_dict(),
-                                            "experiment": state})
+        ckpt.save(path, tree, metadata={"spec": self.spec.to_dict(),
+                                        "experiment": state})
         self._obs.log_event("save", step=self.step, path=str(path))
         self._obs.drain()
 
@@ -825,6 +824,30 @@ class Experiment:
         self._load_payload(payload, ckpt.load_metadata(payload))
         fold_in(self._ls.gen, ordinal)
         return self._ls, self.step
+
+    # ------------------------------------------------------- phase stamps
+    def trace_phases(self) -> None:
+        """Stamp the superstep's phases on the card from the next chunk
+        on: a graph captured without stamps is dropped, and the next chunk
+        captures it anew with them; the stamps write only their ring, so
+        training is bitwise the same. On the CPU (no graph) nothing
+        changes. ``obs.trace = N`` stamps from the first chunk."""
+        tr = self.trainer
+        if not tr.stamp_phases:
+            tr.stamp_phases, tr.graph = True, None
+
+    def phases(self, n: int) -> Optional[dict]:
+        """Where the card's time went over the last ``n`` supersteps of a
+        stamped graph, read once after a synchronize
+        (``obs.trace.phase_table``): ``collect``, ``replay``, ``update``,
+        ``adamw``, ``copyback`` and ``step_gap``, each device ms a
+        superstep; ``lead_ms``, each superstep's device begin less the host
+        time ``StepGraph.replay`` launched it (how far the host runs
+        ahead); ``clock_uncertainty_ms`` of the card-to-host clock mapping.
+        None without a stamped graph (the CPU, or before ``trace_phases``
+        and a chunk)."""
+        g = self.trainer.graph
+        return None if g is None else g.phases(n)
 
     # ------------------------------------------------------------ results
     def metrics(self):

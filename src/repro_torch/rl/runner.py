@@ -78,7 +78,7 @@ from repro_torch.common import tree_leaves, tree_map, tree_size
 from repro_torch.core.effective_rank import effective_rank
 from repro_torch.launch.mesh import (ActorMesh, make_actor_mesh,
                                      replay_shards)
-from repro_torch.obs.trace import annotate
+from repro_torch.obs.trace import PhaseStamps, annotate, stamp, stamping
 from repro_torch.replay import (DeviceReplayConfig, nstep_emit_flat,
                                 nstep_init, replay_add, replay_init,
                                 replay_sample, replay_update)
@@ -317,7 +317,17 @@ class StepGraph:
     collect noise and B the update's, in the eager order. A replay is A;
     the rows to the host in one copy, ``add`` and ``sample``; the batch to
     the device in one copy through a page-locked buffer; B; the
-    priorities to the host in one copy, then the refresh."""
+    priorities to the host in one copy, then the refresh. The host's two
+    waits for the card are the spans ``repro_torch.replay.wait_rows`` and
+    ``repro_torch.replay.wait_prio``.
+
+    With ``trainer.stamp_phases`` the graph (a host run's two) is captured
+    with phase stamps (``obs.trace.stamp``) into ``stamps``, a
+    ``PhaseStamps`` ring of two of the longest chunks' rows, whose row
+    each superstep's first stamp picks from ``_now()``; ``replay`` then
+    records each launch's host time, and ``phases`` reads the ring. Without, no stamp is captured: the graph is
+    the same, node for node. The stamps write only their ring, so training
+    is bitwise the same either way."""
 
     def __init__(self, trainer: "Trainer", ls: TrainLoopState,
                  rows: int = 0):
@@ -332,6 +342,11 @@ class StepGraph:
         self.scalars: Optional[torch.Tensor] = None
         self.clock = (torch.zeros((), dtype=torch.int64, device=dev)
                       if fleet else None)
+        self.stamps: Optional[PhaseStamps] = None
+        if trainer.stamp_phases:
+            with host_read():
+                self.stamps = PhaseStamps(self._now(),
+                                          2 * trainer.chunk_steps)
         self.stream = torch.cuda.Stream(dev)
         main = torch.cuda.current_stream(dev)
         self.stream.wait_stream(main)
@@ -353,11 +368,17 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for gen in (ls.gen if fleet else [ls.gen]):
             self.graph.register_generator_state(gen)
-        with _capturing(), torch.cuda.graph(self.graph, stream=self.stream):
+        with _capturing(), torch.cuda.graph(self.graph, stream=self.stream), \
+                stamping(self.stamps):
+            stamp("collect")
             nxt, self.metrics, self.batch = step(ls)
+            stamp("copyback")
             if rows:
                 self._record(self.metrics)
+            else:
+                self._tick()
             self.copied_bytes = _copy_into(self._dst, state_leaves(nxt))
+            stamp("gap")
         main.wait_stream(self.stream)
 
     def _capture_host(self, tr: "Trainer", ls: TrainLoopState,
@@ -372,21 +393,28 @@ class StepGraph:
             torch.cuda.CUDAGraph()
         for g in (self.graph, self.graph_b):
             g.register_generator_state(ls.gen)
-        with _capturing(), torch.cuda.graph(self.graph, stream=self.stream):
+        with _capturing(), torch.cuda.graph(self.graph, stream=self.stream), \
+                stamping(self.stamps):
+            stamp("collect")
             actors, nst, self.rows = tr.rows(ls.agent["params"], ls.actors,
                                              ls.nstep,
                                              tr.collect_draws(ls.gen))
             copied = _copy_into([*ls.actors, *nstep(ls.nstep)],
                                 [*actors, *nstep(nst)])
+            stamp("gap")
         self._rows_host = torch.empty(self.rows.shape, pin_memory=True)
         with _capturing(), \
-                torch.cuda.graph(self.graph_b, stream=self.stream):
+                torch.cuda.graph(self.graph_b, stream=self.stream), \
+                stamping(self.stamps):
+            stamp("update")
             agent, self.metrics = tr.update_fn(ls.agent, tr.acfg, self.batch,
                                                tr.learn_draws(ls.gen))
+            stamp("copyback")
             if rows:
                 self._record(self.metrics)
             copied += _copy_into([*tree_leaves(ls.agent), ls.step],
                                  [*tree_leaves(agent), ls.step + 1])
+            stamp("gap")
         self.copied_bytes = copied
         self._prio_host = torch.empty(self.metrics["priorities"].shape,
                                       pin_memory=True)
@@ -397,8 +425,9 @@ class StepGraph:
         to the device (enqueued on the current stream, before B)."""
         tr = self.trainer
         self._rows_host.copy_(self.rows, non_blocking=True)
-        # check: disable=R004 -- the host replay's add needs segment A's rows
-        torch.cuda.current_stream().synchronize()
+        with annotate("repro_torch.replay.wait_rows"):
+            # check: disable=R004 -- the host replay's add needs A's rows
+            torch.cuda.current_stream().synchronize()
         # check: disable=R004 -- a page-locked host buffer's view, not a read
         tr.host_add(self._rows_host.numpy())
         # check: disable=R004 -- a page-locked host buffer's view, not a read
@@ -408,8 +437,9 @@ class StepGraph:
     def _host_refresh(self) -> None:
         """After B: the priorities to the host, then the refresh."""
         self._prio_host.copy_(self.metrics["priorities"], non_blocking=True)
-        # check: disable=R004 -- the host replay's refresh needs B's priorities
-        torch.cuda.current_stream().synchronize()
+        with annotate("repro_torch.replay.wait_prio"):
+            # check: disable=R004 -- the host replay's refresh needs B's output
+            torch.cuda.current_stream().synchronize()
         # check: disable=R004 -- a page-locked host buffer's view, not a read
         self.trainer.host_refresh(self._idx, self._prio_host.numpy())
 
@@ -419,7 +449,13 @@ class StepGraph:
     def _record(self, metrics) -> None:
         row = (self._now().long() % self.scalars.shape[0]).reshape(1)
         self.scalars.index_copy_(0, row, scalar_row(metrics, self.keys)[None])
-        if self.clock is not None:
+        self._tick()
+
+    def _tick(self) -> None:
+        """Advance a fleet's superstep counter (``_record`` does; a fleet
+        captured with stamps and no stream rows needs it for its rows)."""
+        if self.clock is not None and (self.scalars is not None
+                                       or self.stamps is not None):
             self.clock.add_(1)
 
     def read_rows(self, n: int) -> np.ndarray:
@@ -441,16 +477,30 @@ class StepGraph:
         for src, dst in pairs:
             if src is not dst:
                 dst.set_state(src.get_state())
+        if self.stamps is not None:
+            self.stamps.reset()
 
     def replay(self, n: int) -> None:
         """``n`` supersteps on the static state, on the current stream (a
         host run's: with the host buffer's work between its segments)."""
         for _ in range(n):
+            if self.stamps is not None:
+                self.stamps.launch()
             self.graph.replay()
             if self.host:
                 self._host_exchange()
                 self.graph_b.replay()
                 self._host_refresh()
+
+    def phases(self, n: int) -> Optional[dict]:
+        """The phases of the last ``n`` replays from the stamps
+        (``obs.trace.phase_table``, on the host's clock), after a
+        synchronize; None for a graph captured without stamps."""
+        if self.stamps is None:
+            return None
+        with host_read():
+            return self.stamps.read(n)
+
 
 
 def scalar_keys(metrics, members: bool = False) -> Tuple[str, ...]:
@@ -562,13 +612,16 @@ class Trainer:
                 {**self.row_shapes, "weight": ()}, x.batch_size)
         self.n_params = 0
         self.graph: Optional[StepGraph] = None   # captured at first chunk
+        # capture the graph with phase stamps (Experiment.trace_phases;
+        # on from the start with the profiler's obs.trace)
+        self.stamp_phases = bool(spec.obs.enabled and spec.obs.trace)
         # the guard reads the stream obs writes: record it for either
         self.obs_stream = spec.obs.enabled or spec.guard.enabled
-        # the longest chunk Experiment.run asks for: chunks stop at every
-        # eval and every srank point
-        self.stream_rows = min(spec.eval.every,
-                               spec.eval.srank_every or spec.eval.every) \
-            if self.obs_stream else 0
+        # the longest chunk Experiment.run and Fleet.run ask for: chunks
+        # stop at every eval and every srank point
+        self.chunk_steps = min(spec.eval.every,
+                               spec.eval.srank_every or spec.eval.every)
+        self.stream_rows = self.chunk_steps if self.obs_stream else 0
         self.dispatches = 0     # supersteps dispatched: replays + eager
         self.captures = 0       # StepGraph captures
 
@@ -597,6 +650,7 @@ class Trainer:
         actors, nstate, flat = self._collect_emit(
             policy, ls.agent["params"], ls.actors, ls.nstep, draws,
             drop=drop)
+        stamp("replay")
         return actors, nstate, replay_add(self.dcfg, ls.replay, flat,
                                           step=ls.step)
 
@@ -719,7 +773,9 @@ class Trainer:
                                            self.batch_size)
         staleness = (ls.step - batch.pop("add_step")).to(torch.float32)
         batch["weight"] = weights
+        stamp("update")
         agent, metrics = self.update_fn(ls.agent, self.acfg, batch, draws)
+        stamp("replay")
         rstate = self._refresh(rstate, idx, metrics["priorities"])
         metrics = dict(metrics, staleness_mean=staleness.mean(),
                        staleness_p50=median(staleness),

@@ -550,6 +550,18 @@ class Fleet:
                                    noise_scale=float(noise_scale))
         return {"copied": copied, "scores": scores.tolist()}
 
+    # ------------------------------------------------------- phase stamps
+    def trace_phases(self) -> None:
+        """``Experiment.trace_phases`` for the fleet's one graph: a fleet
+        superstep (every member's) is one row of stamps."""
+        if not self.trainer.stamp_phases:
+            self.trainer.stamp_phases, self.graph = True, None
+
+    def phases(self, n: int) -> Optional[dict]:
+        """``Experiment.phases`` of the fleet's graph: device ms a fleet
+        superstep (all members)."""
+        return None if self.graph is None else self.graph.phases(n)
+
     # ------------------------------------------------------------ results
     def results(self) -> List[RunResult]:
         """One cumulative ``RunResult`` a member (fleet order). The wall
@@ -604,9 +616,8 @@ class Fleet:
             "obs": [obs.state() for obs in self._obs],
         }
         gens = torch.stack([g.get_state() for g in fls.gen])
-        with annotate("repro.fleet_ckpt_save"):
-            ckpt.save(path, {_CKPT_KEY: fls._replace(gen=gens)},
-                      metadata={_CKPT_KEY: state})
+        ckpt.save(path, {_CKPT_KEY: fls._replace(gen=gens)},
+                  metadata={_CKPT_KEY: state})
         for obs in self._obs:
             obs.log_event("save", step=self.step, path=str(path))
             obs.drain()
