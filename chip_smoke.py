@@ -7,10 +7,10 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
 
 1. Card and settings: the ``nvidia-smi`` name and power limit; TF32 off
    for matmul and cuDNN (the reference is fp32).
-2. Build: compile the six CUDA sources from the checkout and the latency
-   probe, one nvcc each, all at once (dense_stack_fwd.cu,
+2. Build: compile the seven CUDA sources from the checkout and the
+   latency probe, one nvcc each, all at once (dense_stack_fwd.cu,
    dense_stack_bwd.cu, replay_tree.cu, fused_dense.cu, flash_attention.cu,
-   ssd_scan.cu, launch/csrc/latency_probe.cu).
+   ssd_scan.cu, optim/csrc/adamw.cu, launch/csrc/latency_probe.cu).
 3. Kernels against their plain versions (new kernels in float32 within
    1e-4 and bfloat16 within 2e-2, as rtol and atol * max|plain|):
    - the stack forward (its four kernels: the whole-stack kernel for the
@@ -78,7 +78,8 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    transitions), one superstep on the card against the same superstep on
    the CPU plain path (same state, same draws), then 50 supersteps with
    the launches of every superstep asserted (``expected_launches``: the
-   forward by kernel, its stream^T transposes, the backward, the tree),
+   forward by kernel, its stream^T transposes, the backward, the tree,
+   AdamW),
    finite losses, a consistent replay count and tree total, and
    ``Policy.from_experiment`` checked against the plain path. Wall time
    per superstep and a ``torch.profiler`` breakdown (the forward's wide,
@@ -257,7 +258,11 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    bfloat16, each beside SDPA's GQA call pinned to the backend that takes
    its dtype (math for float32, flash for bfloat16; named) and the
    memory-efficient backend on K/V repeated to H heads outside the timed
-   call; the SSD chunk in float32 and bfloat16.
+   call; the SSD chunk in float32 and bfloat16. AdamW
+   (``phase_adamw``, ``[adamw]`` lines): the four SAC calls of the
+   densenet agent and the mlp fleet's (E=5, vmapped), bitwise the plain
+   version over 3 steps, one launch a call, beside it,
+   ``torch._fused_adamw_`` and 28 bytes an element at 3.35 TB/s.
 7. The port's gates and its quickstart (``[check]``, ``[quickstart]``
    lines): ``repro_torch.check.dynamic`` on the card for ``smoke`` and the
    sharded cell's spec cut to 12 supersteps (zero findings, D001 run: the
@@ -288,18 +293,19 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    critics on a replay batch of 256, through the stack forward kernel and
    through its plain twin on the card with the same directions, pointwise
    within relative 1e-4.
-9. One JSON line of seven kernel records for the eight ``pallas_call``
-   sites (``tree_set`` also replaces the one-hot write; the stack
+9. One JSON line of eight kernel records: seven for the eight
+   ``pallas_call`` sites and AdamW's (no TPU kernel: the reference's is
+   jnp) (``tree_set`` also replaces the one-hot write; the stack
    records' ``launches_by_kernel``: the forward's by kernel, the
-   backward's ``whole`` and ``layers``; the stack and tree records'
-   ``launches_by_path`` give SAC's and TD3's launches over 40 supersteps,
-   all four ``sharded``: the sharded phase's ``mesh_shards=4`` runs (the
-   tree records' ``sharded`` entries the member launches at the shards'
-   shapes),
-   the stack records' also the host replay's (``train_host``), the tree
-   records' also the fleet run's, the stack records' also the fused
-   fleets' (``fleet``: fig3-width, ``fleet_train``: the training cell's
-   spec), and all four ``figs``: the figure phase's; their ``fleet``
+   backward's ``whole`` and ``layers``; the stack, tree and AdamW
+   records' ``launches_by_path`` give SAC's and TD3's launches over 40
+   supersteps, all five ``sharded``: the sharded phase's
+   ``mesh_shards=4`` runs (the tree records' ``sharded`` entries the
+   member launches at the shards' shapes),
+   the stack and AdamW records' also the host replay's (``train_host``)
+   and the fused fleets' (``fleet``: fig3-width, ``fleet_train``: the
+   training cell's spec), the tree records' also the fleet run's, and all
+   five ``figs``: the figure phase's; the stack records' ``fleet``
    entries the member-axis launches' times, ``fleet_by_shape`` every
    member case's), then the device line, last.
 """
@@ -1122,7 +1128,11 @@ def expected_launches(tr):
     backwards of the narrow densenet stacks, each ONE launch of the
     whole-stack backward kernel (SAC and TD3: phi_sa twice, phi_s once).
     Tree: one sample, two writes (the add, the priority refresh); none
-    with the host replay."""
+    with the host replay. ``adamw``: one launch of the AdamW kernel a
+    ``adamw_update`` call (none of these trees has the 40 leaves that take
+    a second): SAC the actor, the critics, the temperature and OFENet;
+    TD3 the critics, the actor and OFENet; a fleet the same, once for all
+    members."""
     from repro_torch.kernels.dense_block import stack
     acfg = tr.acfg
     td3 = tr.spec.algo == "td3"
@@ -1169,27 +1179,32 @@ def expected_launches(tr):
         bwd_whole += 2 * whole(phi_sa) + whole(phi_s)
     # the host replay's tree is NumPy: no tree kernel
     want.update(bwd=bwd, bwd_whole=bwd_whole, sample=0 if tr.host else 1,
-                set=0 if tr.host else 2)
+                set=0 if tr.host else 2,
+                adamw=(2 if td3 else 3) + int(bool(acfg.ofenet)))
     return want
 
 
 def _counts():
     from repro_torch.kernels.dense_block import stack
     from repro_torch.kernels.replay_tree import ops
+    from repro_torch.optim import adamw
     return {"fwd": stack.launch_count(),
             **{f"fwd_{k}": stack.launch_count(k) for k in stack.FWD_KERNELS},
             "fwd_t": stack.transpose_count(),
             "bwd": stack.bwd_launch_count(),
             "bwd_whole": stack.bwd_launch_count("whole"),
             "sample": ops.launch_count("sample"),
-            "set": ops.launch_count("set")}
+            "set": ops.launch_count("set"),
+            "adamw": adamw.adamw_path_counts()["kernel"]}
 
 
 def _reset_counts():
     from repro_torch.kernels.dense_block import stack
     from repro_torch.kernels.replay_tree import ops
+    from repro_torch.optim import adamw
     stack.reset_launch_count()
     ops.reset_launch_count()
+    adamw.reset_adamw_path_counts()
 
 
 def state_to(ls, device):
@@ -1571,11 +1586,13 @@ def host_diff(a, b):
 
 def graph_class(key):
     """'copy-back' (the foreach copy into the static state), 'adamw' (the
-    other foreach kernels: the optimizer's) or None, for a profiler kernel
+    AdamW kernel, ``optim/csrc/adamw.cu``) or None, for a profiler kernel
     name."""
-    if "multi_tensor_apply_kernel" not in key:
-        return None
-    return "copy-back" if "Copy" in key else "adamw"
+    if "adamw_kernel" in key:
+        return "adamw"
+    if "multi_tensor_apply_kernel" in key and "Copy" in key:
+        return "copy-back"
+    return None
 
 
 def busy_union_ms(prof):
@@ -1598,8 +1615,9 @@ def busy_union_ms(prof):
 
 def superstep_class(key):
     """The class of a superstep's kernel for the breakdown under replay:
-    the forward's, the backward's and the tree's classes, the foreach
-    kernels', else 'other' (elementwise, reductions, library products)."""
+    the forward's, the backward's and the tree's classes, the copy-back's
+    and AdamW's, else 'other' (elementwise, reductions, library
+    products)."""
     for prefix, c in (("fwd ", fwd_class(key)), ("bwd ",
                                                  bwd_product_class(key)),
                       ("tree ", tree_class(key)), ("", graph_class(key))):
@@ -1789,8 +1807,8 @@ def graph_device_time(graph, tag, prof_tag, reps=10):
             f"{sum(e.count for e in events) / reps:.0f} kernels per replay;"
             f" copy-back {cb[0]:.4f} ms over {cb[1]:.1f} kernels (bound "
             f"{2 * graph.copied_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms: "
-            f"{graph.copied_bytes / 1e6:.1f} MB read and written); AdamW's "
-            f"foreach kernels {aw[0]:.4f} ms over {aw[1]:.1f}")
+            f"{graph.copied_bytes / 1e6:.1f} MB read and written); the "
+            f"AdamW kernel {aw[0]:.4f} ms over {aw[1]:.1f} launches")
         log(f"[{prof_tag}] by class, ms/replay (kernels): " + ", ".join(
             f"{c} {ms:.3f} ({n:.0f})" for c, (ms, n) in
             sorted(classes.items(), key=lambda kv: -kv[1][0])))
@@ -2807,6 +2825,118 @@ OBS_STEPS = 40      # supersteps of the observed runs held bitwise
 WALL_CHUNKS = 8     # chunks of 5 a timed run (run(5) each)
 
 
+def _adamw_trees(name, e):
+    """The four SAC AdamW calls' ``(params, state)`` of a benchmark
+    configuration on the card (``fig10-ablation``: densenet U=2048 with
+    OFENet 64 x 4; ``fig3-width``: mlp U=2048), stacked to ``e`` members
+    (``e`` > 0: a fleet's vmapped calls)."""
+    import torch
+    from repro_torch.common import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.rl import presets
+    from repro_torch.rl.envs import make_env
+    from repro_torch.rl.policy import algo_config
+    from repro_torch.rl.sac import sac_init
+    spec = presets.get(name).override(**PAPER_BUDGET, num_units=2048,
+                                      block_backend="fused")
+    acfg = algo_config(spec, make_env(spec.env))
+    agent = sac_init(acfg, torch.Generator(device="cuda").manual_seed(0),
+                     "cuda")
+    p, opt = agent["params"], agent["opt"]
+    groups = [(p["actor"], opt["actor"]), (p["critics"], opt["critics"]),
+              (p["log_alpha"], opt["alpha"])]
+    if "ofenet" in opt:
+        groups.append((p["ofenet"]["online"], opt["ofenet"]))
+    if e:
+        groups = [(q, torch.func.vmap(adamw_init)(q)) for q in (
+            tree_map(lambda t: torch.stack([t + 1e-3 * k for k in range(e)]),
+                     q) for q, _ in groups)]
+    return groups
+
+
+def phase_adamw(gen):
+    """AdamW (``optim/csrc/adamw.cu``, ``[adamw]`` lines) at the
+    benchmark's trees: the four SAC calls of the densenet agent (18.0 M
+    stepped parameters) and the same calls of the mlp fleet vmapped over
+    E=5 members. Each call set is held bitwise to the plain version
+    (``adamw_update_ref``, leaf by leaf; vmapped for the fleet, the path
+    the kernel replaced there) over 3 steps, one launch a call, then timed
+    beside it, beside ``torch._fused_adamw_`` over the same leaves in
+    place (the library yardstick; the port never calls it) and beside 28
+    bytes an element at 3.35 TB/s; the kernel's registers and spills from
+    ``ptxas``. No profiler: this late in the process it has recorded no
+    device kernel of a call set (the superstep profiles count AdamW's
+    launches, ``[graph-prof]``)."""
+    import tempfile
+
+    import torch
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.kernels import NVCC_FLAGS, _nvcc
+    from repro_torch.optim import adamw as A
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = [f for f in NVCC_FLAGS if f not in ("-shared",)]
+        out = subprocess.run(
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, "adamw.o"), str(A.SOURCE)],
+            capture_output=True, text=True, timeout=600)
+    for line in out.stderr.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[adamw] ptxas {line.strip()}")
+    cfg = A.AdamWConfig(lr=3e-4)
+    rows = {}
+    for tag, name, e in (("graph", "fig10-ablation", 0),
+                         ("fleet", "fig3-width", 5)):
+        groups = _adamw_trees(name, e)
+        grads = [tree_map(lambda t: 1e-3 * torch.randn(
+            t.shape, generator=gen, device="cuda"), q) for q, _ in groups]
+        def kern(g, s, q):
+            return A.adamw_update(cfg, g, s, q)
+
+        def plain(g, s, q):
+            return A.adamw_update_ref(cfg, g, s, q)
+        if e:
+            kern, plain = torch.func.vmap(kern), torch.func.vmap(plain)
+        ks = ps = groups
+        before = A.adamw_path_counts()
+        err = 0.0
+        for _ in range(3):
+            ks = [kern(g, s, q) for g, (q, s) in zip(grads, ks)]
+            ps = [plain(g, s, q) for g, (q, s) in zip(grads, ps)]
+            for a, b in zip(tree_leaves(ks), tree_leaves(ps)):
+                err = max(err, float((a.float() - b.float()).abs().max()))
+        counts = {k: v - before[k] for k, v in A.adamw_path_counts().items()}
+        assert counts == {"kernel": 3 * len(groups), "fallback": 0}, counts
+        assert err == 0.0, f"[adamw] {tag}: kernel vs plain {err}"
+        lib_leaves = [[t.clone() for t in tree_leaves(x)] for x in (
+            [q for q, _ in groups], grads, [s["mu"] for _, s in groups],
+            [s["nu"] for _, s in groups])]
+        steps = [torch.ones((), device="cuda") for _ in lib_leaves[0]]
+        elements = sum(t.numel() for t in lib_leaves[0])
+
+        def library(_):
+            torch._fused_adamw_(*lib_leaves, [], steps, lr=3e-4, beta1=0.9,
+                                beta2=0.999, weight_decay=0.0, eps=1e-8,
+                                amsgrad=False, maximize=False)
+
+        def kernel_set(_):
+            return [kern(g, s, q) for g, (q, s) in zip(grads, groups)]
+
+        def plain_set(_):
+            return [plain(g, s, q) for g, (q, s) in zip(grads, groups)]
+        r = _time_row(f"adamw {tag} ({len(groups)} calls, E={e or 1}, "
+                      f"{elements / 1e6:.2f} M elements)", kernel_set,
+                      plain_set, library, [None], 28 * elements, 0.0, err)
+        r["elements"] = elements
+        r["launches"] = counts["kernel"]
+        log(f"[adamw] {tag}: {counts['kernel']} launches over 3 steps of "
+            f"{len(groups)} calls; {elements} elements; bitwise the plain "
+            f"version")
+        rows[tag] = r
+        del groups, grads, lib_leaves, ks, ps
+        _free()
+    return rows
+
+
 def _free():
     """Give the card's memory of runs already dropped back."""
     import gc
@@ -3459,7 +3589,7 @@ def fleet_training(gen):
         out = fstep(fls, draws)
         a = _counts()
         per_call.append({k: a[k] - b[k] for k in ("sample", "set", "fwd",
-                                                  "bwd")})
+                                                  "bwd", "adamw")})
         return out
     tr.fleet_step = counted
     t0 = time.perf_counter()
@@ -3469,7 +3599,8 @@ def fleet_training(gen):
     finally:
         del tr.fleet_step
     t_cap = time.perf_counter() - t0
-    want = {"sample": 1, "set": 2, "fwd": 0, "bwd": 0}
+    want = {"sample": 1, "set": 2, "fwd": 0, "bwd": 0,
+            "adamw": expected_launches(tr)["adamw"]}
     if per_call != [want, want] or fl.graph is None:
         raise AssertionError(f"fleet launches at warm-up and capture "
                              f"{per_call}, want {want} each")
@@ -3489,7 +3620,7 @@ def fleet_training(gen):
     log(f"[fleet] capture of the vmapped superstep {t_cap:.2f}s (with its "
         f"eager warm-up superstep); wrapper launches at warm-up and at "
         f"capture {want} each (one member-axis sample, two member-axis "
-        f"writes; jnp blocks); copy-back {fl.graph.copied_bytes / 1e6:.1f}"
+        f"writes, one AdamW launch a call; jnp blocks); copy-back {fl.graph.copied_bytes / 1e6:.1f}"
         f" MB a replay")
     fleet_call(fl.run, 19)
     s20 = clone_state(fl._fls)
@@ -4867,7 +4998,7 @@ def phase_quickstart():
 
 
 def build_all():
-    """Build the six kernel libraries and the latency probe, one nvcc
+    """Build the seven kernel libraries and the latency probe, one nvcc
     each, all at once."""
     from repro_torch.kernels import build_seconds
     from repro_torch.kernels.dense_block import dense_block, stack
@@ -4875,12 +5006,14 @@ def build_all():
     from repro_torch.kernels.replay_tree import ops
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import bwd_sweep
+    from repro_torch.optim import adamw
     builders = {"dense_stack_fwd": stack._library,
                 "dense_stack_bwd": stack._bwd_library,
                 "replay_tree": ops.library,
                 "fused_dense": dense_block._library,
                 "flash_attention": flash_attention._library,
                 "ssd_scan": ssd_scan._library,
+                "adamw": adamw._library,
                 "latency_probe": bwd_sweep._latency_library}
     errors = []
 
@@ -4988,6 +5121,7 @@ def main() -> int:
     bwd = phase_bwd_times(gen, profile_classes)
     tree = phase_tree_times(gen)
     new = phase_new_times(gen)
+    adamw = phase_adamw(gen)
     phase_check(train_spec)
     phase_quickstart()
     # last of the phases: after its ~60 runs in this process the profiler
@@ -5119,6 +5253,25 @@ def main() -> int:
                bf16={k: new["ssd_chunk_dual"]["bf16"][k] for k in (
                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                    "max_abs_err")}),
+        record("adamw_step", "src/repro_torch/optim/csrc/adamw.cu",
+               "none: the reference's AdamW (src/repro/optim/adamw.py) is "
+               "plain jnp", train_launches["adamw"], adamw["graph"],
+               "the four SAC AdamW calls of fig10's densenet agent "
+               "(18.0 M parameters), 3 steps; fleet: fig3's mlp agent's "
+               "calls vmapped over E=5; library torch._fused_adamw_ in "
+               "place",
+               launches_by_path={"train": train_launches["adamw"],
+                                 "train_td3": td3_launches["adamw"],
+                                 "train_host": host_launches["adamw"],
+                                 "fleet": fused["launches"]["fleet"]["adamw"],
+                                 "fleet_train":
+                                     fused["launches"]["fleet_train"]["adamw"],
+                                 "sharded": sharded_launches["adamw"],
+                                 "figs": figs_launches["adamw"]},
+               fleet={k: adamw["fleet"][k] for k in (
+                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "max_abs_err", "launches", "elements")},
+               elements=adamw["graph"]["elements"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ explicit ``torch.Generator`` on the tensors' device.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
@@ -159,6 +160,16 @@ def is_batched(tree: Any) -> bool:
     tensor (the body of a fleet's member-batched superstep)."""
     return any(torch._C._functorch.is_batchedtensor(t)
                for t in tree_leaves(tree))
+
+
+def members_first(t: torch.Tensor, dim: Optional[int], e: int
+                  ) -> torch.Tensor:
+    """A ``torch.library`` vmap rule's argument with its member axis first:
+    an unbatched one (``dim`` None) expanded to ``e`` members of stride 0
+    (never copied ``e`` times)."""
+    if dim is None:
+        return t.expand((e, *t.shape))
+    return t.movedim(dim, 0)
 
 
 def value_and_grad_func(fn: Callable[[Any], Any], tree: Any, *,

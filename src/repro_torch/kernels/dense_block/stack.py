@@ -82,7 +82,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.common import get_activation
+from repro_torch.common import get_activation, members_first
 
 FUSED_CONNECTIVITIES = ("mlp", "densenet", "d2rl")
 FUSED_ACTIVATIONS = ("swish", "silu", "relu", "tanh", "identity")
@@ -1509,19 +1509,11 @@ def _bwd_op(keep: torch.Tensor, zs: torch.Tensor, ws: List[torch.Tensor],
     return _grads_list(grads, need_dx, need_dw, need_db)
 
 
-def _members_of(t: torch.Tensor, dim: Optional[int], e: int) -> torch.Tensor:
-    """A vmap rule's argument with its member axis first: an unbatched one
-    expanded to E members of stride 0 (never copied E times)."""
-    if dim is None:
-        return t.expand((e, *t.shape))
-    return t.movedim(dim, 0)
-
-
 def _fwd_vmap(info, in_dims, x, ws, bs, connectivity, activation, with_zs):
     e = info.batch_size
-    x = _members_of(x, in_dims[0], e)
-    ws = [_members_of(w, d, e) for w, d in zip(ws, in_dims[1])]
-    bs = [_members_of(b, d, e) for b, d in zip(bs, in_dims[2])]
+    x = members_first(x, in_dims[0], e)
+    ws = [members_first(w, d, e) for w, d in zip(ws, in_dims[1])]
+    bs = [members_first(b, d, e) for b, d in zip(bs, in_dims[2])]
     m, n = x.shape[1], len(ws)
     zs = None
     if with_zs:
@@ -1537,11 +1529,11 @@ def _fwd_vmap(info, in_dims, x, ws, bs, connectivity, activation, with_zs):
 def _bwd_vmap(info, in_dims, keep, zs, ws, bs, g, connectivity, activation,
               need_dx, need_dw, need_db):
     e = info.batch_size
-    keep = _members_of(keep, in_dims[0], e)
-    zs = _members_of(zs, in_dims[1], e)
-    ws = [_members_of(w, d, e) for w, d in zip(ws, in_dims[2])]
-    bs = [_members_of(b, d, e) for b, d in zip(bs, in_dims[3])]
-    g = _members_of(g, in_dims[4], e)
+    keep = members_first(keep, in_dims[0], e)
+    zs = members_first(zs, in_dims[1], e)
+    ws = [members_first(w, d, e) for w, d in zip(ws, in_dims[2])]
+    bs = [members_first(b, d, e) for b, d in zip(bs, in_dims[3])]
+    g = members_first(g, in_dims[4], e)
     if keep.device.type == "cpu":
         # the members twin as E calls of the solo op (each the solo plain
         # backward): torch.func.vjp runs inside the op, not in this rule

@@ -31,11 +31,11 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.common import is_batched
+from repro_torch.common import is_batched, members_first
 from repro_torch.kernels.replay_tree import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "replay_tree.cu"
@@ -300,14 +300,6 @@ def sumtree_sample_members(tree: torch.Tensor, targets: torch.Tensor, *,
     return leaf, pri
 
 
-def _members(x: torch.Tensor, dim: Optional[int], e: int) -> torch.Tensor:
-    """A vmap rule's argument with its member axis first (an unbatched
-    one repeated for every member)."""
-    if dim is None:
-        return x.expand((e,) + tuple(x.shape))
-    return x.movedim(dim, 0)
-
-
 @torch.library.custom_op("repro_torch::sumtree_set", mutates_args=("tree",))
 def _set_op(tree: torch.Tensor, idx: torch.Tensor,
             value: torch.Tensor) -> None:
@@ -326,15 +318,15 @@ def _set_vmap(info, in_dims, tree, idx, value):
         raise ValueError("sumtree_set under vmap: the trees must be "
                          "stacked on their leading axis (one a member)")
     e = info.batch_size
-    sumtree_set_members(tree, _members(idx, in_dims[1], e),
-                        _members(value, in_dims[2], e))
+    sumtree_set_members(tree, members_first(idx, in_dims[1], e),
+                        members_first(value, in_dims[2], e))
     return None, None
 
 
 def _sample_vmap(info, in_dims, tree, targets, capacity):
     e = info.batch_size
-    out = sumtree_sample_members(_members(tree, in_dims[0], e),
-                                 _members(targets, in_dims[1], e),
+    out = sumtree_sample_members(members_first(tree, in_dims[0], e),
+                                 members_first(targets, in_dims[1], e),
                                  capacity=capacity)
     return out, (0, 0)
 
