@@ -15,6 +15,8 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs.trace import stamp
+
 Params = Dict[str, Any]
 
 
@@ -115,8 +117,13 @@ def ema_update(target: Any, online: Any,
                tau: Union[float, torch.Tensor]) -> Any:
     """Polyak averaging: target <- tau*online + (1-tau)*target (paper A.1).
     ``tau`` may be a 0-d tensor on the device (TD3's delayed target: 0 on
-    the steps that skip it), with the same arithmetic."""
-    return tree_map(lambda t, o: (1.0 - tau) * t + tau * o, target, online)
+    the steps that skip it), with the same arithmetic. In a superstep
+    graph captured with phase stamps the call is the ``target`` phase,
+    inside the ``update`` one (``obs.trace.stamp``)."""
+    stamp("target")
+    out = tree_map(lambda t, o: (1.0 - tau) * t + tau * o, target, online)
+    stamp("update")
+    return out
 
 
 def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:

@@ -57,6 +57,7 @@ PHASE_STAMP(update)
 PHASE_STAMP(adamw)
 PHASE_STAMP(copyback)
 PHASE_STAMP(gap)
+PHASE_STAMP(target)
 
 #define LAUNCH(name)                                                        \
   phase_stamp_##name<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(       \
@@ -78,6 +79,7 @@ extern "C" int phase_stamp(int phase, long long* ring, int slots,
     case 3: LAUNCH(adamw);
     case 4: LAUNCH(copyback);
     case 5: LAUNCH(gap);
+    case 6: LAUNCH(target);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

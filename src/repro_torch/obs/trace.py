@@ -27,12 +27,16 @@ nothing. The phases (``PHASES``) partition the superstep: ``collect``
 step, the n-step ring; a host-replay run's whole segment A), ``replay``
 (the device replay's add and sample, then its refresh with the sampled
 rows' staleness), ``update`` (the losses, forward and backward, less
-AdamW), ``adamw`` (each ``adamw_update`` call), ``copyback`` (the obs
-stream row and the copy into the static state) and ``gap`` (from the
-superstep's last stamp to the next one's first, and in a host-replay run
-from segment A's end to B's start: the chunk epilogue's device work and
-the card waiting on the host). ``PhaseStamps.read`` turns the ring into
-ms a superstep on the host's clock (``phase_table``).
+AdamW), ``adamw`` (each ``adamw_update`` call), ``target`` (each
+target-network EMA, ``common.ema_update``: the target critics, TD3's
+target actor, OFENet's target), ``copyback`` (the obs stream row and the
+copy into the static state) and ``gap`` (from the superstep's last stamp
+to the next one's first, and in a host-replay run from segment A's end
+to B's start: the chunk epilogue's device work and the card waiting on
+the host). ``PhaseStamps.read`` turns the ring into ms a superstep on the
+host's clock (``phase_table``), ``update`` there with the ``target``
+intervals in it: ``target`` is also reported alone, as a part of
+``update``.
 
 ``TraceCapture`` implements ``ObsSpec.trace = N``: the first ``begin()``
 starts a ``torch.profiler.profile`` (CPU activity, and CUDA with a card),
@@ -58,8 +62,9 @@ import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "phase_stamp.cu"
 # the order of the kernels' phase ids in csrc/phase_stamp.cu
-PHASES = ("collect", "replay", "update", "adamw", "copyback", "gap")
-MAX_SLOTS = 32       # stamps a superstep (SAC with OFENet: 14)
+PHASES = ("collect", "replay", "update", "adamw", "copyback", "gap",
+          "target")
+MAX_SLOTS = 32       # stamps a superstep (SAC with OFENet: 18)
 MAX_ROWS = 1 << 16   # 16 MiB of ring at most, whatever the chunks' length
 
 _ACTIVE: Optional["PhaseStamps"] = None
@@ -194,11 +199,13 @@ def phase_table(rows: np.ndarray, schedule: Sequence[str],
     """Device ms a superstep of each phase from ``rows`` ``(n, S)`` (card
     ns, the n supersteps in order, ``schedule[k]`` the phase that starts
     at slot k, the last a ``gap``): each phase's intervals summed in a row
-    and averaged over the n rows; ``step_gap`` the ``gap`` intervals inside
-    a row over the n rows plus, over the n - 1 pairs, each row's last
-    stamp to the next row's first. ``lead_ms``: each superstep's first
-    stamp on the host's clock (card ns less ``offset_ns``) less its launch
-    ``launched_ns``; ``clock_uncertainty_ms`` bounds the mapping.
+    and averaged over the n rows, ``update``'s with the ``target``
+    intervals in it (``target`` also alone, as a part of ``update``);
+    ``step_gap`` the ``gap`` intervals inside a row over the n rows plus,
+    over the n - 1 pairs, each row's last stamp to the next row's first.
+    ``lead_ms``: each superstep's first stamp on the host's clock (card ns
+    less ``offset_ns``) less its launch ``launched_ns``;
+    ``clock_uncertainty_ms`` bounds the mapping.
     Returns ``{phase: ms, ..., "step_gap": ms, "supersteps": n,
     "lead_ms": [...], "clock_uncertainty_ms": ...}``."""
     t = np.asarray(rows, np.int64)
@@ -214,6 +221,7 @@ def phase_table(rows: np.ndarray, schedule: Sequence[str],
     for k, phase in enumerate(schedule[:-1]):
         ms[phase] += float(d[:, k].mean())
     ms["gap"] += float((t[1:, 0] - t[:-1, -1]).mean()) / 1e6
+    ms["update"] += ms["target"]
     out = {p: ms[p] for p in PHASES if p != "gap"}
     out.update(step_gap=ms["gap"], supersteps=n,
                clock_uncertainty_ms=offset_err_ns / 1e6)

@@ -841,11 +841,12 @@ class Experiment:
         stamped graph, read once after a synchronize
         (``obs.trace.phase_table``): ``collect``, ``replay``, ``update``,
         ``adamw``, ``copyback`` and ``step_gap``, each device ms a
-        superstep; ``lead_ms``, each superstep's device begin less the host
-        time ``StepGraph.replay`` launched it (how far the host runs
-        ahead); ``clock_uncertainty_ms`` of the card-to-host clock mapping.
-        None without a stamped graph (the CPU, or before ``trace_phases``
-        and a chunk)."""
+        superstep, and ``target``, the part of ``update`` that averages
+        the target networks; ``lead_ms``, each superstep's device begin
+        less the host time ``StepGraph.replay`` launched it (how far the
+        host runs ahead); ``clock_uncertainty_ms`` of the card-to-host
+        clock mapping. None without a stamped graph (the CPU, or before
+        ``trace_phases`` and a chunk)."""
         g = self.trainer.graph
         return None if g is None else g.phases(n)
 

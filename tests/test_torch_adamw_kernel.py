@@ -13,7 +13,10 @@ On the CPU:
   also with a member axis on another dim, with unbatched grads and under
   a nested vmap;
 * the state keeps the checkpoint layout ``{"mu", "nu", "count"}``, leaf
-  for leaf, through ``ckpt.save`` / ``ckpt.restore``.
+  for leaf, through ``ckpt.save`` / ``ckpt.restore``;
+* a call past one launch's 40 leaves (41, and the 68 of an L=16 mlp's
+  twin critics) through the foreach ops solo and leaf by leaf under vmap,
+  bitwise ``adamw_update_ref`` over 3 steps, ``count`` once a call.
 
 On a CUDA card (skipped without one):
 
@@ -31,8 +34,13 @@ On a CUDA card (skipped without one):
 * captured in a CUDA graph and replayed 3 times with ``count`` advancing,
   bitwise the eager steps;
 * the path counter reads ``"kernel"`` for SAC's four calls and for a
-  fleet's (fused and jnp blocks), and never ``"fallback"``.
+  fleet's (fused and jnp blocks), and never ``"fallback"``;
+* 41 and 68 leaves (two launches a call) solo and under ``vmap`` at E=5,
+  eager and captured in a CUDA graph, bitwise ``adamw_update_ref`` over 3
+  steps, ``count`` advanced once a call.
 """
+import math
+
 import pytest
 import torch
 
@@ -257,6 +265,59 @@ def test_the_state_keeps_its_checkpoint_layout(tmp_path):
         assert a.shape == b.shape and a.dtype == b.dtype
 
 
+def _deep_tree(leaves, lead=(), device="cpu"):
+    """A tree past one launch's 40 leaves: the twin critics of an L=16
+    mlp (68 leaves, at U=32), or 41 leaves of ragged sizes; members
+    stacked on ``lead``, each a little apart."""
+    gen = torch.Generator().manual_seed(leaves)
+    if leaves == 68:
+        from repro_torch.core.blocks import MLPBlockConfig, mlp_block_init
+        block = MLPBlockConfig(in_dim=4, num_layers=16, num_units=32,
+                               connectivity="mlp", out_dim=1)
+        tree = {q: mlp_block_init(gen, block, torch.device("cpu"))
+                for q in ("q1", "q2")}
+    else:
+        tree = {f"l{i:02d}": torch.randn(5 * i + 3, generator=gen)
+                for i in range(leaves)}
+    assert len(tree_leaves(tree)) == leaves
+    m = math.prod(lead)
+    return tree_map(lambda t: torch.stack(
+        [t + 0.01 * k for k in range(m)]).reshape(lead + t.shape).to(device),
+        tree)
+
+
+def _calls(cfg, lead):
+    """``(init, step, plain)``: solo, or vmapped over the members."""
+    if lead:
+        return (torch.func.vmap(A.adamw_init), _vmapped(A.adamw_update, cfg),
+                _vmapped(A.adamw_update_ref, cfg))
+    return (A.adamw_init, lambda g, s, q: A.adamw_update(cfg, g, s, q),
+            lambda g, s, q: A.adamw_update_ref(cfg, g, s, q))
+
+
+def _steps(p, gen, n=3):
+    """``n`` grads shaped as ``p``, on its device."""
+    dev = tree_leaves(p)[0].device
+    return [tree_map(lambda t: 1e-2 * torch.randn(
+        t.shape, generator=gen).to(dev), p) for _ in range(n)]
+
+
+@pytest.mark.parametrize("leaves", [41, 68])
+def test_past_40_leaves_on_the_cpu_is_bitwise_the_plain_version(leaves):
+    cfg = _cfg(None, 0.0, False, lr=3e-4)
+    gen = torch.Generator().manual_seed(11)
+    for lead in ((), (5,)):
+        p = _deep_tree(leaves, lead)
+        init, step, plain = _calls(cfg, lead)
+        got = want = (p, init(p))
+        for k, g in enumerate(_steps(p, gen), 1):
+            got, d = _delta(lambda: step(g, got[1], got[0]))
+            assert d == {"kernel": 0, "fallback": 1}
+            want = plain(g, want[1], want[0])
+            assert _bitwise(got, want)
+            assert (got[1]["count"] == k).all()
+
+
 # ---------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -468,6 +529,45 @@ def test_cuda_graph_replays_advance_count_bitwise_eager(cuda_device):
                         tree_leaves(out)):
             d.copy_(s)
     assert int(out[1]["count"]) == 3
+
+
+@pytest.mark.parametrize("mode", ["solo", "vmap"])
+@pytest.mark.parametrize("leaves", [41, 68])
+def test_cuda_past_40_leaves_is_two_launches_bitwise_plain(
+        cuda_device, leaves, mode):
+    """A call of more leaves than one launch's table holds (the critics of
+    an L=16 mlp: 68), solo and as a fleet of 5 under vmap, eager and then
+    replayed from a captured graph."""
+    cfg = _cfg(None, 0.0, False, lr=3e-4)
+    gen = torch.Generator().manual_seed(12)
+    lead = (5,) if mode == "vmap" else ()
+    p = _deep_tree(leaves, lead, cuda_device)
+    init, step, plain = _calls(cfg, lead)
+    grads = _steps(p, gen)
+    got = want = (p, init(p))
+    eager = []
+    for k, g in enumerate(grads, 1):
+        got, d = _delta(lambda: step(g, got[1], got[0]))
+        assert d == {"kernel": 2, "fallback": 0}
+        want = plain(g, want[1], want[0])
+        assert _bitwise(got, want) and (got[1]["count"] == k).all()
+        eager.append(got)
+    # the same steps from a captured graph, its state copied back
+    static = tree_map(torch.clone, (grads[0], init(p), p))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, d = _delta(lambda: step(*static))
+    assert d == {"kernel": 2, "fallback": 0}
+    for g, want in zip(grads, eager):
+        for dst, src in zip(tree_leaves(static[0]), tree_leaves(g)):
+            dst.copy_(src)
+        graph.replay()
+        assert _bitwise((out[0], out[1]), want)
+        for dst, src in zip(tree_leaves((static[2], static[1])),
+                            tree_leaves(out)):
+            dst.copy_(src)
+    assert (out[1]["count"] == 3).all()
 
 
 def test_cuda_sac_and_fleet_calls_take_the_kernel(cuda_device):

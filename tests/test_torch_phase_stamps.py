@@ -2,26 +2,29 @@
 
 * ``stamp`` is a no-op outside a stamped capture, and on the CPU, where
   no capture runs; inside one (the capture faked) it hands each phase to
-  the active ring in order: ``adamw_update`` opens ``adamw`` and returns
-  to ``update`` (its foreach and its vmapped route), and a device-replay
-  superstep stamps the add, the update, each AdamW call and the refresh
+  the active ring in order: ``adamw_update`` opens ``adamw`` and
+  ``ema_update`` opens ``target``, each returning to ``update`` (solo and
+  vmapped), and a device-replay superstep stamps the add, the update,
+  each AdamW call, the target critics' EMA (and OFENet's) and the refresh
   in that order.
 * ``Experiment.trace_phases`` / ``Fleet.trace_phases`` drop a graph
   captured without stamps; ``obs.trace = N`` stamps from the
   start; a CPU run with ``trace_phases()`` called is bitwise the run
   without, and ``phases`` reads None there.
 * ``phase_table`` on synthetic rings: the phases partition the
-  superstep, a phase's intervals are summed, the ring wraps, a fleet's
+  superstep, a phase's intervals are summed, ``update`` includes the
+  ``target`` intervals that are also reported alone, the ring wraps, a fleet's
   int64 counter picks its rows, ``lead_ms`` follows from a given clock
   offset, and rows not stamped in order are refused.
 * The checkpoint spans: a save opens ``repro.ckpt.save`` once, and no
   duplicate span around it.
 * On a CUDA card (skipped without one): stamps on and off leave a
-  device-replay run, a host-replay run and a 2-member fleet bitwise equal
-  over 20 supersteps; a graph captured without stamps after one with them
-  has the kernels of one captured before, and the stamped graph exactly
-  its stamps more; ``phases`` reads positive phases that sum to the wall
-  time a replay, from a ring of two of the longest chunks' rows.
+  device-replay run, a host-replay run, a run with OFENet and a 2-member
+  fleet bitwise equal over 20 supersteps; a graph captured without stamps
+  after one with them has the kernels of one captured before, and the
+  stamped graph exactly its stamps more; ``phases`` reads positive phases
+  that sum to the wall time a replay, ``target`` a part of ``update``,
+  from a ring of two of the longest chunks' rows.
 """
 import time
 
@@ -29,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.common import ema_update
 from repro_torch.obs import trace
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.rl import Fleet
@@ -42,10 +46,19 @@ _SMALL = dict(num_units=16, num_layers=1, use_ofenet=False, n_core=1,
 
 # a device-replay SAC superstep without OFENet, as StepGraph captures it
 _DEVICE = ("collect", "replay", "update", "adamw", "update", "adamw",
-           "update", "adamw", "update", "replay", "copyback", "gap")
+           "update", "adamw", "update", "target", "update", "replay",
+           "copyback", "gap")
 # a host-replay superstep: segment A, then B
 _HOST = ("collect", "gap", "update", "adamw", "update", "adamw", "update",
-         "adamw", "update", "copyback", "gap")
+         "adamw", "update", "target", "update", "copyback", "gap")
+# a device-replay superstep with OFENet: its aux step's AdamW and target
+# first
+_OFENET = ("collect", "replay", "update", "adamw", "update", "target",
+           "update", "adamw", "update", "adamw", "update", "adamw",
+           "update", "target", "update", "replay", "copyback", "gap")
+
+
+_OFE = dict(use_ofenet=True, ofenet_units=8, ofenet_layers=2)
 
 
 def _small(**overrides):
@@ -131,6 +144,23 @@ def test_adamw_update_is_the_adamw_phase_inside_update(capturing, members):
     assert ring.schedule == ["adamw", "update"]
 
 
+@pytest.mark.parametrize("members", [0, 3])
+def test_ema_update_is_the_target_phase_inside_update(capturing, members):
+    gen = torch.Generator().manual_seed(0)
+    lead = (members,) if members else ()
+    target = {"w": torch.randn(lead + (4, 3), generator=gen)}
+    online = {"w": torch.randn(lead + (4, 3), generator=gen)}
+    ring = _Ring()
+    with trace.stamping(ring):
+        if members:
+            got = torch.func.vmap(lambda t, o: ema_update(t, o, 0.005))(
+                target, online)
+        else:
+            got = ema_update(target, online, 0.005)
+    assert ring.schedule == ["target", "update"]
+    assert torch.equal(got["w"], 0.995 * target["w"] + 0.005 * online["w"])
+
+
 def test_a_superstep_stamps_its_phases_in_order(capturing):
     tr = Trainer(_small(), "cpu")
     ls = tr.init()
@@ -139,6 +169,16 @@ def test_a_superstep_stamps_its_phases_in_order(capturing):
         tr.step(ls)
     # StepGraph adds the first ("collect") and the last two around it
     assert ring.schedule == list(_DEVICE[1:-2])
+
+
+def test_an_ofenet_superstep_stamps_both_targets_in_order(capturing):
+    tr = Trainer(_small(**_OFE), "cpu")
+    ls = tr.init()
+    ring = _Ring()
+    with trace.stamping(ring):
+        tr.step(ls)
+    assert ring.schedule == list(_OFENET[1:-2])
+    assert ring.schedule.count("target") == 2
 
 
 # ---------------------------------------------------- trace_phases, phases
@@ -211,15 +251,17 @@ def _rows(schedule, widths_ns, n, period_ns, start_ns=10**12):
 
 def test_the_phases_partition_the_superstep():
     widths = [200_000, 30_000, 900_000, 150_000, 700_000, 160_000,
-              800_000, 10_000, 300_000, 40_000, 190_000, 0]
+              800_000, 10_000, 300_000, 120_000, 60_000, 40_000, 190_000, 0]
     period = 5_000_000
     got = trace.phase_table(_rows(_DEVICE, widths, 8, period), _DEVICE)
     ms = lambda *k: sum(widths[i] for i in k) / 1e6
     assert got["collect"] == pytest.approx(ms(0))
-    assert got["replay"] == pytest.approx(ms(1, 9))        # two intervals
-    assert got["update"] == pytest.approx(ms(2, 4, 6, 8))
+    assert got["replay"] == pytest.approx(ms(1, 11))       # two intervals
+    # the target's EMA inside the update: reported alone and in update
+    assert got["update"] == pytest.approx(ms(2, 4, 6, 8, 9, 10))
+    assert got["target"] == pytest.approx(ms(9))
     assert got["adamw"] == pytest.approx(ms(3, 5, 7))
-    assert got["copyback"] == pytest.approx(ms(10))
+    assert got["copyback"] == pytest.approx(ms(12))
     assert got["step_gap"] == pytest.approx(
         (period - sum(widths[:-1])) / 1e6)
     phases = [got[k] for k in ("collect", "replay", "update", "adamw",
@@ -230,7 +272,7 @@ def test_the_phases_partition_the_superstep():
 
 def test_the_host_replays_gap_between_its_graphs_is_step_gap():
     widths = [250_000, 1_500_000, 800_000, 100_000, 900_000, 100_000,
-              950_000, 10_000, 300_000, 200_000, 0]
+              950_000, 10_000, 300_000, 80_000, 20_000, 200_000, 0]
     period = 7_000_000
     got = trace.phase_table(_rows(_HOST, widths, 5, period), _HOST)
     assert got["collect"] == pytest.approx(0.25)
@@ -238,6 +280,31 @@ def test_the_host_replays_gap_between_its_graphs_is_step_gap():
     assert got["copyback"] == pytest.approx(0.2)
     assert got["step_gap"] == pytest.approx(
         (1_500_000 + period - sum(widths[:-1])) / 1e6)
+    assert got["target"] == pytest.approx(0.08)
+
+
+def test_update_includes_the_target_intervals_reported_alone():
+    """OFENet's and the critics' EMA: two ``target`` intervals a row, each
+    inside ``update``; a schedule without one reads ``target`` 0."""
+    widths = [100_000, 20_000, 400_000, 50_000, 30_000, 7_000, 60_000,
+              50_000, 500_000, 50_000, 600_000, 10_000, 70_000, 90_000,
+              40_000, 20_000, 150_000, 0]
+    period = 4_000_000
+    rows = _rows(_OFENET, widths, 6, period)
+    ring = np.zeros((512, len(_OFENET)), np.int64)
+    now = 512 + 2                             # wrapped: rows 508 .. 1
+    ring[(now - 6 + np.arange(6)) % 512] = rows
+    got = trace.phase_table(trace.ring_rows(ring, now, 6), _OFENET)
+    ms = lambda *k: sum(widths[i] for i in k) / 1e6
+    assert got["target"] == pytest.approx(ms(5, 13))
+    assert got["update"] == pytest.approx(ms(2, 4, 5, 6, 8, 10, 12, 13, 14))
+    assert got["update"] > got["target"] > 0
+    parts = [got[k] for k in ("collect", "replay", "update", "adamw",
+                              "copyback", "step_gap")]
+    assert sum(parts) == pytest.approx(period / 1e6)
+    assert trace.phase_table(_rows(_HOST[:9] + _HOST[11:], widths[:11], 3,
+                                   period), _HOST[:9] + _HOST[11:])[
+        "target"] == 0.0
 
 
 def test_the_step_gap_varies_row_to_row():
@@ -365,6 +432,20 @@ def test_cuda_stamps_leave_training_bitwise_and_add_only_their_kernels(
     assert after.trainer.graph.stamps is None
 
 
+def test_cuda_stamps_leave_an_ofenet_run_bitwise(cuda_device):
+    spec = _small(**_OFE, **_CARD)
+    plain = Experiment.from_spec(spec, device=cuda_device)
+    stamped = Experiment.from_spec(spec, device=cuda_device)
+    stamped.trace_phases()
+    plain.run(20)
+    stamped.run(20)
+    assert _same_run(plain._ls, stamped._ls)
+    assert plain.returns == stamped.returns
+    assert stamped.trainer.graph.stamps.schedule == list(_OFENET)
+    got = stamped.phases(16)
+    assert got["update"] > got["target"] > 0
+
+
 @pytest.mark.parametrize("backend", ["device", "host"])
 def test_cuda_phases_sum_to_the_wall_time_a_replay(cuda_device, backend):
     exp = Experiment.from_spec(_small(replay_backend=backend, **_CARD),
@@ -380,12 +461,13 @@ def test_cuda_phases_sum_to_the_wall_time_a_replay(cuda_device, backend):
     wall_ms = 1e3 * (time.perf_counter() - t0) / n
     got = exp.phases(n)
     assert got["supersteps"] == n and len(got["lead_ms"]) == n
-    names = ["collect", "update", "adamw", "copyback", "step_gap"] + \
-        (["replay"] if backend == "device" else [])
+    names = ["collect", "update", "adamw", "target", "copyback",
+             "step_gap"] + (["replay"] if backend == "device" else [])
     assert all(got[k] > 0 for k in names), got
     total = sum(got[k] for k in ("collect", "replay", "update", "adamw",
                                  "copyback", "step_gap"))
     assert total == pytest.approx(wall_ms, rel=0.1)
+    assert got["update"] > got["target"]        # a part of it
     # each superstep begins on the card after the host launched it
     assert min(got["lead_ms"]) > -got["clock_uncertainty_ms"]
     # past the ring's end it wraps; asked for more, it reads all it holds
@@ -407,5 +489,8 @@ def test_cuda_fleet_stamps_leave_training_bitwise(cuda_device):
     got = stamped.phases(16)
     assert got["supersteps"] == 16
     assert all(got[k] > 0 for k in ("collect", "replay", "update",
-                                    "adamw", "copyback", "step_gap"))
+                                    "adamw", "target", "copyback",
+                                    "step_gap"))
+    assert got["update"] > got["target"]
+    assert stamped.graph.stamps.schedule == list(_DEVICE)
     assert plain.phases(16) is None
