@@ -392,8 +392,9 @@ def phase_parity(gen):
         shapes += [("phi_s", m, 3, 64, 4), ("actor", m, 259, 2048, 2)]
     shapes += [("critic", m, 516, 2048, 2) for m in SLOTS]
     shapes += list(RAGGED_RT)
-    # fig3-width's stacks at U=2048 (mlp and d2rl: the register tile over
-    # h^T, layer 0's K = 3 and 4, the pendulum's observation and action)
+    # fig3-width's stacks at U=2048 (mlp and d2rl: the tensor-core tile
+    # over row-major h, layer 0's K = 3 and 4, the pendulum's observation
+    # and action)
     shapes += [("fig3_actor", 256, 3, 2048, 2), ("fig3_critic", 256, 4,
                                                  2048, 2)]
     # the OFENet stacks past 32 rows (the whole-stack kernel for densenet)
@@ -1013,11 +1014,11 @@ HIDDEN_NETS = (("fig3_actor", "mlp", 3), ("fig3_critic", "mlp", 4),
 
 
 def time_hidden(name, conn, d0, gen, m=256, u=2048, L=2):
-    """One mlp or d2rl stack forward (swish) at M rows: the register tile
-    over h^T (``plan_fwd``'s), the path before it (``dense_tile.cuh``,
-    ``mlp_rt=False``), the plain version and the library yardstick
-    (``addmm`` + ``silu`` a layer), each cycling its weights through
-    copies larger than the 50 MB L2, beside the bound."""
+    """One mlp or d2rl stack forward (swish) at M rows: the tensor-core
+    tile (``plan_fwd``'s), the path before the register tile
+    (``dense_tile.cuh``, ``mlp_rt=False``), the plain version and the
+    library yardstick (``addmm`` + ``silu`` a layer), each cycling its
+    weights through copies larger than the 50 MB L2, beside the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.dense_block import stack
@@ -1042,10 +1043,10 @@ def time_hidden(name, conn, d0, gen, m=256, u=2048, L=2):
             inp = torch.cat([h, x], 1) if conn == "d2rl" and i else h
             h = F.silu(torch.addmm(b, inp, w))
         return h
-    before = stack.launch_count("rt")
+    before = stack.launch_count("tc")
     got = kernel(copies[0])
-    if stack.launch_count("rt") - before != L:
-        raise AssertionError(f"{name}: not on the register tile")
+    if stack.launch_count("tc") - before != L:
+        raise AssertionError(f"{name}: not on the tensor-core tile")
     _, err = close_enough(got, plain(copies[0]))
     _, err_old = close_enough(old(copies[0]), plain(copies[0]))
     t_o, _ = time_ms(old, copies)
@@ -1060,8 +1061,8 @@ def time_hidden(name, conn, d0, gen, m=256, u=2048, L=2):
     r = dict(ms=min(t_k, t_k2), old_tile_ms=min(t_o, t_o2), plain_ms=t_p,
              library_ms=t_l, bound_ms=bound_ms, bound_by=bound_by,
              max_abs_err=err, host_ms=h_k)
-    log(f"[time] {name} ({conn}) stack M={m} d0={d0} U={u} L={L}: register "
-        f"tile {r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
+    log(f"[time] {name} ({conn}) stack M={m} d0={d0} U={u} L={L}: "
+        f"tensor-core tile {r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
         f"{t_k2 * 1e3:.1f}), the old path (dense_tile.cuh) "
         f"{r['old_tile_ms'] * 1e3:8.1f} us (runs {t_o * 1e3:.1f}/"
         f"{t_o2 * 1e3:.1f}; new / old x{r['ms'] / r['old_tile_ms']:.3f}), "
@@ -1071,6 +1072,107 @@ def time_hidden(name, conn, d0, gen, m=256, u=2048, L=2):
         f"{100 * bound_ms / r['ms']:.0f}% of bound; max abs err {err:.2e} "
         f"(old {err_old:.2e})")
     return r
+
+
+# the benchmark cells' wide stacks at the batch (name, connectivity, E,
+# d0, L): fig3's U=2048 critic solo and as a 5-seed fleet (fleet5), Fig.
+# 4's L=16 fleet (x16), the densenet actor and critic (graph)
+TC_NETS = (("fig3_critic", "mlp", None, 4, 2), ("fig3_critic", "mlp", 5, 4, 2),
+           ("x16_critic", "mlp", 5, 4, 16), ("actor", "densenet", None, 259, 2),
+           ("critic", "densenet", None, 260, 2))
+
+
+def time_tc(name, conn, e, d0, L, gen, m=256, u=2048):
+    """One stack forward (swish) at M rows, solo or E members in one
+    launch: the tensor-core tile (``plan_fwd``'s), the register tile
+    (``tc=False``), the plain version (its members twin for E), the
+    library yardstick the port never calls (``addmm`` + ``silu`` a layer;
+    ``baddbmm`` + ``silu`` for E), each cycling its weights through
+    copies larger than the 50 MB L2, beside the bound: the fp32
+    operations at the 3xTF32 ceiling (3 TF32 products each at 495
+    TFLOP/s: 165 TFLOP/s of fp32 work), and what ``stack_fwd_roofline``
+    divides by (one product at 495). Launches by path a call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.dense_block import stack
+    lead = () if e is None else (e,)
+    x = torch.randn((*lead, m, d0), generator=gen, device="cuda")
+    ws0, bs0 = [], []
+    for i in range(L):
+        k = stack.in_dim(conn, i, d0, u)
+        ws0.append(torch.randn((*lead, k, u), generator=gen, device="cuda")
+                   / math.sqrt(k))
+        bs0.append(0.1 * torch.randn((*lead, u), generator=gen,
+                                     device="cuda"))
+    wbytes = 4 * sum(w.numel() + b.numel() for w, b in zip(ws0, bs0))
+    copies = [([w.clone() for w in ws0], [b.clone() for b in bs0])
+              for _ in range(max(2, math.ceil(120e6 / wbytes)))]
+
+    def kernel(c):
+        return stack._kernel_forward(x, c[0], c[1], conn, "swish")
+
+    def simt(c):
+        return stack._kernel_forward(x, c[0], c[1], conn, "swish", tc=False)
+
+    def plain(c):
+        if e is None:
+            return stack.dense_stack_ref(x, c[0], c[1], connectivity=conn)
+        return stack.dense_stack_members_ref(x, c[0], c[1],
+                                             connectivity=conn)
+
+    def library(c):
+        h = stream = x
+        for i, (w, b) in enumerate(zip(*c)):
+            inp = stream if conn == "densenet" else h
+            z = torch.addmm(b, inp, w) if e is None else \
+                torch.baddbmm(b.unsqueeze(1), inp, w)
+            h = F.silu(z)
+            if conn == "densenet":
+                stream = torch.cat([stream, h], -1)
+        return stream if conn == "densenet" else h
+    before = {k: stack.launch_count(k) for k in stack.FWD_KERNELS}
+    t_before = stack.transpose_count()
+    got = kernel(copies[0])
+    ran = {k: stack.launch_count(k) - before[k] for k in stack.FWD_KERNELS
+           if stack.launch_count(k) - before[k]}
+    ran["transpose"] = stack.transpose_count() - t_before
+    if ran.get("tc") != L:
+        raise AssertionError(f"{name}: launches {ran}, want {L} on the "
+                             f"tensor-core tile")
+    _, err = close_enough(got, plain(copies[0]))
+    _, err_simt = close_enough(simt(copies[0]), plain(copies[0]))
+    t_k, h_k = time_ms(kernel, copies)
+    t_s, _ = time_ms(simt, copies)
+    t_p, _ = time_ms(plain, copies, reps=4, repeats=3)
+    t_l, _ = time_ms(library, copies)
+    t_k2, _ = time_ms(kernel, copies)
+    t_s2, _ = time_ms(simt, copies)
+    flops = 2 * m * (e or 1) * sum(w.shape[-2] * w.shape[-1] for w in ws0)
+    bound_3x = 3 * flops / 495e12 * 1e3
+    bound_1x = flops / 495e12 * 1e3
+    r = dict(ms=min(t_k, t_k2), simt_ms=min(t_s, t_s2), plain_ms=t_p,
+             library_ms=t_l, bound_ms=bound_3x, bound_by="operations",
+             roofline_1x_ms=bound_1x, max_abs_err=err,
+             max_abs_err_simt=err_simt, host_ms=h_k, launches=ran)
+    log(f"[time-tc] {name} ({conn}, E={e or 1}) M={m} d0={d0} U={u} L={L}: "
+        f"tensor-core tile {r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
+        f"{t_k2 * 1e3:.1f}; {flops / r['ms'] / 1e9:.1f} TFLOP/s of fp32 "
+        f"work), register tile {r['simt_ms'] * 1e3:8.1f} us (runs "
+        f"{t_s * 1e3:.1f}/{t_s2 * 1e3:.1f}; x{r['simt_ms'] / r['ms']:.2f}), "
+        f"plain {t_p * 1e3:8.1f} us, library {t_l * 1e3:8.1f} us "
+        f"({'faster' if r['ms'] <= t_l else 'SLOWER'} than it), bound "
+        f"{bound_3x * 1e3:6.1f} us (3xTF32: {flops / 1e9:.2f} GFLOP x 3 at "
+        f"495 TFLOP/s; {100 * bound_3x / r['ms']:.0f}% of it; one product "
+        f"at 495: {100 * bound_1x / r['ms']:.1f}%), max abs err "
+        f"{err:.2e} (register tile {err_simt:.2e}); launches a call {ran}")
+    return r
+
+
+def phase_tc_times(gen):
+    """The tensor-core tile at the benchmark cells' stacks (``TC_NETS``).
+    Keys ``(name, E)``."""
+    return {(name, e or 1): time_tc(name, conn, e, d0, L, gen)
+            for name, conn, e, d0, L in TC_NETS}
 
 
 def phase_times(params, gen):
@@ -1121,10 +1223,12 @@ def expected_launches(tr):
 
     ``fwd_<kernel>`` counts launches by the kernel ``plan_fwd`` gives each
     call: one a layer, but one a stack on the whole-stack kernel (phi_s
-    and phi_sa at the batch); the actor and the critics take the register
-    tile at 256 rows (densenet, mlp and d2rl alike at U >= 128), every
-    stack the streaming kernel at 32; ``fwd_t`` counts the register
-    tile's transposed inits, one per wide stack call. ``bwd_whole``: the
+    and phi_sa at the batch); the actor and the critics take the
+    tensor-core tile at 256 rows (densenet, mlp and d2rl alike at U >= 128,
+    U a multiple of 4; the register tile otherwise), every stack the
+    streaming kernel at 32; ``fwd_t`` counts the register tile's
+    transposed inits, one per stack call on it (none on the tensor-core
+    tile). ``bwd_whole``: the
     backwards of the narrow densenet stacks, each ONE launch of the
     whole-stack backward kernel (SAC and TD3: phi_sa twice, phi_s once).
     Tree: one sample, two writes (the add, the priority refresh); none
@@ -1430,7 +1534,8 @@ def bwd_product_class(key):
 
 def fwd_class(key):
     """The forward kernel class of a profiler kernel name, or None:
-    'wide' (the register tile over stream^T), 'whole' (the whole-stack
+    'tc' (the tensor-core tile, ``dense_tile_tc.cuh``), 'wide' (the
+    register tile over stream^T), 'whole' (the whole-stack
     kernel), 'narrow' (dense_tile.cuh's forward: its layout template
     arguments are (false, false)), 'stream' (the weight-streaming kernel)
     or 'transpose' (the transposed init: densenet's the copying case of
@@ -1444,6 +1549,8 @@ def fwd_class(key):
         return "whole"
     if "stream_kernel<" in key:
         return "stream"
+    if "fwd_tc_kernel" in key:
+        return "tc"
     if "fwd_tile_kernel" in key:
         return "wide"
     tile = _template_args(key, "tile_kernel")
@@ -1491,8 +1598,8 @@ def phase_train_profile(exp, steps=10):
         log("[train-prof] the profiler saw no device time: busy share not "
             "measured")
     classes = {c: [0.0, 0.0] for c in ("dW", "dx", "act_grad", "whole")}
-    fwd = {c: [0.0, 0.0] for c in ("wide", "whole", "narrow", "stream",
-                                   "transpose")}
+    fwd = {c: [0.0, 0.0] for c in ("tc", "wide", "whole", "narrow",
+                                   "stream", "transpose")}
     fills = 0.0
     tree = {"sample": [0.0, 0.0], "set": [0.0, 0.0]}
     for e in events:
@@ -5118,6 +5225,7 @@ def main() -> int:
     micro_launches = phase_micro()
 
     rows = phase_times(pol.params, gen)
+    tc_rows = phase_tc_times(gen)
     bwd = phase_bwd_times(gen, profile_classes)
     tree = phase_tree_times(gen)
     new = phase_new_times(gen)
@@ -5158,6 +5266,8 @@ def main() -> int:
         by_shape={f"{name} M={m}": {k: v[k] for k in (*keys, "old_tile_ms")
                                      if k in v}
                   for (name, m), v in rows.items()},
+        tensor_core_tile={f"{name} E={e}": v
+                          for (name, e), v in tc_rows.items()},
         profile_ms=dict(profile_classes[2]))
     print(json.dumps({"kernels": [
         fwd_rec,

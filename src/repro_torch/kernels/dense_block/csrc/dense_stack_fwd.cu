@@ -20,9 +20,9 @@
 //
 // Each launch computes out[:, slot] = act(A @ W + b) in fp32, and, when
 // autograd will need it, stores the pre-activation z into the backward's
-// (M, L*U) side buffer (`zout`), so the backward recomputes nothing. Four
-// kernels, by the rows M and the width U of the call (stack.py's plan_fwd
-// picks):
+// (M, L*U) side buffer (`zout`), so the backward recomputes nothing. Five
+// kernels, by the rows M, the width U and the fleet members of the call
+// (stack.py's plan_fwd picks):
 //
 //   M <= 32 (serving slots, the actor pool's collect): stream_kernel. Each
 //     weight meets at most 32 rows, <= 16 FLOP per byte against the card's
@@ -37,8 +37,24 @@
 //     Warps split each stage's rows (and, past 8 rows of M, the rows of
 //     M); their sums meet in shared memory in fixed order. A K split
 //     sums in the strip's last block, 16 float4 loads a thread in flight.
-//   M >= 128 with U >= 128 (the actor and critic stacks at the batch of
-//     256, every connectivity): the register tile of dense_tile_rt.cuh
+//   M >= 128 with U >= 128, U a multiple of 4 (the actor and critic stacks
+//     at the batch of 256, every connectivity): the tensor-core tile of
+//     dense_tile_tc.cuh, 3xTF32 on wgmma, which replaces the register tile
+//     below on this path (its source note). It reads each layer's input
+//     row-major through TMA: densenet's padded copy of the stream, mlp's
+//     and d2rl's ping-pong buffers, so no transposed copy and no init
+//     launch. What bounds it: 3xTF32 operations, 165 TFLOP/s of fp32
+//     work (495 / 3); the SIMT tile's ceiling is the 67 TFLOP/s fp32 peak.
+//     The crossover (launch/bwd_sweep.py --only fwd, M = 256): it beats
+//     the register tile at every layer past a thin first one from U =
+//     256 up, solo and at 5 members; the thin first layer (K = 4) and U =
+//     128 at K = 128 keep a fixed cost a block that the register tile
+//     does not have. A stack keeps one tile; plan_fwd's docstring keeps
+//     the numbers.
+//   M >= 128 with U >= 128 where the tensor-core tile does not take the
+//     layer (U not a multiple of 4: TMA's rows are 16 bytes; or
+//     stack.py's _kernel_forward(..., tc=False)): the register tile of
+//     dense_tile_rt.cuh
 //     (128x64 tiles, 8x4 outputs a thread, 16 FMAs per shared load, a
 //     cp.async ring). It computes A^T @ B with both operands stored along
 //     K, and W already is; the layer's input is not, so the wrapper keeps
@@ -98,8 +114,8 @@
 // wrapper's counters (one zeroed buffer per device and stream) need no
 // fill per launch. Plain
 // TF32 or bf16 through the tensor cores would miss the 1e-4 agreement with
-// the fp32 reference; split-precision TF32 (3xTF32, fused_dense.cu) would
-// not, and is the route past this SIMT design (ROADMAP.md B).
+// the fp32 reference; split-precision TF32 (3xTF32) does not: the
+// tensor-core tile.
 //
 // A fleet's E members (rl/sweep.py: a vmapped superstep) run each of these
 // kernels in ONE launch: the `_members` entry points take the solo
@@ -114,6 +130,7 @@
 
 #include "dense_tile.cuh"
 #include "dense_tile_rt.cuh"
+#include "dense_tile_tc.cuh"
 
 namespace {
 
@@ -978,6 +995,53 @@ extern "C" int dense_layer_fwd_rt_members(
                       yt, ldt, ws, counters, m, n, k, act, splits,
                       chunks_per_split, members, {sat, sw, 0, 0},
                       {sb, sz, sy, syt}, stream);
+}
+
+// The tensor-core tile (config 7, dense_tile_tc.cuh: 128 rows x 128
+// features a block, 3xTF32 on wgmma): y and y2 (rows m, n columns; either
+// may be null) = act(z), z = a[:, k_off:k_off + k] @ w + b into zout or
+// null. a: rows of lda floats, a_cols = k_off + k columns read (TMA: a
+// 16-byte aligned, lda a multiple of 4); w (k, n), rows of ldw (aligned
+// the same way, n a multiple of 4). ws: (splits, tiles, 128 * 128);
+// counters: one per tile.
+extern "C" int dense_layer_fwd_tc(const float* a, long long lda, int a_cols,
+                                  int k_off, const float* w, long long ldw,
+                                  const float* b, float* y, long long ldy,
+                                  float* zout, long long ldz, float* y2,
+                                  long long ldy2, float* ws, int* counters,
+                                  int m, int n, int k, int act, int splits,
+                                  int chunks_per_split, void* stream) {
+  const dense_tile_tc::Args p{b, zout, ldz, y, ldy, y2, ldy2, ws, counters,
+                              m, n, k, k_off, act, splits, chunks_per_split,
+                              0,
+                              zout != nullptr && aligned16(zout, ldz),
+                              y != nullptr && aligned16(y, ldy),
+                              y2 != nullptr && aligned16(y2, ldy2)};
+  return dense_tile_tc::launch(a, lda, a_cols, w, ldw, p, 0, 0, 0, {},
+                               static_cast<cudaStream_t>(stream));
+}
+
+// dense_layer_fwd_tc for `members` members in one launch; sa .. sy2: the
+// member strides of a, w (0: shared), b, y, zout, y2 (a's and w's
+// multiples of 4). ws: (members, splits, tiles, 128 * 128); counters:
+// members x tiles.
+extern "C" int dense_layer_fwd_tc_members(
+    const float* a, long long lda, int a_cols, int k_off, const float* w,
+    long long ldw, const float* b, float* y, long long ldy, float* zout,
+    long long ldz, float* y2, long long ldy2, float* ws, int* counters,
+    int m, int n, int k, int act, int splits, int chunks_per_split,
+    int members, long long sa, long long sw, long long sb, long long sy,
+    long long sz, long long sy2, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dense_tile_tc::Args p{
+      b, zout, ldz, y, ldy, y2, ldy2, ws, counters, m, n, k, k_off, act,
+      splits, chunks_per_split, 0,
+      zout != nullptr && member_aligned(zout, ldz, sz),
+      y != nullptr && member_aligned(y, ldy, sy),
+      y2 != nullptr && member_aligned(y2, ldy2, sy2)};
+  return dense_tile_tc::launch(a, lda, a_cols, w, ldw, p, members, sa, sw,
+                               {sb, sz, sy, sy2},
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The weight-streaming kernel (config 5), m <= 32: out[:, :n] = act([a1 |

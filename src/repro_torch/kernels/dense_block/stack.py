@@ -14,10 +14,13 @@ the last hidden layer for mlp and d2rl.
   (``whole_smem``); otherwise, up to 32 rows (serving slots) the
   weight-streaming kernel, once per layer; from 128 rows, where U is too
   (the actor and critic stacks in training, every connectivity), the
-  register tile of ``csrc/dense_tile_rt.cuh`` over a transposed copy of
-  the layer's input, which one ``dense_fwd_stream_init`` launch per call
-  starts (x^T) and every layer's epilogue extends (densenet's stream^T;
-  mlp's and d2rl's ping-pong buffers of h^T, ``_rt_hidden``); otherwise
+  tensor-core tile of ``csrc/dense_tile_tc.cuh`` (3xTF32 on wgmma) over
+  the layer's input row-major, rows padded to 4 floats (``_tc_stack``),
+  or, where U is not a multiple of 4, the register tile of
+  ``csrc/dense_tile_rt.cuh`` over a transposed copy of the layer's input,
+  which one ``dense_fwd_stream_init`` launch per call starts (x^T) and
+  every layer's epilogue extends (densenet's stream^T; mlp's and d2rl's
+  ping-pong buffers of h^T, ``_rt_hidden``); otherwise
   ``csrc/dense_tile.cuh``, once per layer.
   When autograd will differentiate the call, the forward also keeps every
   layer's pre-activation in an ``(M, L*U)`` side buffer, and the backward
@@ -43,8 +46,10 @@ the last hidden layer for mlp and d2rl.
   ``dense_stack_members`` and ``dense_stack_members_grads`` launch every
   kernel once for all members on a CUDA tensor (a member axis,
   ``gridDim.z``, each operand at its member stride, 0 for an operand the
-  members share, never copied E times), planned as one solo member, so a
-  member is bitwise its solo launches; on a CPU tensor the members twins
+  members share, never copied E times), planned for the E members (the
+  tensor-core tile splits K to fill the card with E x tiles blocks), so
+  a member is bitwise its solo launches of the same plan; on a CPU tensor
+  the members twins
   (``dense_stack_members_ref``, ``dense_stack_members_grads_ref``) loop the
   solo plain version, bitwise a loop of solo calls. The backward computes
   only the gradients the transform asks for (a constant weight's dW is
@@ -93,6 +98,7 @@ SOURCE = _CSRC / "dense_stack_fwd.cu"
 BWD_SOURCE = _CSRC / "dense_stack_bwd.cu"
 HEADER = _CSRC / "dense_tile.cuh"
 RT_HEADER = _CSRC / "dense_tile_rt.cuh"
+TC_HEADER = _CSRC / "dense_tile_tc.cuh"
 # (BM, BN, BK) per kernel config id — must match dense_layer_fwd's switch
 _CONFIGS = ((16, 64, 32), (32, 64, 32), (64, 64, 16))
 # split K until the grid holds about this many blocks per SM
@@ -125,6 +131,14 @@ _RT_SPLIT_CHUNKS = 6.7
 # lost at each), and at least this many BK chunks a split
 _RT_FWD_CONFIG = 4
 _RT_FWD_MIN_CHUNKS = 16
+# the forward's tensor-core tile (dense_tile_tc.cuh, 3xTF32 on wgmma): its
+# config id, its (rows, features, K a stage) tile, the fewest K chunks a
+# split takes, and what a split costs in chunks of one block's work (its
+# partial tile written and read back by the tile's last block)
+_TC_CONFIG = 7
+_TC_TILE = (128, 128, 32)
+_TC_MIN_CHUNKS = 4
+_TC_SPLIT_CHUNKS = 2
 # act_grad_kernel's row blocks: rows of per-block column sums for db
 _ACT_ROW_BLOCKS = 8
 # the forward's weight-streaming kernel (dense_stack_fwd.cu stream_kernel):
@@ -165,7 +179,7 @@ _WHOLE_BWD_TASK_STAGES = 4
 # ... and its counters, a 128-byte line apart (whole::counters_of)
 _WHOLE_BWD_LINE = 32
 # forward kernels by the name their launch counts go under
-FWD_KERNELS = ("stream", "rt", "tile", "whole")
+FWD_KERNELS = ("stream", "rt", "tile", "whole", "tc")
 # backward kernels by the name their launch counts go under: the per-layer
 # kernels (one count a stack backward) and the whole-stack kernel
 BWD_KERNELS = ("layers", "whole")
@@ -181,8 +195,9 @@ def launch_count(kernel: Optional[str] = None) -> int:
     every forward kernel (one per layer of every stack forward that ran on
     the card, or one per stack on the whole-stack kernel), or of one of
     ``FWD_KERNELS``: ``"stream"`` (the weight-streaming kernel, M <= 32),
-    ``"rt"`` (the register tile), ``"tile"`` (``dense_tile.cuh``) or
-    ``"whole"`` (the whole narrow densenet stack in one launch)."""
+    ``"rt"`` (the register tile), ``"tile"`` (``dense_tile.cuh``),
+    ``"whole"`` (the whole narrow densenet stack in one launch) or ``"tc"``
+    (the tensor-core tile)."""
     if kernel is None:
         return sum(_launches.values())
     return _launches[kernel]
@@ -195,6 +210,8 @@ def fwd_kernel_of(config: int) -> str:
         return "stream"
     if config == _WHOLE_CONFIG:
         return "whole"
+    if config == _TC_CONFIG:
+        return "tc"
     return "rt" if config in _RT_CONFIGS else "tile"
 
 
@@ -359,7 +376,8 @@ def dense_stack_members_grads_ref(x: torch.Tensor,
 
 def _library() -> ctypes.CDLL:
     from repro_torch.kernels import load_library
-    lib = load_library("dense_stack_fwd", [SOURCE], [HEADER, RT_HEADER])
+    lib = load_library("dense_stack_fwd", [SOURCE],
+                       [HEADER, RT_HEADER, TC_HEADER])
     if lib.dense_layer_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dense_layer_fwd.argtypes = [i, p, ll, i, p, ll, i, p, p, p, ll,
@@ -374,13 +392,17 @@ def _library() -> ctypes.CDLL:
                                               p]
         lib.dense_stack_fwd_whole.argtypes = [i, i, p, ll, i, p, p, i, i, p,
                                               ll, p, ll, i, i, p]
+        lib.dense_layer_fwd_tc.argtypes = [p, ll, i, i, p, ll, p, p, ll, p,
+                                           ll, p, ll, p, p, i, i, i, i, i, i,
+                                           p]
         # the member entries: the solo arguments, the member count and
         # each operand's member stride (the whole stack's w and b as
         # arrays of one a layer), then the stream
         strides = {"dense_layer_fwd": [ll] * 6, "dense_layer_fwd_rt":
                    [ll] * 6, "dense_layer_fwd_stream": [ll] * 7,
                    "dense_fwd_stream_init": [ll] * 3,
-                   "dense_stack_fwd_whole": [ll, p, p, ll, ll]}
+                   "dense_stack_fwd_whole": [ll, p, p, ll, ll],
+                   "dense_layer_fwd_tc": [ll] * 6}
         for name, types in strides.items():
             solo, members = getattr(lib, name), getattr(lib, name + "_members")
             members.argtypes = solo.argtypes[:-1] + [i] + types + [p]
@@ -570,12 +592,12 @@ def whole_bwd_blocks(m: int, d0: int, u: int, n_layers: int,
 
 def plan_fwd(m: int, n: int, k: int, num_sms: int,
              transposed: bool = True,
-             stack: Optional[Tuple[int, int]] = None
-             ) -> Tuple[int, int, int, int]:
+             stack: Optional[Tuple[int, int]] = None, members: int = 1,
+             tc: bool = True) -> Tuple[int, int, int, int]:
     """``(config, tiles, splits, per_split)`` of one forward layer with an
-    ``(m, n)`` output and a reduction of length ``k``; ``stack`` is the
-    layer's densenet stack ``(d0, layers)`` where the caller can run it
-    whole:
+    ``(m, n)`` output and a reduction of length ``k``, for ``members``
+    fleet members in one launch; ``stack`` is the layer's densenet stack
+    ``(d0, layers)`` where the caller can run it whole:
 
     * a narrow densenet stack (U < ``_RT_MIN``; ``stack`` given, with
       ``transposed``) whose ``whole_smem`` fits, at any M: the whole-stack
@@ -592,18 +614,41 @@ def plan_fwd(m: int, n: int, k: int, num_sms: int,
       it waits for a whole block's time), in parts of at least
       ``_STREAM_MIN_K`` and at most ``_STREAM_MAX_K`` rows (``per_split``
       counts rows here, not chunks).
-    * at least ``_RT_MIN`` rows and columns where the wrapper keeps the
-      layer's input transposed (``transposed``: every connectivity;
-      densenet's stream^T, mlp's and d2rl's h^T), the register tile's
-      128x64 tiles (``_RT_FWD_CONFIG``) with K split into up to
-      ``_BLOCKS_PER_SM`` blocks per SM, each with at least
-      ``_RT_FWD_MIN_CHUNKS`` chunks. The rules follow the card
-      (``launch/bwd_sweep.py``: the actor's and the critic's layers at
-      M=256, fig3-width's mlp critic, H100): a second block per SM hides
-      the first one's loads (the actor's layer 1: 84.4 us at 4 splits,
-      94.0 at 2; fig3's critic layer 1, K=2048: 76.5 us at 4, 85.5 at 2,
-      121.0 on ``dense_tile.cuh``), and a short K keeps fewer splits (K=4:
-      one zero-padded chunk, unsplit).
+    * at least ``_RT_MIN`` rows and columns, N a multiple of 4 (the TMA
+      loads' 16-byte rows), every connectivity: the tensor-core tile
+      (``_TC_CONFIG``, ``dense_tile_tc.cuh``: 3xTF32 on wgmma, 128 x 128
+      tiles, K in chunks of 32). The crossover, from the card sweep
+      (``launch/bwd_sweep.py --only fwd``, H100, M=256, one layer): it
+      beats the register tile at every layer past a thin first one, from
+      U = 256 up, solo and at 5 members (U = 2048, K = 2048: 36.4 against
+      76.1 us solo, 154.2 against 321.4 at 5 members; U = 256, K = 256:
+      17.7 against 20.0), and ties it at U = 128, K = 128 (14.7 against
+      14.5); at a thin first layer (K = d0 = 4) it loses at every width
+      (11.2-12.0 against 6.1-6.4 us solo; at U = 2048 and 5 members 22.0
+      against 9.1): a fixed cost a block (prologue, the fixup and the
+      activation in the epilogue). A stack keeps one tile for all its
+      layers (the register tile reads a transposed input that an init
+      launch starts and its layers extend), so the tile takes every
+      layer from U = 128: the densenet stacks (d0 = 259, 260) and the
+      deep or wide mlp stacks gain, while a 2-layer mlp or d2rl stack with
+      a thin first layer loses, summed over its layers, up to U = 512 solo
+      and U = 256 at 5 members (2.7-5.3 us a call). K is split to fill
+      the card with the launch's ``members``
+      x ``tiles`` blocks, one a SM: the split minimises waves x chunks per
+      split + ``_TC_SPLIT_CHUNKS`` a split past the first, ties to fewer
+      splits, at least ``_TC_MIN_CHUNKS`` chunks a split (U = 2048, K =
+      2048: 4 splits solo and at 3 or 5 members, 128 and 640 blocks).
+    * the register tile's 128x64 tiles (``_RT_FWD_CONFIG``) where the
+      tensor-core tile does not take the layer (N not a multiple of 4, or
+      ``tc=False``: what the card's timing compares it with), with K
+      split into up to ``_BLOCKS_PER_SM`` blocks per SM, each with at
+      least ``_RT_FWD_MIN_CHUNKS`` chunks, planned as one solo member. The
+      rules follow the card (``launch/bwd_sweep.py``: the actor's and the
+      critic's layers at M=256, fig3-width's mlp critic, H100): a second
+      block per SM hides the first one's loads (the actor's layer 1: 84.4
+      us at 4 splits, 94.0 at 2; fig3's critic layer 1, K=2048: 76.5 us at
+      4, 85.5 at 2, 121.0 on ``dense_tile.cuh``), and a short K keeps
+      fewer splits (K=4: one zero-padded chunk, unsplit).
     * otherwise (mlp and d2rl past 32 rows with U or M under
       ``_RT_MIN``, or with ``transposed=False``: the path before the
       register tile took them, ``_kernel_forward(..., mlp_rt=False)``; a
@@ -622,6 +667,20 @@ def plan_fwd(m: int, n: int, k: int, num_sms: int,
         return _STREAM_CONFIG, strips, -(-k // per_split), per_split
     if not (transposed and min(m, n) >= _RT_MIN):
         return plan(m, n, k, num_sms)
+    if tc and n % 4 == 0:
+        bm, bn, bk = _TC_TILE
+        tiles = -(-m // bm) * -(-n // bn)
+        chunks = -(-k // bk)
+        best = None
+        for want in range(1, max(1, chunks // _TC_MIN_CHUNKS) + 1):
+            per_split = -(-chunks // want)
+            splits = -(-chunks // per_split)
+            cost = -(-members * tiles * splits // num_sms) * per_split \
+                + _TC_SPLIT_CHUNKS * (splits - 1)
+            if best is None or (cost, splits) < best[0]:
+                best = ((cost, splits), (_TC_CONFIG, tiles, splits,
+                                         per_split))
+        return best[1]
     bm, bn, bk = _RT_CONFIGS[_RT_FWD_CONFIG]
     tiles = -(-m // bm) * -(-n // bn)
     chunks = -(-k // bk)
@@ -842,6 +901,50 @@ def _launch_whole(lib, x: torch.Tensor, ws, bs, out: torch.Tensor,
     _count_launch("whole")
 
 
+def _launch_tc(lib, plan, a: torch.Tensor, k_off: int, w: torch.Tensor,
+               b: torch.Tensor, y: Optional[Tuple[torch.Tensor, int]],
+               z: Optional[Tuple[torch.Tensor, int]],
+               y2: Optional[Tuple[torch.Tensor, int]], act: int,
+               stream: int) -> None:
+    """One layer on the tensor-core tile (``plan``: ``plan_fwd``'s): z =
+    ``a[:, k_off:k_off + K] @ w + b`` (K = ``w``'s rows), act(z) into ``y``
+    and ``y2``, z into ``z``, each ``(tensor, first column)`` or None. The
+    kernel reads ``a`` and ``w`` through TMA: rows 16-byte aligned (``a``
+    is the wrapper's own padded buffer; a ``w`` that is not gets an
+    aligned copy). A 3-D ``a`` is E members' (every tensor then with a
+    leading member axis, ``w`` and ``b`` of stride 0 where the members
+    share them): one member launch."""
+    config, tiles, splits, per_split = plan
+    e = _members(a)
+    lead = () if e is None else (e,)
+    m, n, k = a.shape[-2], w.shape[-1], w.shape[-2]
+    # check: disable=R003 -- reads the address and strides, not values
+    if not (_vec(_op(w)) and w.stride(-1) == 1):
+        w = w.clone(memory_format=torch.contiguous_format)
+    ws_buf = counters = None
+    if splits > 1:
+        bm, bn, _ = _TC_TILE
+        ws_buf = torch.empty((*lead, splits * tiles * bm * bn),
+                             device=w.device, dtype=torch.float32)
+        counters = _tile_counters(tiles * (e or 1), w.device, stream)
+
+    def dst(t):
+        return (None, 0, 0) if t is None else \
+            (_ptr(*t), t[0].stride(-2), _ms(t[0]))
+    (y_ptr, ldy, sy), (z_ptr, ldz, sz), (y2_ptr, ldy2, sy2) = \
+        dst(y), dst(z), dst(y2)
+    err = _call(lib, "dense_layer_fwd_tc", (
+        a.data_ptr(), a.stride(-2), k_off + k, k_off, w.data_ptr(),
+        w.stride(-2), b.data_ptr(), y_ptr, ldy, z_ptr, ldz, y2_ptr, ldy2,
+        _ptr(ws_buf), _ptr(counters), m, n, k, act, splits, per_split), e,
+        (_ms(a), _ms(w), _ms(b, 1), sy, sz, sy2), stream)
+    if err != 0:
+        raise RuntimeError(f"dense_stack forward (tc) launch failed: CUDA "
+                           f"error {err} (m={m}, n={n}, k={k}, k_off={k_off}"
+                           f", splits={splits}, members={e})")
+    _count_launch("tc")
+
+
 def _dense(t: torch.Tensor, dims: int) -> bool:
     """Whether ``t`` is dense the way the kernels read it: contiguous, or,
     with a leading member axis, contiguous within each member (any member
@@ -898,16 +1001,18 @@ def _stream_init(lib, x: torch.Tensor, dst: Optional[torch.Tensor],
 
 def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
                     activation: str, zs: Optional[torch.Tensor] = None,
-                    whole: bool = True, mlp_rt: bool = True) -> torch.Tensor:
+                    whole: bool = True, mlp_rt: bool = True,
+                    tc: bool = True) -> torch.Tensor:
     """The stack's feature; with ``zs`` (``(M, L*U)``), layer i also stores
     its pre-activation into columns ``[i*U, (i+1)*U)``. ``whole=False``
     keeps a narrow densenet stack on the per-layer kernels (what the card
     sweep compares the whole-stack kernel with); ``mlp_rt=False`` keeps
     mlp and d2rl past 32 rows on ``dense_tile.cuh`` (what the card's timing
-    compares their register tile with). With a leading member axis (``x``
-    (E, M, d0), ``ws`` (E, K_i, U), ``bs`` (E, U), ``zs`` (E, M, L*U)) E
-    members run in one launch per solo launch, planned as one solo
-    member."""
+    compares their register tile with); ``tc=False`` keeps the wide layers
+    on the register tile (what it compares the tensor-core tile with).
+    With a leading member axis (``x`` (E, M, d0), ``ws`` (E, K_i, U),
+    ``bs`` (E, U), ``zs`` (E, M, L*U)) E members run in one launch per
+    solo launch, planned for E members (``plan_fwd``'s ``members``)."""
     _check_cuda(x, ws, bs, connectivity)
     lead = tuple(x.shape[:-2])
     e = lead[0] if lead else None
@@ -929,12 +1034,16 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
             out = torch.empty((*lead, m, out_w), device=dev,
                               dtype=torch.float32)
             plans = [plan_fwd(m, u, d0 + i * u, num_sms,
-                              stack=(d0, n_layers) if whole else None)
+                              stack=(d0, n_layers) if whole else None,
+                              members=e or 1, tc=tc)
                      for i in range(n_layers)]
             if plans[0][0] == _WHOLE_CONFIG:    # every layer alike: m, u
                 _launch_whole(lib, x, ws, bs, out, zs, act, plans[0][3],
                               stream)
                 return out
+            if plans[0][0] == _TC_CONFIG:       # every layer alike: m, u
+                return _tc_stack(lib, x, ws, bs, connectivity, plans, zs,
+                                 act, stream, out)
             st = None                   # stream^T: x^T, y_0^T .. y_{L-2}^T
             if plans[0][0] in _RT_CONFIGS:      # every layer alike: m, u
                 st = torch.empty((*lead, d0 + (n_layers - 1) * u, _pad4(m)),
@@ -952,8 +1061,11 @@ def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
                               None, ws[i], bs[i], out, d, act, stream,
                               z_slot(i), st, yt, out if first else None)
             return out
-        plans = [plan_fwd(m, u, w.shape[-2], num_sms, transposed=mlp_rt)
-                 for w in ws]
+        plans = [plan_fwd(m, u, w.shape[-2], num_sms, transposed=mlp_rt,
+                          members=e or 1, tc=tc) for w in ws]
+        if plans[0][0] == _TC_CONFIG:           # every layer alike: m, u
+            return _tc_stack(lib, x, ws, bs, connectivity, plans, zs, act,
+                             stream)
         if plans[0][0] in _RT_CONFIGS:          # every layer alike: m, u
             return _rt_hidden(lib, x, ws, bs, connectivity, plans, zs, act,
                               stream)
@@ -1018,6 +1130,70 @@ def _rt_hidden(lib, x: torch.Tensor, ws, bs, connectivity: str, plans,
                       out if last else None, 0, act, stream,
                       None if zs is None else (zs, i * u), read(i),
                       None if last else written(i))
+    return out
+
+
+def _tc_stack(lib, x: torch.Tensor, ws, bs, connectivity: str, plans,
+              zs: Optional[torch.Tensor], act: int, stream: int,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A stack on the tensor-core tile, which reads every layer's input
+    row-major through TMA, from rows padded to 4 floats: every layer
+    writes z_i into ``zs`` when given.
+
+    densenet: a padded copy of the stream below the last layer, ``[x | y_0
+    | .. | y_{L-2}]``; layer i reads its first d0 + i U columns and writes
+    y_i into its slot there (i < L - 1) and into the returned stream
+    ``out``'s (whose rows, d0 + L U floats, the actor's 4355, TMA cannot
+    read). mlp: layer 0 reads x (a padded copy where its rows are not
+    16-byte aligned, the pendulum's 3-wide observation, or its members
+    share it), layer i > 0 the ping-pong buffer layer i - 1 wrote. d2rl:
+    two slabs ``[h | x]`` of U + d0 columns, x copied into both, so the
+    input ``[h_{i-1} | x]`` of every layer past the first is one operand;
+    layer 0 reads slab 0's x columns (``k_off`` = U), layer i slab (i - 1)
+    % 2 whole, and writes h_i into slab i % 2's first U columns. The last
+    layer of mlp and d2rl writes only the row-major feature."""
+    lead = tuple(x.shape[:-2])
+    m, d0 = x.shape[-2:]
+    n_layers, u = len(ws), ws[0].shape[-1]
+
+    def padded(width):
+        return torch.empty((*lead, m, _pad4(width)), device=x.device,
+                           dtype=torch.float32)[..., :width]
+
+    def z_slot(i):
+        return None if zs is None else (zs, i * u)
+    if connectivity == "densenet":
+        sp = padded(d0 + (n_layers - 1) * u)
+        out[..., :d0].copy_(x)
+        sp[..., :d0].copy_(x)
+        for i in range(n_layers):
+            slot = d0 + i * u
+            _launch_tc(lib, plans[i], sp, 0, ws[i], bs[i], (out, slot),
+                       z_slot(i), (sp, slot) if i < n_layers - 1 else None,
+                       act, stream)
+        return out
+    out = torch.empty((*lead, m, u), device=x.device, dtype=torch.float32)
+    if connectivity == "d2rl":
+        slabs = [padded(u + d0) for _ in range(min(2, n_layers))]
+        for slab in slabs:
+            slab[..., u:].copy_(x)
+        reads = [(slabs[0], u)] + [(slabs[(i - 1) % 2], 0)
+                                   for i in range(1, n_layers)]
+        writes = [slabs[i % 2] for i in range(n_layers)]
+    else:
+        xa = x
+        if not _vec(_op(x)) or (lead and _ms(x) == 0):
+            xa = padded(d0)
+            xa.copy_(x)
+        hs = [padded(u) for _ in range(min(2, n_layers - 1))]
+        reads = [(xa, 0)] + [(hs[(i - 1) % 2], 0)
+                             for i in range(1, n_layers)]
+        writes = [hs[i % 2] if i < n_layers - 1 else None
+                  for i in range(n_layers)]
+    for i in range(n_layers):
+        dst = out if i == n_layers - 1 else writes[i]
+        _launch_tc(lib, plans[i], *reads[i], ws[i], bs[i], (dst, 0),
+                   z_slot(i), None, act, stream)
     return out
 
 
@@ -1414,9 +1590,9 @@ def dense_stack_members(x: torch.Tensor, ws: Sequence[torch.Tensor],
     """The feature of E members' stacks, ``(E, M, F)``: ``x`` (E, M, d0),
     ``ws`` (E, K_i, U), ``bs`` (E, U), each of member stride 0 where the
     members share it (``expand``). On a CUDA tensor every kernel launches
-    once for all members, planned as one solo member, so member e is
-    bitwise its solo launches; with ``zs`` (E, M, L*U) the pre-activations
-    go there too. On a CPU tensor the members twin,
+    once for all members, planned for E members, so member e is bitwise
+    its solo launches of the same plan; with ``zs`` (E, M, L*U) the
+    pre-activations go there too. On a CPU tensor the members twin,
     ``dense_stack_members_ref`` (``zs`` not written)."""
     _validate(connectivity, activation, ws, bs)
     if x.dim() != 3:

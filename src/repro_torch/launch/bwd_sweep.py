@@ -66,6 +66,9 @@ of three runs; the card must be there (``resolve_device``).
     python -m repro_torch.launch.bwd_sweep --only ssd     # the SSD rows
     python -m repro_torch.launch.bwd_sweep --only stack   # the whole-stack
                                             # kernels and fig3's mlp rows
+    python -m repro_torch.launch.bwd_sweep --only fwd     # the forward's
+                                            # tensor-core tile against the
+                                            # register tile, U 128..2048
 """
 from __future__ import annotations
 
@@ -148,6 +151,25 @@ def candidates(m: int, n: int, k: int, num_sms: int,
             if splits not in seen:
                 seen.add(splits)
                 out.append((config, tiles, splits, per))
+    return out
+
+
+def tc_candidates(m: int, n: int, k: int
+                  ) -> List[Tuple[int, int, int, int]]:
+    """Every ``(config, tiles, splits, chunks_per_split)`` the tensor-core
+    tile (``dense_tile_tc.cuh``) may take for an ``(m, n)`` output and a
+    reduction of ``k``: each split count that gives a distinct chunk
+    partition, at least ``_TC_MIN_CHUNKS`` chunks a split."""
+    bm, bn, bk = stack._TC_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    chunks = -(-k // bk)
+    out, seen = [], set()
+    for want in range(1, max(1, chunks // stack._TC_MIN_CHUNKS) + 1):
+        per = -(-chunks // want)
+        splits = -(-chunks // per)
+        if splits not in seen:
+            seen.add(splits)
+            out.append((stack._TC_CONFIG, tiles, splits, per))
     return out
 
 
@@ -996,6 +1018,62 @@ def hidden_rows(seed: int = 0) -> List[dict]:
     return rows
 
 
+# the forward's widths and fleet sizes at the batch, where the tensor-core
+# tile and the register tile both run: the crossover plan_fwd follows
+FWD_U = (128, 256, 512, 1024, 2048)
+FWD_MEMBERS = (None, 5)
+
+
+def fwd_rows(seed: int = 0, m: int = 256) -> List[dict]:
+    """One forward layer at M=256 for each width of ``FWD_U``, solo and as
+    5 members (one member launch), at K = 4 (a pendulum critic's first
+    layer), U (mlp's square layers), 259 + U and 259 + 2U (the densenet
+    actor's stream at layers 1 and 2): the tensor-core tile at every split
+    of ``tc_candidates`` (its input row-major, rows padded to 4 floats) and
+    the register tile at ``plan_fwd``'s plan (over the transposed input),
+    marking ``plan_fwd``'s pick for the launch's members."""
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = stack._library()
+    stream_h = torch.cuda.current_stream(dev).cuda_stream
+    act = stack._ACT_CODE["swish"]
+    rows = []
+    for u in FWD_U:
+        for e in FWD_MEMBERS:
+            lead = () if e is None else (e,)
+            members = e or 1
+            name = f"U={u} E={members}"
+            for k in (4, u, 259 + u, 259 + 2 * u):
+                a = torch.randn((*lead, m, stack._pad4(k)), generator=gen,
+                                device=dev)[..., :k]
+                at = torch.empty((*lead, k, stack._pad4(m)),
+                                 device=dev)[..., :m]
+                at.copy_(a.transpose(-1, -2))
+                w = torch.empty((*lead, k, u), device=dev).uniform_(
+                    -1 / math.sqrt(k), 1 / math.sqrt(k), generator=gen)
+                b = torch.zeros((*lead, u), device=dev)
+                y = torch.empty((*lead, m, u), device=dev)
+                pick = stack.plan_fwd(m, u, k, num_sms, members=members)
+                for plan in tc_candidates(m, u, k):
+                    def run(_, plan=plan):
+                        stack._launch_tc(lib, plan, a, 0, w, b, (y, 0), None,
+                                         None, act, stream_h)
+                    rows.append(dict(net=name, layer=k, product="fwd tc",
+                                     shape=(m, u, k), plan=plan,
+                                     picked=plan == pick,
+                                     us=_time_us(run)))
+                rt = stack.plan_fwd(m, u, k, num_sms, tc=False)
+
+                def run_rt(_):
+                    stack._launch_layer(lib, rt, None, None, w, b, y, 0, act,
+                                        stream_h, at=at)
+                rows.append(dict(net=name, layer=k, product="fwd rt",
+                                 shape=(m, u, k), plan=rt,
+                                 picked=rt == pick, us=_time_us(run_rt)))
+    return rows
+
+
 def dense_rows(seed: int = 0) -> List[dict]:
     """The fused dense kernel at each ``DENSE`` shape, every candidate of
     ``dense_candidates``, and ``silu(addmm)`` on the built concat; W cycled
@@ -1072,21 +1150,26 @@ def mma_peak_rows(iters: int = 4096) -> List[dict]:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("all", "tree", "flash", "ssd",
-                                           "stack", "thin"), default="all")
+                                           "stack", "thin", "fwd"),
+                        default="all")
     only = parser.parse_args().only
-    if only == "stack":
+    if only == "fwd":
+        rows = fwd_rows()
+    elif only == "stack":
         rows = whole_rows() + whole_bwd_rows() + hidden_rows() + thin_rows()
     elif only == "thin":
         rows = thin_rows()
     else:
         rows = {"flash": flash_rows, "ssd": ssd_rows}.get(only, tree_rows)()
     if only == "all":
-        rows = sweep() + whole_rows() + whole_bwd_rows() + hidden_rows() + \
-            thin_rows() + dense_rows() + mma_peak_rows() + rows + \
+        rows = sweep() + fwd_rows() + whole_rows() + whole_bwd_rows() + \
+            hidden_rows() + thin_rows() + dense_rows() + mma_peak_rows() + \
+            rows + \
             flash_rows() + ssd_rows()
     print(f"# {torch.cuda.get_device_name(0)}; config 3 = 128x128 (the "
           f"backward only), 4 = 128x64, 5 = the weight-streaming kernel (its "
-          f"last number counts rows); fused dense configs by (BM, BN): "
+          f"last number counts rows), 7 = the forward's tensor-core tile "
+          f"(128x128, chunks of 32); fused dense configs by (BM, BN): "
           f"{dict(enumerate(dense_block.TILES))}; * = plan_bwd's, "
           f"plan_fwd's, dense_block.plan's, the tree's SAMPLE_PLAN and "
           f"PDL, flash_attention.PLAN or ssd_scan.PLAN pick")

@@ -9,7 +9,8 @@ device replay, one graph) of ``--seeds`` seeds, each member against the
 solo fused run of its seed from the same state, ``--repeats`` times for
 each forward path of the fleet's wide mlp layers past 32 rows (``tile``:
 ``dense_tile.cuh``, the path before the register tile; ``rt``: the
-register tile). It prints one line a run and writes every run's record
+default, the tensor-core tile at 2048 units). It prints one line a run
+and writes every run's record
 (each flip with its cause) to ``--out`` as JSON.
 
 A member and its solo run are not bitwise: a batched product or reduction
@@ -220,7 +221,9 @@ def flips_line(rec: Dict) -> str:
 
 def _set_path(path: str) -> None:
     """The forward path of the wide mlp/d2rl layers past 32 rows: ``rt``
-    (the register tile, the default) or ``tile`` (``dense_tile.cuh``)."""
+    (the default: ``plan_fwd``'s pick, the tensor-core tile at these
+    widths, the register tile where U is not a multiple of 4) or ``tile``
+    (``dense_tile.cuh``)."""
     from repro_torch.kernels.dense_block import stack
     orig = getattr(stack._kernel_forward, "func", stack._kernel_forward)
     stack._kernel_forward = functools.partial(orig, mlp_rt=path == "rt")

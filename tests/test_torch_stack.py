@@ -130,19 +130,27 @@ def test_launch_plan_fills_the_card_at_serving_slots():
     and a split of K: the actor's wide layer launches one wave of about 2
     blocks per SM of the weight-streaming kernel (128-column strips, K
     split by rows), and so does the register tile at the batch of 256
-    (every connectivity's, over its transposed input); dense_tile.cuh,
-    which mlp and d2rl took there before (``transposed=False``), >= 2
-    blocks per SM."""
+    (every connectivity's, over its transposed input, ``tc=False``); the
+    tensor-core tile, which takes the layer there, one wave of one block
+    an SM; dense_tile.cuh, which mlp and d2rl took there before
+    (``transposed=False``), >= 2 blocks per SM."""
     for m in (1, 8, 32):
         config, tiles, splits, rows = tstack.plan_fwd(m, 2048, 2307, 132)
         assert config == tstack._STREAM_CONFIG
         assert tiles == 2048 // tstack._STREAM_COLS
         assert 2 * 132 - tiles < tiles * splits <= 2 * 132
         assert (splits - 1) * rows < 2307 <= splits * rows
-    config, tiles, splits, per_split = tstack.plan_fwd(256, 2048, 2307, 132)
+    config, tiles, splits, per_split = tstack.plan_fwd(256, 2048, 2307, 132,
+                                                       tc=False)
     bm, bn, bk = tstack._RT_CONFIGS[config]
     assert tiles == (256 // bm) * (2048 // bn)
     assert 2 * 132 - tiles < tiles * splits <= 2 * 132
+    assert (splits - 1) * per_split < -(-2307 // bk) <= splits * per_split
+    config, tiles, splits, per_split = tstack.plan_fwd(256, 2048, 2307, 132)
+    bm, bn, bk = tstack._TC_TILE
+    assert config == tstack._TC_CONFIG
+    assert tiles == (256 // bm) * (2048 // bn)
+    assert 132 - tiles < tiles * splits <= 132
     assert (splits - 1) * per_split < -(-2307 // bk) <= splits * per_split
     config, tiles, splits, per_split = tstack.plan(256, 2048, 2307, 132)
     assert tstack.plan_fwd(256, 2048, 2307, 132, transposed=False) \

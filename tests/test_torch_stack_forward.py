@@ -2,23 +2,26 @@
 the plain version against the reference's Pallas forward at a ragged shape
 large enough for the register tile.
 
-``plan_fwd`` picks one of four kernels of ``csrc/dense_stack_fwd.cu`` by
+``plan_fwd`` picks one of five kernels of ``csrc/dense_stack_fwd.cu`` by
 the width and the rows of the call: the whole-stack kernel for a densenet
 stack with U < 128 whose shared memory fits (the narrow OFENet stacks, at
 every row count: one launch a stack), the weight-streaming kernel up to 32
-rows (the serving slots), the register tile over a transposed input from
-128 rows where U is at least 128 too (densenet's ``stream^T``: the actor
-and critic stacks at the batch of 256; mlp's and d2rl's ping-pong
-buffers of h^T: fig3's and the other mlp presets' stacks), and
-``dense_tile.cuh`` otherwise (mlp and d2rl past 32 rows with U < 128).
-The launch sequence of ``_kernel_forward`` is plain Python: it runs here
-against a recording stand-in for the CUDA library, which shows one launch
-per layer by the planned kernel (one per stack on the whole-stack kernel),
-one transposed init per register-tiled call, and split counters taken
-from ``_tile_counters`` with no zeroed buffer per launch; and against an
-emulating stand-in, which runs the register tile's launches on the CPU
-memory the wrapper hands it, so the mlp/d2rl buffers' layout (which rows
-each layer reads and writes) is held to the plain version here. The
+rows (the serving slots), from 128 rows where U is at least 128 too the
+tensor-core tile (``dense_tile_tc.cuh``, U a multiple of 4: the actor and
+critic stacks at the batch of 256, fig3's and Fig. 4's mlp stacks), over a
+row-major input of rows padded to 4 floats (densenet's padded stream,
+mlp's and d2rl's ping-pong buffers), split for the launch's members x
+tiles, or the register tile over a transposed input (a U that is not a
+multiple of 4, or ``tc=False``), and ``dense_tile.cuh`` otherwise (mlp and
+d2rl past 32 rows with U < 128). The launch sequence of
+``_kernel_forward`` is plain Python: it runs here against a recording
+stand-in for the CUDA library, which shows one launch per layer by the
+planned kernel (one per stack on the whole-stack kernel), one transposed
+init per register-tiled call and none on the tensor-core tile, and split
+counters taken from ``_tile_counters`` with no zeroed buffer per launch;
+and against an emulating stand-in, which runs both tiles' launches on the
+CPU memory the wrapper hands it, so every buffer's layout (which rows or
+columns each layer reads and writes) is held to the plain version here. The
 kernels themselves are held against the plain version on the card
 (``tests/test_torch_stack.py -k cuda``, ``chip_smoke.py``).
 """
@@ -48,7 +51,15 @@ RAGGED_RT = (201, 37, 301, 3)
 
 @pytest.mark.parametrize("m,n,k", WIDE)
 def test_plan_fwd_takes_the_register_tile_at_the_wide_products(m, n, k):
+    """The wide products take the tensor-core tile (128 x 128 tiles, K
+    split within one wave of one block a SM); with ``tc=False`` the
+    register tile, as before it."""
     config, tiles, splits, _ = tstack.plan_fwd(m, n, k, 132)
+    assert config == tstack._TC_CONFIG and tstack.fwd_kernel_of(config) \
+        == "tc"
+    assert tiles == (m // 128) * (n // 128) and 1 < splits
+    assert tiles * splits <= 132
+    config, tiles, splits, _ = tstack.plan_fwd(m, n, k, 132, tc=False)
     assert config == tstack._RT_FWD_CONFIG
     assert tstack._RT_CONFIGS[config][:2] == (128, 64)
     assert tstack.fwd_kernel_of(config) == "rt"
@@ -61,12 +72,13 @@ def test_plan_fwd_takes_the_register_tile_at_the_wide_products(m, n, k):
                                1024))
 def test_plan_fwd_takes_only_the_forward_librarys_configs(m, transposed):
     """``dense_stack_fwd.cu`` has the streaming kernel, the register tile's
-    128x64 case and ``dense_tile.cuh``'s config 2; the thin configs 0 and 1
-    (the backward's products of up to 32 rows) and 128x128 are not in
-    it."""
+    128x64 case, the tensor-core tile and ``dense_tile.cuh``'s config 2;
+    the thin configs 0 and 1 (the backward's products of up to 32 rows)
+    and 128x128 are not in it."""
     for n, k in [(64, 3), (64, 451), (301, 37), (2048, 259), (2048, 4612)]:
         config = tstack.plan_fwd(m, n, k, 132, transposed=transposed)[0]
-        assert config in (tstack._STREAM_CONFIG, tstack._RT_FWD_CONFIG, 2)
+        assert config in (tstack._STREAM_CONFIG, tstack._RT_FWD_CONFIG,
+                          tstack._TC_CONFIG, 2)
         if m > tstack._STREAM_MAX_ROWS:
             assert config != tstack._STREAM_CONFIG
 
@@ -154,14 +166,16 @@ def test_plan_fwd_runs_the_narrow_densenet_stacks_whole(m, name):
     + [(64, 2048, 2307), (201, 301, 37), (201, 301, 639), (128, 128, 1),
        (1, 64, 1), (32, 2048, 193)])
 def test_plan_fwd_splits_cover_k_exactly(m, n, k):
-    for transposed in (True, False):
-        config, tiles, splits, per = tstack.plan_fwd(m, n, k, 132,
-                                                     transposed=transposed)
+    for transposed, members, tc in [(True, 1, True), (False, 1, True),
+                                    (True, 5, True), (True, 1, False)]:
+        config, tiles, splits, per = tstack.plan_fwd(
+            m, n, k, 132, transposed=transposed, members=members, tc=tc)
         if config == tstack._STREAM_CONFIG:
             bm, bn, bk = 32, tstack._STREAM_COLS, 1     # per counts rows
         else:
             bm, bn, bk = {**dict(enumerate(tstack._CONFIGS)),
-                          **tstack._RT_CONFIGS}[config]
+                          **tstack._RT_CONFIGS,
+                          tstack._TC_CONFIG: tstack._TC_TILE}[config]
         chunks = -(-k // bk)
         assert tiles == -(-m // bm) * -(-n // bn)
         assert splits >= 1 and per >= 1
@@ -169,12 +183,59 @@ def test_plan_fwd_splits_cover_k_exactly(m, n, k):
 
 
 def test_plan_fwd_follows_the_sweep_at_the_wide_products():
-    """The card sweep (``launch/bwd_sweep.py``, H100) put the best plan of
-    each wide product at 128x64 tiles and: the actor's layer 0 (33 chunks)
-    2 splits, the critic's (65) 2 (4 within 1 us), both layers 1 four
-    splits, two blocks per SM."""
-    assert [tstack.plan_fwd(m, n, k, 132)[:3] for m, n, k in WIDE] \
+    """The card sweep (``launch/bwd_sweep.py``, H100) put the register
+    tile's best plan of each wide product at 128x64 tiles and: the actor's
+    layer 0 (33 chunks) 2 splits, the critic's (65) 2 (4 within 1 us), both
+    layers 1 four splits, two blocks per SM. The tensor-core tile's 32
+    tiles split K into 2 (9 and 17 chunks of 32) and 4 (73 and 81): 64 and
+    128 blocks, one a SM."""
+    assert [tstack.plan_fwd(m, n, k, 132, tc=False)[:3]
+            for m, n, k in WIDE] \
         == [(4, 64, 2), (4, 64, 4), (4, 64, 4), (4, 64, 4)]
+    assert [tstack.plan_fwd(m, n, k, 132)[:3] for m, n, k in WIDE] \
+        == [(7, 32, 2), (7, 32, 4), (7, 32, 3), (7, 32, 4)]
+
+
+@pytest.mark.parametrize("members,want", [(1, (4, 16)), (3, (4, 16)),
+                                          (5, (4, 16)), (10, (2, 32)),
+                                          (33, (1, 64))])
+def test_plan_fwd_counts_the_members_on_the_tensor_core_tile(members, want):
+    """A fleet's launch is planned for all its blocks: members x tiles x
+    splits against the 132 SMs. The square layer of fig3's and Fig. 4's
+    mlp stacks (M = 256, U = K = 2048: 32 tiles, 64 chunks) splits K into
+    4 solo (128 blocks) and at 3 or 5 members (384 and 640: 3 and 5
+    waves, 16 chunks each), into fewer where the members alone fill the
+    card (10 members: 2; 33: 1056 blocks, 8 whole waves, unsplit); the
+    register tile's plan is the solo one whatever the members."""
+    config, tiles, splits, per = tstack.plan_fwd(256, 2048, 2048, 132,
+                                                 members=members)
+    assert (config, tiles, (splits, per)) == (tstack._TC_CONFIG, 32, want)
+    assert tstack.plan_fwd(256, 2048, 2048, 132, members=members,
+                           tc=False) == tstack.plan_fwd(256, 2048, 2048,
+                                                        132, tc=False)
+
+
+@pytest.mark.parametrize("m,n,k", [(256, 2048, 4), (256, 2048, 2048),
+                                   (128, 128, 128), (201, 300, 37),
+                                   (1024, 512, 8192)])
+def test_plan_fwd_tensor_core_split_is_the_cheapest(m, n, k):
+    """The split is the cheapest of every split the rule allows, by its
+    cost (waves x chunks a split + ``_TC_SPLIT_CHUNKS`` a split past the
+    first), ties to fewer splits; every split holds at least
+    ``_TC_MIN_CHUNKS`` chunks unless K has fewer."""
+    chunks = -(-k // tstack._TC_TILE[2])
+    for members in (1, 2, 5):
+        _, tiles, splits, per = tstack.plan_fwd(m, n, k, 132,
+                                                members=members)
+
+        def cost(s, p):
+            return -(-members * tiles * s // 132) * p \
+                + tstack._TC_SPLIT_CHUNKS * (s - 1)
+        assert per >= min(chunks, tstack._TC_MIN_CHUNKS)
+        for want in range(1, max(1, chunks // tstack._TC_MIN_CHUNKS) + 1):
+            p = -(-chunks // want)
+            assert (cost(splits, per), splits) <= (cost(-(-chunks // p), p),
+                                                    -(-chunks // p))
 
 
 def test_plan_fwd_register_tile_needs_the_transposed_stream():
@@ -194,9 +255,15 @@ def test_plan_fwd_register_tile_needs_the_transposed_stream():
                                    for k in (259, 2307)])
 def test_fwd_sweep_candidates_hold_the_plan(m, n, k):
     """The card sweep (``launch/bwd_sweep.py``) times every plan
-    ``plan_fwd`` may pick at the wide products and the serving slots."""
+    ``plan_fwd`` may pick at the wide products and the serving slots, on
+    both wide tiles."""
     from repro_torch.launch import bwd_sweep
     pick = tstack.plan_fwd(m, n, k, 132)
+    if pick[0] == tstack._TC_CONFIG:
+        for members in (1, 5):
+            assert tstack.plan_fwd(m, n, k, 132, members=members) \
+                in bwd_sweep.tc_candidates(m, n, k)
+        pick = tstack.plan_fwd(m, n, k, 132, tc=False)
     if pick[0] == tstack._STREAM_CONFIG:
         cands = bwd_sweep.stream_candidates(m, n, k)
         assert len(cands) > 1
@@ -227,10 +294,11 @@ class _RecordingLib:
 # where each entry point takes its counters, m, n and splits
 _ARGS = {"dense_layer_fwd": dict(counters=14, m=15, n=16, splits=18),
          "dense_layer_fwd_rt": dict(counters=14, m=15, n=16, splits=19),
-         "dense_layer_fwd_stream": dict(counters=17, m=18, n=19, splits=21)}
+         "dense_layer_fwd_stream": dict(counters=17, m=18, n=19, splits=21),
+         "dense_layer_fwd_tc": dict(counters=14, m=15, n=16, splits=19)}
 _KIND = {"dense_layer_fwd": "tile", "dense_layer_fwd_rt": "rt",
          "dense_layer_fwd_stream": "stream",
-         "dense_stack_fwd_whole": "whole"}
+         "dense_stack_fwd_whole": "whole", "dense_layer_fwd_tc": "tc"}
 
 
 @pytest.fixture
@@ -271,31 +339,39 @@ def _stack(conn, m, d0, u, n_layers, seed=0):
 
 
 @pytest.mark.parametrize("conn,m,d0,u,n_layers", [
-    ("densenet", 128, 300, 128, 2),     # register tile, split K
+    ("densenet", 128, 300, 128, 2),     # tensor-core tile, split K
     ("densenet", 201, 37, 301, 3),      # register tile, ragged
     ("densenet", 8, 40, 64, 2),         # narrow: the whole-stack kernel
     ("densenet", 8, 40, 128, 2),        # streaming, split K at layer 1
     ("densenet", 1, 259, 512, 2),       # streaming, a serving slot
     ("densenet", 256, 260, 64, 4),      # phi_sa: the whole-stack kernel
-    ("mlp", 128, 130, 128, 2),          # register tile over h^T
+    ("densenet", 256, 259, 2048, 2),    # the actor: tensor-core tile
+    ("mlp", 128, 130, 128, 2),          # tensor-core tile, x padded
+    ("mlp", 256, 4, 2048, 3),           # tensor-core tile, x read as is
     ("mlp", 201, 3, 301, 4),            # register tile, ragged, K = 3
-    ("d2rl", 256, 4, 128, 3),           # register tile over [h | x]^T
+    ("d2rl", 256, 4, 128, 3),           # tensor-core tile over [h | x]
     ("d2rl", 8, 40, 64, 3),             # streaming, two segments
     ("d2rl", 256, 20, 64, 3)])          # U < 128: dense_tile.cuh
-def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
+@pytest.mark.parametrize("tc", (True, False))
+def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers, tc):
     """One launch per layer by the kernel ``plan_fwd`` gives it (one per
     stack on the whole-stack kernel), one transposed init per
     register-tiled call (densenet: x into the stream and stream^T; mlp:
-    x^T; d2rl: x^T into both ping-pong slabs), and every split's counters
-    from ``_tile_counters`` on the launch's stream: no zeroed buffer per
-    launch. On the register tile mlp's and d2rl's layers below the last
-    write only h_i^T (no row-major output), which the next layer reads:
-    for d2rl with x^T right after it, its input ``[h | x]`` one operand."""
+    x^T; d2rl: x^T into both ping-pong slabs) and none on the tensor-core
+    tile, and every split's counters from ``_tile_counters`` on the
+    launch's stream: no zeroed buffer per launch. On the register tile
+    mlp's and d2rl's layers below the last write only h_i^T (no row-major
+    output), which the next layer reads: for d2rl with x^T right after it,
+    its input ``[h | x]`` one operand. On the tensor-core tile every layer
+    reads a row-major input of 16-byte rows: layer i of mlp and d2rl what
+    layer i - 1 wrote (d2rl's layer 0 the x columns of its first slab,
+    past U), densenet's layer i the stream's padded copy, into which it
+    writes y_i beside the returned stream's slot."""
     lib, counters, asked, zeros = recorded
     x, ws, bs = _stack(conn, m, d0, u, n_layers)
     zs = torch.empty((m, n_layers * u))
     with torch.no_grad():
-        out = tstack._kernel_forward(x, ws, bs, conn, "swish", zs)
+        out = tstack._kernel_forward(x, ws, bs, conn, "swish", zs, tc=tc)
     assert not zeros
     stack = (d0, n_layers) if conn == "densenet" else None
     if tstack.fwd_kernel_of(tstack.plan_fwd(m, u, d0, 132,
@@ -309,7 +385,7 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
     split_launches = 0
     for i, (name, args) in enumerate(layers):
         pos = _ARGS[name]
-        plan = tstack.plan_fwd(m, u, ws[i].shape[0], 132)
+        plan = tstack.plan_fwd(m, u, ws[i].shape[0], 132, tc=tc)
         kinds.append(_KIND[name])
         assert _KIND[name] == tstack.fwd_kernel_of(plan[0])
         assert (args[pos["m"]], args[pos["n"]], args[pos["splits"]]) \
@@ -342,9 +418,41 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers):
             assert (args[11] is None) == (i == n_layers - 1)
             assert (args[7] is None) == (conn != "densenet"
                                          and i < n_layers - 1)
-    assert asked == [(tstack.plan_fwd(m, u, w.shape[0], 132)[1], 77)
+        if name == "dense_layer_fwd_tc":
+            (a, lda, a_cols, k_off, w, ldw, _, y, ldy, z, ldz, y2, ldy2,
+             *_) = args
+            k = ws[i].shape[0]
+            assert a % 16 == 0 and lda % 4 == 0 and a_cols == k_off + k
+            assert (w, ldw) == (ws[i].data_ptr(), u)
+            assert (z, ldz) == (zs.data_ptr() + 4 * i * u, n_layers * u)
+            if conn == "densenet":
+                # the stream's padded copy: its prefix in, y_i into its
+                # slot (below the last layer) and the stream's
+                assert (k_off, lda) == (0, tstack._pad4(d0 + (n_layers - 1)
+                                                        * u))
+                assert (y, ldy) == (out.data_ptr() + 4 * (d0 + i * u),
+                                    d0 + n_layers * u)
+                if i < n_layers - 1:
+                    assert (y2, ldy2) == (a + 4 * (d0 + i * u), lda)
+                else:
+                    assert y2 is None
+            else:
+                assert y2 is None
+                if i == 0:
+                    # x itself where its rows are 16-byte rows, else a
+                    # padded copy; d2rl's in its first slab, past U
+                    assert (a == x.data_ptr()) == (conn == "mlp"
+                                                   and d0 % 4 == 0)
+                    assert k_off == (u if conn == "d2rl" else 0)
+                else:
+                    assert (a, k_off) == (layers[i - 1][1][7], 0)
+                    assert lda == ldy_prev
+                if i == n_layers - 1:
+                    assert (y, ldy) == (out.data_ptr(), u)
+                ldy_prev = ldy
+    assert asked == [(tstack.plan_fwd(m, u, w.shape[0], 132, tc=tc)[1], 77)
                      for w in ws if tstack.plan_fwd(
-                         m, u, w.shape[0], 132)[2] > 1]
+                         m, u, w.shape[0], 132, tc=tc)[2] > 1]
     assert len(asked) == split_launches
     wide = kinds[0] == "rt"
     assert len(inits) == int(wide)
@@ -389,9 +497,10 @@ ACT_NP = {"swish": lambda z: z / (1 + np.exp(-z)), "relu":
 
 
 class _EmulatingLib(_RecordingLib):
-    """Records every call, and runs the transposed init and the register
-    tile's layer (solo entries) in float64 on the CPU memory it is handed,
-    as the kernels' C interface describes them."""
+    """Records every call, and runs the transposed init, the register
+    tile's layer and the tensor-core tile's layer (solo entries) in float64
+    on the CPU memory it is handed, as the kernels' C interface describes
+    them."""
 
     def __init__(self, activation):
         super().__init__()
@@ -426,31 +535,57 @@ class _EmulatingLib(_RecordingLib):
             floats(yt, n, m, ldt)[:] = yy.T
         return 0
 
+    def dense_layer_fwd_tc(self, a, lda, a_cols, k_off, w, ldw, b, y, ldy,
+                           z, ldz, y2, ldy2, ws, counters, m, n, k, act,
+                           splits, per_split, stream):
+        self.calls.append(("dense_layer_fwd_tc", (
+            a, lda, a_cols, k_off, w, ldw, b, y, ldy, z, ldz, y2, ldy2, ws,
+            counters, m, n, k, act, splits, per_split, stream)))
+        # the TMA loads' terms: 16-byte rows, a_cols readable columns
+        assert a % 16 == 0 and lda % 4 == 0 and w % 16 == 0
+        assert ldw % 4 == 0 and a_cols == k_off + k <= lda
+        zz = floats(a + 4 * k_off, m, k, lda).astype(np.float64) \
+            @ floats(w, k, n, ldw) + floats(b, 1, n, n)[0]
+        if z is not None:
+            floats(z, m, n, ldz)[:] = zz
+        yy = self.act(zz)
+        for dst, ld in ((y, ldy), (y2, ldy2)):
+            if dst is not None:
+                floats(dst, m, n, ld)[:] = yy
+        return 0
 
+
+@pytest.mark.parametrize("tc", (True, False))
 @pytest.mark.parametrize("act", ("swish", "relu"))
 @pytest.mark.parametrize("conn,m,d0,u,n_layers", [
     ("mlp", 128, 130, 128, 1), ("mlp", 128, 3, 128, 2),
     ("mlp", 201, 3, 301, 4), ("mlp", 256, 4, 256, 3),
-    ("d2rl", 128, 4, 128, 2), ("d2rl", 203, 5, 300, 4),
-    ("densenet", 201, 37, 301, 3)])
+    ("d2rl", 128, 4, 128, 1), ("d2rl", 128, 4, 128, 2),
+    ("d2rl", 203, 5, 300, 4), ("densenet", 201, 37, 301, 3),
+    ("densenet", 201, 37, 300, 3), ("densenet", 130, 259, 128, 1)])
 def test_register_tile_buffers_hold_the_plain_stack(recorded, monkeypatch,
                                                     conn, m, d0, u,
-                                                    n_layers, act):
-    """The register tile's launches emulated on the wrapper's own buffers
+                                                    n_layers, act, tc):
+    """Both wide tiles' launches emulated on the wrapper's own buffers
     (``_EmulatingLib``): the feature and every layer's pre-activation are
     the plain version's, so each layer read the input the stack defines
-    (mlp: h_{i-1}^T; d2rl: [h_{i-1} | x]^T; densenet: the stream prefix^T)
-    and wrote where the next reads, for 1 to 4 layers, ragged rows and
-    K = 3 to 5 at layer 0 (the pendulum's observation)."""
+    (register tile, transposed: mlp h_{i-1}^T, d2rl [h_{i-1} | x]^T,
+    densenet the stream prefix^T; tensor-core tile, row-major: mlp
+    h_{i-1}, d2rl [h_{i-1} | x] of one slab, densenet the padded stream's
+    prefix) and wrote where the next reads, for 1 to 4 layers, ragged rows
+    and K = 3 to 5 at layer 0 (the pendulum's observation). U = 301 keeps
+    the register tile either way (TMA's rows are 16 bytes)."""
     lib = _EmulatingLib(act)
     monkeypatch.setattr(tstack, "_library", lambda: lib)
     x, ws, bs = _stack(conn, m, d0, u, n_layers, seed=n_layers)
     ws = [w / np.sqrt(w.shape[0]) for w in ws]
     zs = torch.full((m, n_layers * u), float("nan"))
     with torch.no_grad():
-        out = tstack._kernel_forward(x, ws, bs, conn, act, zs)
-    assert {n for n, _ in lib.calls} == {"dense_fwd_stream_init",
-                                         "dense_layer_fwd_rt"}
+        out = tstack._kernel_forward(x, ws, bs, conn, act, zs, tc=tc)
+    on_tc = tc and u % 4 == 0
+    assert {n for n, _ in lib.calls} == (
+        {"dense_layer_fwd_tc"} if on_tc
+        else {"dense_fwd_stream_init", "dense_layer_fwd_rt"})
     want = tstack.dense_stack_ref(x, ws, bs, connectivity=conn,
                                   activation=act)
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
@@ -514,15 +649,17 @@ def test_whole_stack_launch_plan(recorded, name, m, with_zs):
 
 def test_forward_takes_every_kernel_on_the_training_shapes():
     """At the training path's shapes the wide stacks stream at the actor
-    pool's 32 rows and take the register tile at the batch, the OFENet
+    pool's 32 rows and take the tensor-core tile at the batch (the
+    register tile where the tensor-core tile is not asked for), the OFENet
     stacks take the whole-stack kernel at both; ``dense_tile.cuh`` is left
     to mlp and d2rl past 32 rows."""
-    kinds = {tstack.fwd_kernel_of(tstack.plan_fwd(m, u, d0, 132,
-                                                  stack=(d0, n))[0])
-             for m, d0, u, n in [(32, 3, 64, 4), (32, 259, 2048, 2),
-                                 (256, 3, 64, 4), (256, 260, 64, 4),
-                                 (256, 259, 2048, 2), (256, 516, 2048, 2)]}
-    assert kinds == set(tstack.FWD_KERNELS) - {"tile"}
+    shapes = [(32, 3, 64, 4), (32, 259, 2048, 2), (256, 3, 64, 4),
+              (256, 260, 64, 4), (256, 259, 2048, 2), (256, 516, 2048, 2)]
+    kinds = {tc: {tstack.fwd_kernel_of(tstack.plan_fwd(
+        m, u, d0, 132, stack=(d0, n), tc=tc)[0]) for m, d0, u, n in shapes}
+        for tc in (True, False)}
+    assert kinds[True] == set(tstack.FWD_KERNELS) - {"tile", "rt"}
+    assert kinds[False] == set(tstack.FWD_KERNELS) - {"tile", "tc"}
     assert tstack.fwd_kernel_of(tstack.plan_fwd(
         256, 64, 3, 132, transposed=False)[0]) == "tile"
 

@@ -16,11 +16,14 @@ the members twins loop the solo plain version. On the CPU:
   the same plans (tiles, splits, 16-byte copies), each once for all
   members, the member count and every operand's member stride passed
   (0 for a shared one), E sets of split counters; the register tile's
-  mlp and d2rl stacks and the whole-stack backward included.
+  and the tensor-core tile's mlp and d2rl stacks and the whole-stack
+  backward included. The forward plans a member call for its E members
+  (``plan_fwd``'s ``members``: the tensor-core tile's splits), so the
+  solo call is planned as one of E members here.
 
 On the card (skipped without one), each member kernel is bitwise E solo
-launches, forward and backward, at every forward kernel's shapes, a shared
-weight included:
+launches of the same plan, forward and backward, at every forward kernel's
+shapes, a shared weight included:
 
     python -m pytest tests/test_torch_stack_members.py -k cuda
 """
@@ -243,25 +246,41 @@ def _same_plan(solo, member, e):
     return margs[n + 1:-1]
 
 
+def _planned_for(monkeypatch, members):
+    """``plan_fwd`` planning every call for ``members`` members: a solo
+    call then takes a member call's plan."""
+    real = tstack.plan_fwd
+
+    def plan(*args, members=1, **kw):      # the caller's count, replaced
+        return real(*args, members=count, **kw)
+    count = members
+    monkeypatch.setattr(tstack, "plan_fwd", plan)
+
+
 @pytest.mark.parametrize("conn,m,d0,u,n_layers", [
-    ("densenet", 128, 300, 128, 2),     # register tile, split K
+    ("densenet", 128, 300, 128, 2),     # tensor-core tile, split K
     ("densenet", 201, 37, 301, 3),      # register tile, ragged
     ("densenet", 8, 40, 64, 2),         # the whole-stack kernel
     ("densenet", 8, 40, 128, 2),        # streaming, split K
     ("densenet", 1, 3, 256, 2),         # streaming, a 12-byte member x
-    ("mlp", 128, 130, 128, 2),          # register tile over h^T
-    ("d2rl", 128, 4, 128, 3),           # register tile over [h | x]^T
+    ("densenet", 256, 259, 2048, 2),    # the actor: tensor-core tile
+    ("mlp", 128, 130, 128, 2),          # tensor-core tile, x padded
+    ("mlp", 201, 3, 301, 3),            # register tile over h^T
+    ("d2rl", 128, 4, 128, 3),           # tensor-core tile over [h | x]
+    ("d2rl", 201, 4, 301, 3),           # register tile over [h | x]^T
     ("densenet", 256, 260, 64, 4),      # phi_sa: whole forward and back
     ("d2rl", 8, 40, 64, 3),             # streaming, two segments
     ("d2rl", 256, 20, 64, 3)])          # U < 128: dense_tile.cuh
-def test_member_launches_are_the_solo_plans(recorded, conn, m, d0, u,
-                                            n_layers):
+def test_member_launches_are_the_solo_plans(recorded, monkeypatch, conn, m,
+                                            d0, u, n_layers):
     """Forward and backward: the member call launches what one solo
-    member launches, once for all E, with each operand's member stride
-    (layer 1's weight shared: stride 0) and E sets of split counters."""
+    member launches (planned as one of E members), once for all E, with
+    each operand's member stride (layer 1's weight shared: stride 0) and E
+    sets of split counters."""
     libs, asked = recorded
     x, ws, bs, g = _members(conn, E, m, d0, u, n_layers)
     ws[1] = ws[1][:1].expand(E, *ws[1].shape[1:])       # shared, stride 0
+    _planned_for(monkeypatch, E)
     runs = {}
     for name, (xx, ww, bb, gg) in {
             "solo": (x[0], [w[0] for w in ws], [b[0] for b in bs], g[0]),
@@ -293,7 +312,8 @@ def test_member_launches_are_the_solo_plans(recorded, conn, m, d0, u,
         assert w_strides[:2] == [ws[0].stride(0), 0]
     else:
         slot = {"dense_layer_fwd_members": 2, "dense_layer_fwd_rt_members": 1,
-                "dense_layer_fwd_stream_members": 2}
+                "dense_layer_fwd_stream_members": 2,
+                "dense_layer_fwd_tc_members": 1}
         assert [st[slot[n]] for n, st in layers[:2]] == [ws[0].stride(0), 0]
     assert tstack.bwd_launch_count() == 2
 
@@ -324,9 +344,14 @@ def cuda_device():
     ("d2rl", 256, 4, 128, 3),           # register tile over [h | x]^T
     ("mlp", 256, 3, 64, 3),             # U < 128: dense_tile.cuh
     ("d2rl", 8, 40, 64, 3)])            # streaming, two segments
-def test_cuda_member_kernels_are_bitwise_solo_launches(cuda_device, conn, m,
+def test_cuda_member_kernels_are_bitwise_solo_launches(cuda_device,
+                                                       monkeypatch, conn, m,
                                                        d0, u, n_layers):
+    """Every member launch bitwise E solo launches of its plan: the solo
+    calls are planned as one of E members (the tensor-core tile's split
+    counts the members)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    _planned_for(monkeypatch, E)
     x, ws, bs, g = (t.to(cuda_device) if isinstance(t, torch.Tensor)
                     else [v.to(cuda_device) for v in t]
                     for t in _members(conn, E, m, d0, u, n_layers, seed=7))
