@@ -203,13 +203,12 @@ Phases (any failure raises and exits non-zero; nothing of JAX is imported):
    Fused fleets (``phase_fleet_fused``, ``[fleet-fused]``,
    ``[fleet-fused-train]`` lines): the stack kernels with a member axis
    at E=5 (the whole-stack kernel on ``phi_s`` and ``phi_sa`` at 256
-   rows, streaming on the actor at 1 and 32, the register tile on the
-   critic at 256 and, over h^T, on fig3-width's mlp actor and critic and
-   a d2rl stack at U=2048, each beside the old ``dense_tile.cuh`` path;
-   the backward of the critic and, whole, of ``phi_s`` and ``phi_sa``,
-   each beside the per-layer kernels): one launch per solo
-   launch for all members, bitwise five solo launches (output,
-   pre-activations, every gradient), within 1e-4 / 1e-3 of the members
+   rows, streaming on the actor at 1 and 32, the tensor-core tile on the
+   critic at 256, on fig3-width's mlp actor and critic and a d2rl stack at
+   U=2048; the backward of the critic and, whole, of ``phi_s`` and
+   ``phi_sa``, each beside the per-layer kernels): one launch per solo
+   launch for all members, bitwise five solo launches of the same plans
+   (output, pre-activations, every gradient), within 1e-4 / 1e-3 of the members
    twin, timed beside five solo calls, the twin, the jnp fleet's
    ``baddbmm`` products and the bound times E; the fig3-width U=2048 x 5
    fleet with ``block_backend="fused"`` from the jnp fleet's initial
@@ -1075,23 +1074,40 @@ def time_hidden(name, conn, d0, gen, m=256, u=2048, L=2):
 
 
 # the benchmark cells' wide stacks at the batch (name, connectivity, E,
-# d0, L): fig3's U=2048 critic solo and as a 5-seed fleet (fleet5), Fig.
-# 4's L=16 fleet (x16), the densenet actor and critic (graph)
-TC_NETS = (("fig3_critic", "mlp", None, 4, 2), ("fig3_critic", "mlp", 5, 4, 2),
-           ("x16_critic", "mlp", 5, 4, 16), ("actor", "densenet", None, 259, 2),
-           ("critic", "densenet", None, 260, 2))
+# d0, L, U): fig3's U=2048 critic solo and as a 5-seed fleet (fleet5), Fig.
+# 4's L=16 fleet (x16), the densenet actor and critic (graph); and
+# narrower stacks with a thin first layer (fig3-width's critics, a d2rl
+# and a deep one), where plan_fwd_stack keeps the register tile (U = 128
+# and U = 256 solo at L = 2) or not
+TC_NETS = (("fig3_critic", "mlp", None, 4, 2, 2048),
+           ("fig3_critic", "mlp", 5, 4, 2, 2048),
+           ("x16_critic", "mlp", 5, 4, 16, 2048),
+           ("actor", "densenet", None, 259, 2, 2048),
+           ("critic", "densenet", None, 260, 2, 2048),
+           ("fig3_critic_u128", "mlp", None, 4, 2, 128),
+           ("fig3_critic_u128", "mlp", 5, 4, 2, 128),
+           ("d2rl_u128", "d2rl", None, 4, 2, 128),
+           ("deep_u128", "mlp", None, 4, 16, 128),
+           ("fig3_critic_u256", "mlp", None, 4, 2, 256),
+           ("fig3_critic_u256", "mlp", 5, 4, 2, 256),
+           ("fig3_critic_u512", "mlp", None, 4, 2, 512),
+           ("fig3_critic_u512", "mlp", 5, 4, 2, 512),
+           ("fig3_critic_u1024", "mlp", None, 4, 2, 1024))
 
 
-def time_tc(name, conn, e, d0, L, gen, m=256, u=2048):
+def time_tc(name, conn, e, d0, L, u, gen, m=256):
     """One stack forward (swish) at M rows, solo or E members in one
-    launch: the tensor-core tile (``plan_fwd``'s), the register tile
-    (``tc=False``), the plain version (its members twin for E), the
-    library yardstick the port never calls (``addmm`` + ``silu`` a layer;
-    ``baddbmm`` + ``silu`` for E), each cycling its weights through
-    copies larger than the 50 MB L2, beside the bound: the fp32
-    operations at the 3xTF32 ceiling (3 TF32 products each at 495
-    TFLOP/s: 165 TFLOP/s of fp32 work), and what ``stack_fwd_roofline``
-    divides by (one product at 495). Launches by path a call."""
+    launch: the tile ``plan_fwd_stack`` picks (``_kernel_forward``) and
+    the other wide tile (``_forward_planned``: the register tile on
+    ``_plan_rt``'s plans, or the tensor-core tile on ``plan_fwd``'s), the
+    plain version (its members twin for E), the library yardstick the port
+    never calls (``addmm`` + ``silu`` a layer; ``baddbmm`` + ``silu`` for
+    E), each cycling its weights through copies larger than the 50 MB L2,
+    beside the bound: the fp32 operations at the 3xTF32 ceiling (3 TF32
+    products each at 495 TFLOP/s: 165 TFLOP/s of fp32 work), and what
+    ``stack_fwd_roofline`` divides by (one product at 495). Both tiles are
+    held to the plain version (``close_enough``). Launches by path a
+    call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.dense_block import stack
@@ -1107,12 +1123,23 @@ def time_tc(name, conn, e, d0, L, gen, m=256, u=2048):
     wbytes = 4 * sum(w.numel() + b.numel() for w, b in zip(ws0, bs0))
     copies = [([w.clone() for w in ws0], [b.clone() for b in bs0])
               for _ in range(max(2, math.ceil(120e6 / wbytes)))]
+    ks = [w.shape[-2] for w in ws0]
+    picked = stack.fwd_kernel_of(stack.plan_fwd_stack(
+        m, u, ks, num_sms(), members=e or 1)[0][0])
+    tc_plans = [stack.plan_fwd(m, u, k, num_sms(), members=e or 1)
+                for k in ks]
+    rt_plans = [stack._plan_rt(m, u, k, num_sms()) for k in ks]
 
     def kernel(c):
         return stack._kernel_forward(x, c[0], c[1], conn, "swish")
 
+    def tc(c):
+        return stack._forward_planned(x, c[0], c[1], conn, "swish", None,
+                                      tc_plans)
+
     def simt(c):
-        return stack._kernel_forward(x, c[0], c[1], conn, "swish", tc=False)
+        return stack._forward_planned(x, c[0], c[1], conn, "swish", None,
+                                      rt_plans)
 
     def plain(c):
         if e is None:
@@ -1123,7 +1150,8 @@ def time_tc(name, conn, e, d0, L, gen, m=256, u=2048):
     def library(c):
         h = stream = x
         for i, (w, b) in enumerate(zip(*c)):
-            inp = stream if conn == "densenet" else h
+            inp = stream if conn == "densenet" else \
+                torch.cat([h, x], -1) if conn == "d2rl" and i else h
             z = torch.addmm(b, inp, w) if e is None else \
                 torch.baddbmm(b.unsqueeze(1), inp, w)
             h = F.silu(z)
@@ -1136,43 +1164,58 @@ def time_tc(name, conn, e, d0, L, gen, m=256, u=2048):
     ran = {k: stack.launch_count(k) - before[k] for k in stack.FWD_KERNELS
            if stack.launch_count(k) - before[k]}
     ran["transpose"] = stack.transpose_count() - t_before
-    if ran.get("tc") != L:
+    if ran.get(picked) != L or ran["transpose"] != int(picked == "rt"):
         raise AssertionError(f"{name}: launches {ran}, want {L} on the "
-                             f"tensor-core tile")
-    _, err = close_enough(got, plain(copies[0]))
-    _, err_simt = close_enough(simt(copies[0]), plain(copies[0]))
-    t_k, h_k = time_ms(kernel, copies)
+                             f"planned tile ({picked})")
+    want = plain(copies[0])
+    errs = {}
+    for tile, f in (("picked", kernel), ("tc", tc), ("rt", simt)):
+        ok, errs[tile] = close_enough(got if tile == "picked" else
+                                      f(copies[0]), want)
+        if not ok:
+            raise AssertionError(f"{name} E={e or 1}: {tile} tile "
+                                 f"{errs[tile]:.3e} from the plain version")
+    t_c, h_k = time_ms(tc, copies)
     t_s, _ = time_ms(simt, copies)
+    t_k, _ = time_ms(kernel, copies)
     t_p, _ = time_ms(plain, copies, reps=4, repeats=3)
     t_l, _ = time_ms(library, copies)
     t_k2, _ = time_ms(kernel, copies)
     t_s2, _ = time_ms(simt, copies)
+    t_c2, _ = time_ms(tc, copies)
     flops = 2 * m * (e or 1) * sum(w.shape[-2] * w.shape[-1] for w in ws0)
     bound_3x = 3 * flops / 495e12 * 1e3
     bound_1x = flops / 495e12 * 1e3
-    r = dict(ms=min(t_k, t_k2), simt_ms=min(t_s, t_s2), plain_ms=t_p,
-             library_ms=t_l, bound_ms=bound_3x, bound_by="operations",
-             roofline_1x_ms=bound_1x, max_abs_err=err,
-             max_abs_err_simt=err_simt, host_ms=h_k, launches=ran)
+    r = dict(picked=picked, ms=min(t_k, t_k2), tc_ms=min(t_c, t_c2),
+             simt_ms=min(t_s, t_s2), plain_ms=t_p, library_ms=t_l,
+             bound_ms=bound_3x, bound_by="operations",
+             roofline_1x_ms=bound_1x, max_abs_err=errs["picked"],
+             max_abs_err_tc=errs["tc"], max_abs_err_simt=errs["rt"],
+             host_ms=h_k, launches=ran)
+    faster = "tc" if r["tc_ms"] < r["simt_ms"] else "rt"
     log(f"[time-tc] {name} ({conn}, E={e or 1}) M={m} d0={d0} U={u} L={L}: "
-        f"tensor-core tile {r['ms'] * 1e3:8.1f} us (runs {t_k * 1e3:.1f}/"
-        f"{t_k2 * 1e3:.1f}; {flops / r['ms'] / 1e9:.1f} TFLOP/s of fp32 "
-        f"work), register tile {r['simt_ms'] * 1e3:8.1f} us (runs "
-        f"{t_s * 1e3:.1f}/{t_s2 * 1e3:.1f}; x{r['simt_ms'] / r['ms']:.2f}), "
+        f"planned {picked} {r['ms'] * 1e3:8.1f} us; tensor-core tile "
+        f"{r['tc_ms'] * 1e3:8.1f} us (runs {t_c * 1e3:.1f}/{t_c2 * 1e3:.1f}"
+        f"; {flops / r['tc_ms'] / 1e9:.1f} TFLOP/s of fp32 work), register "
+        f"tile {r['simt_ms'] * 1e3:8.1f} us (runs {t_s * 1e3:.1f}/"
+        f"{t_s2 * 1e3:.1f}; rt / tc x{r['simt_ms'] / r['tc_ms']:.2f}; the "
+        f"plan {'took' if faster == picked else 'MISSED'} the faster), "
         f"plain {t_p * 1e3:8.1f} us, library {t_l * 1e3:8.1f} us "
         f"({'faster' if r['ms'] <= t_l else 'SLOWER'} than it), bound "
         f"{bound_3x * 1e3:6.1f} us (3xTF32: {flops / 1e9:.2f} GFLOP x 3 at "
-        f"495 TFLOP/s; {100 * bound_3x / r['ms']:.0f}% of it; one product "
-        f"at 495: {100 * bound_1x / r['ms']:.1f}%), max abs err "
-        f"{err:.2e} (register tile {err_simt:.2e}); launches a call {ran}")
+        f"495 TFLOP/s; {100 * bound_3x / r['tc_ms']:.0f}% of it on the "
+        f"tensor-core tile; one product at 495: "
+        f"{100 * bound_1x / r['tc_ms']:.1f}%), max abs err "
+        f"{errs['picked']:.2e} (tensor-core {errs['tc']:.2e}, register "
+        f"{errs['rt']:.2e}); launches a call {ran}")
     return r
 
 
 def phase_tc_times(gen):
-    """The tensor-core tile at the benchmark cells' stacks (``TC_NETS``).
-    Keys ``(name, E)``."""
-    return {(name, e or 1): time_tc(name, conn, e, d0, L, gen)
-            for name, conn, e, d0, L in TC_NETS}
+    """Both wide tiles at the benchmark cells' stacks and at fig3-width's
+    narrower critics (``TC_NETS``). Keys ``(name, E)``."""
+    return {(name, e or 1): time_tc(name, conn, e, d0, L, u, gen)
+            for name, conn, e, d0, L, u in TC_NETS}
 
 
 def phase_times(params, gen):
@@ -1197,7 +1240,7 @@ def phase_times(params, gen):
     return rows
 
 
-def expected_launches(tr):
+def expected_launches(tr, members=1):
     """Kernel launches of one training superstep, read off the code.
 
     SAC (``sac_update``). Stack forwards: collect's ``sample_action``
@@ -1221,9 +1264,10 @@ def expected_launches(tr):
     Stack backwards: aux (phi_sa, phi_s), critic loss (q1, q2), actor
     loss (q1 for dx, phi_sa for dx, the actor for dW): 7.
 
-    ``fwd_<kernel>`` counts launches by the kernel ``plan_fwd`` gives each
-    call: one a layer, but one a stack on the whole-stack kernel (phi_s
-    and phi_sa at the batch); the actor and the critics take the
+    ``fwd_<kernel>`` counts launches by the kernel ``plan_fwd_stack``
+    gives each call (planned for ``members``, a fleet's): one a layer,
+    but one a stack on the whole-stack kernel (phi_s and phi_sa at the
+    batch); the actor and the critics take the
     tensor-core tile at 256 rows (densenet, mlp and d2rl alike at U >= 128,
     U a multiple of 4; the register tile otherwise), every stack the
     streaming kernel at 32; ``fwd_t`` counts the register tile's
@@ -1247,9 +1291,12 @@ def expected_launches(tr):
     def calls(n, m, blk):
         nonlocal layers
         dense = blk.connectivity == "densenet"
-        kind = stack.fwd_kernel_of(stack.plan_fwd(
-            m, blk.num_units, blk.in_dim, num_sms(),
-            stack=(blk.in_dim, blk.num_layers) if dense else None)[0])
+        ks = [stack.in_dim(blk.connectivity, i, blk.in_dim, blk.num_units)
+              for i in range(blk.num_layers)]
+        kind = stack.fwd_kernel_of(stack.plan_fwd_stack(
+            m, blk.num_units, ks, num_sms(),
+            stack=(blk.in_dim, blk.num_layers) if dense else None,
+            members=members)[0][0])
         want[f"fwd_{kind}"] += n * (1 if kind == "whole"
                                     else blk.num_layers)
         layers += n * blk.num_layers
@@ -1549,7 +1596,7 @@ def fwd_class(key):
         return "whole"
     if "stream_kernel<" in key:
         return "stream"
-    if "fwd_tc_kernel" in key:
+    if "fwd_tc_kernel" in key or "fwd_tc_members" in key:
         return "tc"
     if "fwd_tile_kernel" in key:
         return "wide"
@@ -3983,11 +4030,15 @@ def fused_member_kernels(gen, e=FLEET_E):
         got = stack.dense_stack_members(x, ws, bs, connectivity=conn, zs=zs)
         member = {k: v - b[k] for k, v in _counts().items()}
         b = _counts()
+        # the solo launches of the member launch's plans (planned for E)
+        plans = stack.plan_fwd_stack(
+            m, u, [w.shape[-2] for w in ws], num_sms(),
+            stack=(d0, L) if conn == "densenet" else None, members=e)
         want = []
         for xe, we, be in solo:
             z1 = torch.empty((m, L * u), device="cuda")
-            want.append((stack._kernel_forward(xe, we, be, conn, "swish",
-                                               z1), z1))
+            want.append((stack._forward_planned(xe, we, be, conn, "swish",
+                                                z1, plans), z1))
         per_solo = {k: v - b[k] for k, v in _counts().items()}
         torch.cuda.synchronize()
         kinds = [k for k in stack.FWD_KERNELS if member[f"fwd_{k}"]]
@@ -4117,10 +4168,11 @@ def _count_steps(tr, per_call):
     tr.fleet_step = counted
 
 
-def _capture_counts(tr, per_call, tag):
+def _capture_counts(tr, per_call, tag, members):
     """The fleet's warm-up and captured supersteps launch what one solo
-    superstep launches (``expected_launches``): once for all members."""
-    want = expected_launches(tr)
+    superstep planned for its ``members`` launches (``expected_launches``):
+    once for all members."""
+    want = expected_launches(tr, members)
     keys = [k for k in want if k in per_call[0]]
     got = [{k: c[k] for k in keys} for c in per_call]
     if got != [{k: want[k] for k in keys}] * 2:
@@ -4163,7 +4215,7 @@ def fused_fleet_fig3(jnp_fleet, fls0):
         del tr.fleet_step
         first.update(t_cap=time.perf_counter() - t0, launches=_counts(),
                      at_capture=_capture_counts(tr, per_call,
-                                                "fleet-fused"))
+                                                "fleet-fused", FLEET_E))
     t0 = time.perf_counter()
     try:
         held = fleet_parity.hold_members(fl, {0: exp}, FLEET_STEPS,
@@ -4230,7 +4282,8 @@ def fused_fleet_train(train_spec):
         fl.run(1)
     finally:
         del tr.fleet_step
-    at_capture = _capture_counts(tr, per_call, "fleet-fused-train")
+    at_capture = _capture_counts(tr, per_call, "fleet-fused-train",
+                                 FUSED_TRAIN_E)
     fl.run(FUSED_TRAIN_STEPS - 1)
     torch.cuda.synchronize()
     launches = _counts()

@@ -49,11 +49,15 @@
 //     the register tile at every layer past a thin first one from U =
 //     256 up, solo and at 5 members; the thin first layer (K = 4) and U =
 //     128 at K = 128 keep a fixed cost a block that the register tile
-//     does not have. A stack keeps one tile; plan_fwd's docstring keeps
-//     the numbers.
+//     does not have. A stack keeps one tile (plan_fwd_stack), the
+//     register tile where its first layer is thin and its other layers
+//     hold under 2.5e7 multiply-adds over all members (at M = 256 the
+//     2- and 3-layer stacks of U = 128, the 2-layer ones of U = 256 solo);
+//     plan_fwd's and
+//     plan_fwd_stack's docstrings keep the numbers.
 //   M >= 128 with U >= 128 where the tensor-core tile does not take the
-//     layer (U not a multiple of 4: TMA's rows are 16 bytes; or
-//     stack.py's _kernel_forward(..., tc=False)): the register tile of
+//     layer (U not a multiple of 4: TMA's rows are 16 bytes; a thin small
+//     stack, above): the register tile of
 //     dense_tile_rt.cuh
 //     (128x64 tiles, 8x4 outputs a thread, 16 FMAs per shared load, a
 //     cp.async ring). It computes A^T @ B with both operands stored along

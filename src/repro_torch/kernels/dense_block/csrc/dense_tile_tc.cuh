@@ -44,12 +44,15 @@
 // ping-pong buffers (d2rl's [h | x] slabs), so the transposed copies and
 // init launches of the register tile's path are not needed.
 //
-// The crossover with the register tile (stack.py's plan_fwd, from the
-// card sweep at M = 256): this tile wins every layer but a thin first one
-// (K = d0 = 3 or 4: a fixed cost a block, ~11 us against ~6) from U = 256
-// up, solo and at 5 members; plan_fwd gives it every layer of a stack from
-// U = 128 with U a multiple of 4 (a stack keeps one tile), the register
-// tile the rest.
+// The crossover with the register tile (stack.py's plan_fwd and
+// plan_fwd_stack, from the card sweep at M = 256): this tile wins every
+// layer but a thin first one (K = d0 = 3 or 4: a fixed cost a block, ~11
+// us against ~6) from U = 256 up, solo and at 5 members, and ties at U =
+// 128. A stack keeps one tile: this one from U = 128 with U a multiple of
+// 4, unless its first layer is thin and its other layers hold under 2.5e7
+// multiply-adds over all members (at M = 256 the 2- and 3-layer stacks of
+// U = 128, the 2-layer ones of U = 256 solo), which keeps the register
+// tile.
 //
 // A block: 384 threads. Warp 0 is the producer (one lane issues the TMA
 // loads into a ring of kStages stages, 48 KB each: W 16 KB, x 16 KB, lo 16

@@ -133,12 +133,21 @@ _RT_FWD_CONFIG = 4
 _RT_FWD_MIN_CHUNKS = 16
 # the forward's tensor-core tile (dense_tile_tc.cuh, 3xTF32 on wgmma): its
 # config id, its (rows, features, K a stage) tile, the fewest K chunks a
-# split takes, and what a split costs in chunks of one block's work (its
-# partial tile written and read back by the tile's last block)
+# split takes; a block's fixed cost (prologue, epilogue) in K chunks of its
+# work, and what each split past the first adds to a block of every wave
+# (the partial tile the tile's last block reads back); both fit to the
+# split sweep of launch/bwd_sweep.py --only fwd (M=256, U 128-2048, solo
+# and 5 members, H100): the plan then takes the fastest split at every
+# shape of the benchmark cells' stacks
 _TC_CONFIG = 7
 _TC_TILE = (128, 128, 32)
 _TC_MIN_CHUNKS = 4
-_TC_SPLIT_CHUNKS = 2
+_TC_BLOCK_CHUNKS = 4
+_TC_SPLIT_CHUNKS = 0.75
+# a stack whose first layer is thin (K at most one K step of the
+# tensor-core tile) keeps the register tile while its other layers hold
+# fewer multiply-adds than this, over all members (see plan_fwd_stack)
+_TC_THIN_STACK_MACS = 25_000_000
 # act_grad_kernel's row blocks: rows of per-block column sums for db
 _ACT_ROW_BLOCKS = 8
 # the forward's weight-streaming kernel (dense_stack_fwd.cu stream_kernel):
@@ -592,8 +601,8 @@ def whole_bwd_blocks(m: int, d0: int, u: int, n_layers: int,
 
 def plan_fwd(m: int, n: int, k: int, num_sms: int,
              transposed: bool = True,
-             stack: Optional[Tuple[int, int]] = None, members: int = 1,
-             tc: bool = True) -> Tuple[int, int, int, int]:
+             stack: Optional[Tuple[int, int]] = None, members: int = 1
+             ) -> Tuple[int, int, int, int]:
     """``(config, tiles, splits, per_split)`` of one forward layer with an
     ``(m, n)`` output and a reduction of length ``k``, for ``members``
     fleet members in one launch; ``stack`` is the layer's densenet stack
@@ -617,38 +626,26 @@ def plan_fwd(m: int, n: int, k: int, num_sms: int,
     * at least ``_RT_MIN`` rows and columns, N a multiple of 4 (the TMA
       loads' 16-byte rows), every connectivity: the tensor-core tile
       (``_TC_CONFIG``, ``dense_tile_tc.cuh``: 3xTF32 on wgmma, 128 x 128
-      tiles, K in chunks of 32). The crossover, from the card sweep
-      (``launch/bwd_sweep.py --only fwd``, H100, M=256, one layer): it
-      beats the register tile at every layer past a thin first one, from
-      U = 256 up, solo and at 5 members (U = 2048, K = 2048: 36.4 against
-      76.1 us solo, 154.2 against 321.4 at 5 members; U = 256, K = 256:
-      17.7 against 20.0), and ties it at U = 128, K = 128 (14.7 against
-      14.5); at a thin first layer (K = d0 = 4) it loses at every width
-      (11.2-12.0 against 6.1-6.4 us solo; at U = 2048 and 5 members 22.0
-      against 9.1): a fixed cost a block (prologue, the fixup and the
-      activation in the epilogue). A stack keeps one tile for all its
-      layers (the register tile reads a transposed input that an init
-      launch starts and its layers extend), so the tile takes every
-      layer from U = 128: the densenet stacks (d0 = 259, 260) and the
-      deep or wide mlp stacks gain, while a 2-layer mlp or d2rl stack with
-      a thin first layer loses, summed over its layers, up to U = 512 solo
-      and U = 256 at 5 members (2.7-5.3 us a call). K is split to fill
-      the card with the launch's ``members``
-      x ``tiles`` blocks, one a SM: the split minimises waves x chunks per
-      split + ``_TC_SPLIT_CHUNKS`` a split past the first, ties to fewer
-      splits, at least ``_TC_MIN_CHUNKS`` chunks a split (U = 2048, K =
-      2048: 4 splits solo and at 3 or 5 members, 128 and 640 blocks).
+      tiles, K in chunks of 32), unless ``plan_fwd_stack`` keeps the
+      layer's stack on the register tile. K is split to fill the card
+      with the launch's ``members`` x ``tiles`` blocks, one a SM: the
+      split minimises waves x (chunks per split + ``_TC_BLOCK_CHUNKS`` +
+      ``_TC_SPLIT_CHUNKS`` a split past the first), ties to fewer splits,
+      at least ``_TC_MIN_CHUNKS`` chunks a split. At U = 2048, K = 2048:
+      4 splits solo (128 blocks; 36.4 us, against 43.5 at 3 and 51.0 at
+      5), 3 at 5 members (480 blocks; 140.5 us, against 151.6 at 2 and
+      154.2 at 4). The card sweep (``launch/bwd_sweep.py --only fwd``,
+      H100, M=256, one layer): it beats the register tile at every layer
+      but a thin first one from U = 256 up, solo and at 5 members (U =
+      2048, K = 2048: 36.4 against 76.1 us solo, 140.5 against 321.4 at 5
+      members; U = 256, K = 256: 17.7 against 20.0), and ties it at U =
+      128, K = 128 (14.7 against 14.5); at a thin first layer (K = d0 =
+      4) it loses at every width (11.2-12.0 against 6.1-6.4 us solo; at U
+      = 2048 and 5 members 22.0 against 9.1): a fixed cost a block
+      (prologue, the fixup and the activation in the epilogue).
     * the register tile's 128x64 tiles (``_RT_FWD_CONFIG``) where the
-      tensor-core tile does not take the layer (N not a multiple of 4, or
-      ``tc=False``: what the card's timing compares it with), with K
-      split into up to ``_BLOCKS_PER_SM`` blocks per SM, each with at
-      least ``_RT_FWD_MIN_CHUNKS`` chunks, planned as one solo member. The
-      rules follow the card (``launch/bwd_sweep.py``: the actor's and the
-      critic's layers at M=256, fig3-width's mlp critic, H100): a second
-      block per SM hides the first one's loads (the actor's layer 1: 84.4
-      us at 4 splits, 94.0 at 2; fig3's critic layer 1, K=2048: 76.5 us at
-      4, 85.5 at 2, 121.0 on ``dense_tile.cuh``), and a short K keeps
-      fewer splits (K=4: one zero-padded chunk, unsplit).
+      tensor-core tile does not take the layer (N not a multiple of 4; a
+      thin stack, ``plan_fwd_stack``): ``_plan_rt``.
     * otherwise (mlp and d2rl past 32 rows with U or M under
       ``_RT_MIN``, or with ``transposed=False``: the path before the
       register tile took them, ``_kernel_forward(..., mlp_rt=False)``; a
@@ -667,20 +664,35 @@ def plan_fwd(m: int, n: int, k: int, num_sms: int,
         return _STREAM_CONFIG, strips, -(-k // per_split), per_split
     if not (transposed and min(m, n) >= _RT_MIN):
         return plan(m, n, k, num_sms)
-    if tc and n % 4 == 0:
-        bm, bn, bk = _TC_TILE
-        tiles = -(-m // bm) * -(-n // bn)
-        chunks = -(-k // bk)
-        best = None
-        for want in range(1, max(1, chunks // _TC_MIN_CHUNKS) + 1):
-            per_split = -(-chunks // want)
-            splits = -(-chunks // per_split)
-            cost = -(-members * tiles * splits // num_sms) * per_split \
-                + _TC_SPLIT_CHUNKS * (splits - 1)
-            if best is None or (cost, splits) < best[0]:
-                best = ((cost, splits), (_TC_CONFIG, tiles, splits,
-                                         per_split))
-        return best[1]
+    if n % 4 != 0:
+        return _plan_rt(m, n, k, num_sms)
+    bm, bn, bk = _TC_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    chunks = -(-k // bk)
+    best = None
+    for want in range(1, max(1, chunks // _TC_MIN_CHUNKS) + 1):
+        per_split = -(-chunks // want)
+        splits = -(-chunks // per_split)
+        waves = -(-members * tiles * splits // num_sms)
+        cost = waves * (per_split + _TC_BLOCK_CHUNKS
+                        + _TC_SPLIT_CHUNKS * (splits - 1))
+        if best is None or (cost, splits) < best[0]:
+            best = ((cost, splits), (_TC_CONFIG, tiles, splits, per_split))
+    return best[1]
+
+
+def _plan_rt(m: int, n: int, k: int, num_sms: int
+             ) -> Tuple[int, int, int, int]:
+    """``plan_fwd``'s plan of one layer on the register tile's 128x64
+    tiles (``_RT_FWD_CONFIG``, its input transposed): K split into up to
+    ``_BLOCKS_PER_SM`` blocks per SM, each with at least
+    ``_RT_FWD_MIN_CHUNKS`` chunks, planned as one solo member. The rules
+    follow the card (``launch/bwd_sweep.py``: the actor's and the critic's
+    layers at M=256, fig3-width's mlp critic, H100): a second block per SM
+    hides the first one's loads (the actor's layer 1: 84.4 us at 4 splits,
+    94.0 at 2; fig3's critic layer 1, K=2048: 76.5 us at 4, 85.5 at 2,
+    121.0 on ``dense_tile.cuh``), and a short K keeps fewer splits (K=4:
+    one zero-padded chunk, unsplit)."""
     bm, bn, bk = _RT_CONFIGS[_RT_FWD_CONFIG]
     tiles = -(-m // bm) * -(-n // bn)
     chunks = -(-k // bk)
@@ -688,6 +700,37 @@ def plan_fwd(m: int, n: int, k: int, num_sms: int,
                         chunks // _RT_FWD_MIN_CHUNKS))
     per_split = -(-chunks // splits)
     return _RT_FWD_CONFIG, tiles, -(-chunks // per_split), per_split
+
+
+def plan_fwd_stack(m: int, u: int, ks: Sequence[int], num_sms: int,
+                   transposed: bool = True,
+                   stack: Optional[Tuple[int, int]] = None,
+                   members: int = 1) -> List[Tuple[int, int, int, int]]:
+    """``plan_fwd``'s plans of a stack's layers (reductions ``ks``, ``u``
+    features each, ``m`` rows, ``members`` members a launch), with one tile
+    for the whole stack: the register tile reads a transposed input that
+    an init launch starts and its layers extend, the tensor-core tile a
+    row-major one. Where ``plan_fwd`` gives the layers the tensor-core
+    tile, the stack keeps the register tile (``_plan_rt``) if its first
+    layer is thin (K at most one K step, ``_TC_TILE[2]``) and its other
+    layers hold fewer than ``_TC_THIN_STACK_MACS`` multiply-adds over all
+    members: the tensor-core tile's thin layer costs ~5 us more than the
+    register tile's (11.2 against 6.1 us), more than it saves on so little
+    work, though the register tile's init launch (x^T) costs ~3 us too.
+    Whole stacks with a 4-wide first layer on the card (``chip_smoke.py``'s
+    ``time_tc``, H100, M=256), register against tensor-core tile: mlp U =
+    128, 2 layers, 23.9 / 26.0 us solo (other layers 4.2 M multiply-adds),
+    25.2 / 26.2 at 5 members (21 M); 3 layers 39.2 / 40.7 (8.4 M); d2rl U =
+    128, 2 layers, 24.4 / 32.3; U = 256 29.1 / 28.9 solo (17 M, a tie). Past the threshold the tensor-core
+    tile wins: U = 128, 16 layers, 238.6 / 231.5 solo (63 M), 257.5 /
+    239.4 at 5 members; U = 256 at 5 members 31.6 / 29.7 (84 M); U = 512
+    34.2 / 30.5 solo (67 M)."""
+    plans = [plan_fwd(m, u, k, num_sms, transposed=transposed, stack=stack,
+                      members=members) for k in ks]
+    if plans[0][0] == _TC_CONFIG and ks[0] <= _TC_TILE[2] and \
+            m * u * members * sum(ks[1:]) < _TC_THIN_STACK_MACS:
+        return [_plan_rt(m, u, k, num_sms) for k in ks]
+    return plans
 
 
 def vec_aligned(*operands: Tuple[int, int]) -> bool:
@@ -1001,72 +1044,80 @@ def _stream_init(lib, x: torch.Tensor, dst: Optional[torch.Tensor],
 
 def _kernel_forward(x: torch.Tensor, ws, bs, connectivity: str,
                     activation: str, zs: Optional[torch.Tensor] = None,
-                    whole: bool = True, mlp_rt: bool = True,
-                    tc: bool = True) -> torch.Tensor:
+                    whole: bool = True, mlp_rt: bool = True) -> torch.Tensor:
     """The stack's feature; with ``zs`` (``(M, L*U)``), layer i also stores
     its pre-activation into columns ``[i*U, (i+1)*U)``. ``whole=False``
     keeps a narrow densenet stack on the per-layer kernels (what the card
     sweep compares the whole-stack kernel with); ``mlp_rt=False`` keeps
     mlp and d2rl past 32 rows on ``dense_tile.cuh`` (what the card's timing
-    compares their register tile with); ``tc=False`` keeps the wide layers
-    on the register tile (what it compares the tensor-core tile with).
-    With a leading member axis (``x`` (E, M, d0), ``ws`` (E, K_i, U),
-    ``bs`` (E, U), ``zs`` (E, M, L*U)) E members run in one launch per
-    solo launch, planned for E members (``plan_fwd``'s ``members``)."""
+    compares their register tile with). With a leading member axis (``x``
+    (E, M, d0), ``ws`` (E, K_i, U), ``bs`` (E, U), ``zs`` (E, M, L*U)) E
+    members run in one launch per solo launch, planned for E members
+    (``plan_fwd_stack``'s ``members``)."""
     _check_cuda(x, ws, bs, connectivity)
+    e = x.shape[0] if x.dim() == 3 else None
+    m, d0 = x.shape[-2:]
+    if m == 0 or e == 0:
+        return _forward_planned(x, ws, bs, connectivity, activation, zs, [])
+    dense = connectivity == "densenet"
+    plans = plan_fwd_stack(
+        m, ws[0].shape[-1], [w.shape[-2] for w in ws],
+        _device_info(x.device)[0],
+        transposed=dense or mlp_rt,
+        stack=(d0, len(ws)) if dense and whole else None, members=e or 1)
+    return _forward_planned(x, ws, bs, connectivity, activation, zs, plans)
+
+
+def _forward_planned(x: torch.Tensor, ws, bs, connectivity: str,
+                     activation: str, zs: Optional[torch.Tensor], plans
+                     ) -> torch.Tensor:
+    """``_kernel_forward`` by the given layer ``plans`` (the stack's one
+    tile in each: ``plan_fwd_stack``'s, or for timing another tile's, as
+    ``_plan_rt`` plans the register tile)."""
     lead = tuple(x.shape[:-2])
-    e = lead[0] if lead else None
     m, d0 = x.shape[-2:]
     n_layers, u = len(ws), ws[0].shape[-1]
     dev = x.device
     out_w = feature_dim(connectivity, n_layers, d0, u)
-    if m == 0 or e == 0:
+    if m == 0 or 0 in lead:
         return torch.empty((*lead, m, out_w), device=dev,
                            dtype=torch.float32)
     lib = _library()
     act = _ACT_CODE[activation]
+    kind = plans[0][0]                  # every layer alike: one tile
     with torch.cuda.device(dev):
-        num_sms, stream = _device_info(dev)
+        stream = _device_info(dev)[1]
 
         def z_slot(i):
             return None if zs is None else (zs, i * u)
+        if kind == _TC_CONFIG:
+            return _tc_stack(lib, x, ws, bs, connectivity, plans, zs, act,
+                             stream)
         if connectivity == "densenet":
             out = torch.empty((*lead, m, out_w), device=dev,
                               dtype=torch.float32)
-            plans = [plan_fwd(m, u, d0 + i * u, num_sms,
-                              stack=(d0, n_layers) if whole else None,
-                              members=e or 1, tc=tc)
-                     for i in range(n_layers)]
-            if plans[0][0] == _WHOLE_CONFIG:    # every layer alike: m, u
+            if kind == _WHOLE_CONFIG:
                 _launch_whole(lib, x, ws, bs, out, zs, act, plans[0][3],
                               stream)
                 return out
-            if plans[0][0] == _TC_CONFIG:       # every layer alike: m, u
-                return _tc_stack(lib, x, ws, bs, connectivity, plans, zs,
-                                 act, stream, out)
             st = None                   # stream^T: x^T, y_0^T .. y_{L-2}^T
-            if plans[0][0] in _RT_CONFIGS:      # every layer alike: m, u
+            if kind in _RT_CONFIGS:
                 st = torch.empty((*lead, d0 + (n_layers - 1) * u, _pad4(m)),
                                  device=dev, dtype=torch.float32)
                 _stream_init(lib, x, out, st, 0, stream)
-            elif plans[0][0] != _STREAM_CONFIG:
+            elif kind != _STREAM_CONFIG:
                 out[..., :d0].copy_(x)
             for i in range(n_layers):
                 d = d0 + i * u
                 yt = st[..., d:d + u, :] \
                     if st is not None and i < n_layers - 1 else None
                 # the streaming kernel's layer 0 reads x and copies it in
-                first = i == 0 and plans[0][0] == _STREAM_CONFIG
+                first = i == 0 and kind == _STREAM_CONFIG
                 _launch_layer(lib, plans[i], (x, 0) if first else (out, 0),
                               None, ws[i], bs[i], out, d, act, stream,
                               z_slot(i), st, yt, out if first else None)
             return out
-        plans = [plan_fwd(m, u, w.shape[-2], num_sms, transposed=mlp_rt,
-                          members=e or 1, tc=tc) for w in ws]
-        if plans[0][0] == _TC_CONFIG:           # every layer alike: m, u
-            return _tc_stack(lib, x, ws, bs, connectivity, plans, zs, act,
-                             stream)
-        if plans[0][0] in _RT_CONFIGS:          # every layer alike: m, u
+        if kind in _RT_CONFIGS:
             return _rt_hidden(lib, x, ws, bs, connectivity, plans, zs, act,
                               stream)
         bufs = [torch.empty((*lead, m, u), device=dev, dtype=torch.float32)
@@ -1134,8 +1185,8 @@ def _rt_hidden(lib, x: torch.Tensor, ws, bs, connectivity: str, plans,
 
 
 def _tc_stack(lib, x: torch.Tensor, ws, bs, connectivity: str, plans,
-              zs: Optional[torch.Tensor], act: int, stream: int,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              zs: Optional[torch.Tensor], act: int, stream: int
+              ) -> torch.Tensor:
     """A stack on the tensor-core tile, which reads every layer's input
     row-major through TMA, from rows padded to 4 floats: every layer
     writes z_i into ``zs`` when given.
@@ -1164,6 +1215,8 @@ def _tc_stack(lib, x: torch.Tensor, ws, bs, connectivity: str, plans,
         return None if zs is None else (zs, i * u)
     if connectivity == "densenet":
         sp = padded(d0 + (n_layers - 1) * u)
+        out = torch.empty((*lead, m, d0 + n_layers * u), device=x.device,
+                          dtype=torch.float32)
         out[..., :d0].copy_(x)
         sp[..., :d0].copy_(x)
         for i in range(n_layers):

@@ -1063,7 +1063,7 @@ def fwd_rows(seed: int = 0, m: int = 256) -> List[dict]:
                                      shape=(m, u, k), plan=plan,
                                      picked=plan == pick,
                                      us=_time_us(run)))
-                rt = stack.plan_fwd(m, u, k, num_sms, tc=False)
+                rt = stack._plan_rt(m, u, k, num_sms)
 
                 def run_rt(_):
                     stack._launch_layer(lib, rt, None, None, w, b, y, 0, act,

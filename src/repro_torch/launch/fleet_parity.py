@@ -221,7 +221,7 @@ def flips_line(rec: Dict) -> str:
 
 def _set_path(path: str) -> None:
     """The forward path of the wide mlp/d2rl layers past 32 rows: ``rt``
-    (the default: ``plan_fwd``'s pick, the tensor-core tile at these
+    (the default: ``plan_fwd_stack``'s pick, the tensor-core tile at these
     widths, the register tile where U is not a multiple of 4) or ``tile``
     (``dense_tile.cuh``)."""
     from repro_torch.kernels.dense_block import stack

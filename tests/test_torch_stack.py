@@ -130,7 +130,7 @@ def test_launch_plan_fills_the_card_at_serving_slots():
     and a split of K: the actor's wide layer launches one wave of about 2
     blocks per SM of the weight-streaming kernel (128-column strips, K
     split by rows), and so does the register tile at the batch of 256
-    (every connectivity's, over its transposed input, ``tc=False``); the
+    (every connectivity's, over its transposed input, ``_plan_rt``); the
     tensor-core tile, which takes the layer there, one wave of one block
     an SM; dense_tile.cuh, which mlp and d2rl took there before
     (``transposed=False``), >= 2 blocks per SM."""
@@ -140,8 +140,7 @@ def test_launch_plan_fills_the_card_at_serving_slots():
         assert tiles == 2048 // tstack._STREAM_COLS
         assert 2 * 132 - tiles < tiles * splits <= 2 * 132
         assert (splits - 1) * rows < 2307 <= splits * rows
-    config, tiles, splits, per_split = tstack.plan_fwd(256, 2048, 2307, 132,
-                                                       tc=False)
+    config, tiles, splits, per_split = tstack._plan_rt(256, 2048, 2307, 132)
     bm, bn, bk = tstack._RT_CONFIGS[config]
     assert tiles == (256 // bm) * (2048 // bn)
     assert 2 * 132 - tiles < tiles * splits <= 2 * 132

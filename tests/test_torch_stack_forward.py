@@ -12,8 +12,9 @@ critic stacks at the batch of 256, fig3's and Fig. 4's mlp stacks), over a
 row-major input of rows padded to 4 floats (densenet's padded stream,
 mlp's and d2rl's ping-pong buffers), split for the launch's members x
 tiles, or the register tile over a transposed input (a U that is not a
-multiple of 4, or ``tc=False``), and ``dense_tile.cuh`` otherwise (mlp and
-d2rl past 32 rows with U < 128). The launch sequence of
+multiple of 4; with ``plan_fwd_stack``, a stack whose first layer is thin
+and whose other layers hold little work), and ``dense_tile.cuh`` otherwise
+(mlp and d2rl past 32 rows with U < 128). The launch sequence of
 ``_kernel_forward`` is plain Python: it runs here against a recording
 stand-in for the CUDA library, which shows one launch per layer by the
 planned kernel (one per stack on the whole-stack kernel), one transposed
@@ -52,14 +53,14 @@ RAGGED_RT = (201, 37, 301, 3)
 @pytest.mark.parametrize("m,n,k", WIDE)
 def test_plan_fwd_takes_the_register_tile_at_the_wide_products(m, n, k):
     """The wide products take the tensor-core tile (128 x 128 tiles, K
-    split within one wave of one block a SM); with ``tc=False`` the
-    register tile, as before it."""
+    split within one wave of one block a SM); the register tile's plan of
+    them (``_plan_rt``) is what it was before."""
     config, tiles, splits, _ = tstack.plan_fwd(m, n, k, 132)
     assert config == tstack._TC_CONFIG and tstack.fwd_kernel_of(config) \
         == "tc"
     assert tiles == (m // 128) * (n // 128) and 1 < splits
     assert tiles * splits <= 132
-    config, tiles, splits, _ = tstack.plan_fwd(m, n, k, 132, tc=False)
+    config, tiles, splits, _ = tstack._plan_rt(m, n, k, 132)
     assert config == tstack._RT_FWD_CONFIG
     assert tstack._RT_CONFIGS[config][:2] == (128, 64)
     assert tstack.fwd_kernel_of(config) == "rt"
@@ -166,10 +167,11 @@ def test_plan_fwd_runs_the_narrow_densenet_stacks_whole(m, name):
     + [(64, 2048, 2307), (201, 301, 37), (201, 301, 639), (128, 128, 1),
        (1, 64, 1), (32, 2048, 193)])
 def test_plan_fwd_splits_cover_k_exactly(m, n, k):
-    for transposed, members, tc in [(True, 1, True), (False, 1, True),
-                                    (True, 5, True), (True, 1, False)]:
-        config, tiles, splits, per = tstack.plan_fwd(
-            m, n, k, 132, transposed=transposed, members=members, tc=tc)
+    for config, tiles, splits, per in [
+            tstack.plan_fwd(m, n, k, 132), tstack.plan_fwd(
+                m, n, k, 132, transposed=False),
+            tstack.plan_fwd(m, n, k, 132, members=5),
+            tstack._plan_rt(m, n, k, 132)]:
         if config == tstack._STREAM_CONFIG:
             bm, bn, bk = 32, tstack._STREAM_COLS, 1     # per counts rows
         else:
@@ -187,32 +189,61 @@ def test_plan_fwd_follows_the_sweep_at_the_wide_products():
     tile's best plan of each wide product at 128x64 tiles and: the actor's
     layer 0 (33 chunks) 2 splits, the critic's (65) 2 (4 within 1 us), both
     layers 1 four splits, two blocks per SM. The tensor-core tile's 32
-    tiles split K into 2 (9 and 17 chunks of 32) and 4 (73 and 81): 64 and
-    128 blocks, one a SM."""
-    assert [tstack.plan_fwd(m, n, k, 132, tc=False)[:3]
-            for m, n, k in WIDE] \
+    tiles split K (9, 73, 17 and 81 chunks of 32) into 2, 4, 4 and 4: 64
+    and 128 blocks, one a SM."""
+    assert [tstack._plan_rt(m, n, k, 132)[:3] for m, n, k in WIDE] \
         == [(4, 64, 2), (4, 64, 4), (4, 64, 4), (4, 64, 4)]
     assert [tstack.plan_fwd(m, n, k, 132)[:3] for m, n, k in WIDE] \
-        == [(7, 32, 2), (7, 32, 4), (7, 32, 3), (7, 32, 4)]
+        == [(7, 32, 2), (7, 32, 4), (7, 32, 4), (7, 32, 4)]
 
 
 @pytest.mark.parametrize("members,want", [(1, (4, 16)), (3, (4, 16)),
-                                          (5, (4, 16)), (10, (2, 32)),
+                                          (5, (3, 22)), (10, (2, 32)),
                                           (33, (1, 64))])
 def test_plan_fwd_counts_the_members_on_the_tensor_core_tile(members, want):
     """A fleet's launch is planned for all its blocks: members x tiles x
     splits against the 132 SMs. The square layer of fig3's and Fig. 4's
     mlp stacks (M = 256, U = K = 2048: 32 tiles, 64 chunks) splits K into
-    4 solo (128 blocks) and at 3 or 5 members (384 and 640: 3 and 5
-    waves, 16 chunks each), into fewer where the members alone fill the
-    card (10 members: 2; 33: 1056 blocks, 8 whole waves, unsplit); the
-    register tile's plan is the solo one whatever the members."""
+    4 solo (128 blocks) and at 3 members (384: 3 waves of 16 chunks), 3
+    at 5 members (480 blocks: 4 waves of 22; the card sweep, H100: 140.5
+    us against 154.2 at 4 splits and 151.6 at 2), into fewer where the
+    members alone fill the card (10 members: 2; 33: 1056 blocks, 8 whole
+    waves, unsplit)."""
     config, tiles, splits, per = tstack.plan_fwd(256, 2048, 2048, 132,
                                                  members=members)
     assert (config, tiles, (splits, per)) == (tstack._TC_CONFIG, 32, want)
-    assert tstack.plan_fwd(256, 2048, 2048, 132, members=members,
-                           tc=False) == tstack.plan_fwd(256, 2048, 2048,
-                                                        132, tc=False)
+
+
+@pytest.mark.parametrize("u,ks,members,want", [
+    (128, [4, 128], 1, "rt"), (128, [4, 128], 5, "rt"),
+    (128, [4, 128, 128], 1, "rt"), (256, [4, 256], 1, "rt"),
+    (128, [4, 132], 1, "rt"), (256, [4, 260], 5, "tc"),
+    (512, [4, 512], 1, "tc"), (512, [4, 512], 5, "tc"),
+    (1024, [4, 1024], 1, "tc"), (2048, [4, 2048], 1, "tc"),
+    (2048, [3, 2048], 5, "tc"), (2048, [4] + [2048] * 15, 5, "tc"),
+    (256, [4] + [256] * 7, 1, "tc"), (128, [4] + [128] * 15, 1, "tc"),
+    (128, [4] + [128] * 15, 5, "tc"),
+    (128, [37, 128], 1, "tc"), (2048, [259, 2307], 1, "tc"),
+    (301, [4, 301], 1, "rt"), (301, [37, 301], 5, "rt")])
+def test_plan_fwd_stack_keeps_thin_stacks_on_the_register_tile(u, ks,
+                                                               members, want):
+    """At the batch (M = 256) a stack whose first layer is thin (K <= 32)
+    keeps the register tile while its other layers hold under
+    ``_TC_THIN_STACK_MACS`` multiply-adds over all members (where the card
+    timed it faster or tied: U = 128 with 2 or 3 layers, solo and 2 at 5
+    members; U = 256 with 2 solo), and takes the tensor-core tile past it
+    (U = 256 at 5 members, U = 512 and up, 16 layers of U = 128, 8 of U =
+    256); a stack whose first layer is not thin takes it at U = 128
+    already. One tile a stack: the register tile's plans are
+    ``_plan_rt``'s, the tensor-core tile's ``plan_fwd``'s for the
+    members."""
+    plans = tstack.plan_fwd_stack(256, u, ks, 132, members=members)
+    assert {tstack.fwd_kernel_of(p[0]) for p in plans} == {want}
+    if want == "rt":
+        assert plans == [tstack._plan_rt(256, u, k, 132) for k in ks]
+    else:
+        assert plans == [tstack.plan_fwd(256, u, k, 132, members=members)
+                         for k in ks]
 
 
 @pytest.mark.parametrize("m,n,k", [(256, 2048, 4), (256, 2048, 2048),
@@ -220,17 +251,19 @@ def test_plan_fwd_counts_the_members_on_the_tensor_core_tile(members, want):
                                    (1024, 512, 8192)])
 def test_plan_fwd_tensor_core_split_is_the_cheapest(m, n, k):
     """The split is the cheapest of every split the rule allows, by its
-    cost (waves x chunks a split + ``_TC_SPLIT_CHUNKS`` a split past the
-    first), ties to fewer splits; every split holds at least
-    ``_TC_MIN_CHUNKS`` chunks unless K has fewer."""
+    cost (waves x (chunks a split + ``_TC_BLOCK_CHUNKS`` +
+    ``_TC_SPLIT_CHUNKS`` a split past the first)), ties to fewer splits;
+    every split holds at least ``_TC_MIN_CHUNKS`` chunks unless K has
+    fewer."""
     chunks = -(-k // tstack._TC_TILE[2])
     for members in (1, 2, 5):
         _, tiles, splits, per = tstack.plan_fwd(m, n, k, 132,
                                                 members=members)
 
         def cost(s, p):
-            return -(-members * tiles * s // 132) * p \
-                + tstack._TC_SPLIT_CHUNKS * (s - 1)
+            return -(-members * tiles * s // 132) * (
+                p + tstack._TC_BLOCK_CHUNKS
+                + tstack._TC_SPLIT_CHUNKS * (s - 1))
         assert per >= min(chunks, tstack._TC_MIN_CHUNKS)
         for want in range(1, max(1, chunks // tstack._TC_MIN_CHUNKS) + 1):
             p = -(-chunks // want)
@@ -263,7 +296,7 @@ def test_fwd_sweep_candidates_hold_the_plan(m, n, k):
         for members in (1, 5):
             assert tstack.plan_fwd(m, n, k, 132, members=members) \
                 in bwd_sweep.tc_candidates(m, n, k)
-        pick = tstack.plan_fwd(m, n, k, 132, tc=False)
+        pick = tstack._plan_rt(m, n, k, 132)
     if pick[0] == tstack._STREAM_CONFIG:
         cands = bwd_sweep.stream_candidates(m, n, k)
         assert len(cands) > 1
@@ -328,6 +361,29 @@ def recorded(monkeypatch):
     tstack.reset_launch_count()
 
 
+def _plans(conn, m, d0, u, n_layers, tc=True):
+    """The stack's layer plans: ``plan_fwd_stack``'s (what
+    ``_kernel_forward`` launches), or with ``tc=False`` the register tile's
+    (``_plan_rt``) where those are the tensor-core tile's (what the card's
+    timing compares it with, through ``_forward_planned``)."""
+    ks = [tstack.in_dim(conn, i, d0, u) for i in range(n_layers)]
+    plans = tstack.plan_fwd_stack(
+        m, u, ks, 132, stack=(d0, n_layers) if conn == "densenet" else None)
+    if not tc and plans[0][0] == tstack._TC_CONFIG:
+        plans = [tstack._plan_rt(m, u, k, 132) for k in ks]
+    return plans
+
+
+def _forward(x, ws, bs, conn, act, zs, tc):
+    """``_kernel_forward``, or with ``tc=False`` ``_forward_planned`` on
+    ``_plans(..., tc=False)``."""
+    if tc:
+        return tstack._kernel_forward(x, ws, bs, conn, act, zs)
+    (m, d0), u = x.shape[-2:], ws[0].shape[-1]
+    return tstack._forward_planned(x, ws, bs, conn, act, zs, _plans(
+        conn, m, d0, u, len(ws), tc=False))
+
+
 def _stack(conn, m, d0, u, n_layers, seed=0):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((m, d0)).astype(np.float32))
@@ -349,13 +405,17 @@ def _stack(conn, m, d0, u, n_layers, seed=0):
     ("mlp", 128, 130, 128, 2),          # tensor-core tile, x padded
     ("mlp", 256, 4, 2048, 3),           # tensor-core tile, x read as is
     ("mlp", 201, 3, 301, 4),            # register tile, ragged, K = 3
-    ("d2rl", 256, 4, 128, 3),           # tensor-core tile over [h | x]
+    ("mlp", 256, 4, 256, 2),            # thin: register tile
+    ("d2rl", 256, 4, 128, 3),           # thin: register tile
+    ("d2rl", 256, 37, 128, 3),          # tensor-core tile over [h | x]
+    ("d2rl", 256, 4, 1024, 2),          # tensor-core tile, thin layer 0
     ("d2rl", 8, 40, 64, 3),             # streaming, two segments
     ("d2rl", 256, 20, 64, 3)])          # U < 128: dense_tile.cuh
 @pytest.mark.parametrize("tc", (True, False))
 def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers, tc):
-    """One launch per layer by the kernel ``plan_fwd`` gives it (one per
-    stack on the whole-stack kernel), one transposed init per
+    """One launch per layer by the kernel ``plan_fwd_stack`` gives it (one
+    per stack on the whole-stack kernel; with ``tc=False`` the register
+    tile where it gives the tensor-core tile), one transposed init per
     register-tiled call (densenet: x into the stream and stream^T; mlp:
     x^T; d2rl: x^T into both ping-pong slabs) and none on the tensor-core
     tile, and every split's counters from ``_tile_counters`` on the
@@ -371,8 +431,9 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers, tc):
     x, ws, bs = _stack(conn, m, d0, u, n_layers)
     zs = torch.empty((m, n_layers * u))
     with torch.no_grad():
-        out = tstack._kernel_forward(x, ws, bs, conn, "swish", zs, tc=tc)
+        out = _forward(x, ws, bs, conn, "swish", zs, tc)
     assert not zeros
+    plans = _plans(conn, m, d0, u, n_layers, tc)
     stack = (d0, n_layers) if conn == "densenet" else None
     if tstack.fwd_kernel_of(tstack.plan_fwd(m, u, d0, 132,
                                             stack=stack)[0]) == "whole":
@@ -385,7 +446,7 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers, tc):
     split_launches = 0
     for i, (name, args) in enumerate(layers):
         pos = _ARGS[name]
-        plan = tstack.plan_fwd(m, u, ws[i].shape[0], 132, tc=tc)
+        plan = plans[i]
         kinds.append(_KIND[name])
         assert _KIND[name] == tstack.fwd_kernel_of(plan[0])
         assert (args[pos["m"]], args[pos["n"]], args[pos["splits"]]) \
@@ -450,9 +511,7 @@ def test_forward_launch_plan(recorded, conn, m, d0, u, n_layers, tc):
                 if i == n_layers - 1:
                     assert (y, ldy) == (out.data_ptr(), u)
                 ldy_prev = ldy
-    assert asked == [(tstack.plan_fwd(m, u, w.shape[0], 132, tc=tc)[1], 77)
-                     for w in ws if tstack.plan_fwd(
-                         m, u, w.shape[0], 132, tc=tc)[2] > 1]
+    assert asked == [(plan[1], 77) for plan in plans if plan[2] > 1]
     assert len(asked) == split_launches
     wide = kinds[0] == "rt"
     assert len(inits) == int(wide)
@@ -562,7 +621,9 @@ class _EmulatingLib(_RecordingLib):
     ("mlp", 201, 3, 301, 4), ("mlp", 256, 4, 256, 3),
     ("d2rl", 128, 4, 128, 1), ("d2rl", 128, 4, 128, 2),
     ("d2rl", 203, 5, 300, 4), ("densenet", 201, 37, 301, 3),
-    ("densenet", 201, 37, 300, 3), ("densenet", 130, 259, 128, 1)])
+    ("densenet", 201, 37, 300, 3), ("densenet", 130, 259, 128, 1),
+    ("mlp", 256, 3, 1024, 2), ("d2rl", 256, 5, 1024, 2),
+    ("densenet", 256, 4, 1024, 2), ("d2rl", 130, 37, 128, 3)])
 def test_register_tile_buffers_hold_the_plain_stack(recorded, monkeypatch,
                                                     conn, m, d0, u,
                                                     n_layers, act, tc):
@@ -573,16 +634,18 @@ def test_register_tile_buffers_hold_the_plain_stack(recorded, monkeypatch,
     densenet the stream prefix^T; tensor-core tile, row-major: mlp
     h_{i-1}, d2rl [h_{i-1} | x] of one slab, densenet the padded stream's
     prefix) and wrote where the next reads, for 1 to 4 layers, ragged rows
-    and K = 3 to 5 at layer 0 (the pendulum's observation). U = 301 keeps
-    the register tile either way (TMA's rows are 16 bytes)."""
+    and K = 3 to 5 at layer 0 (the pendulum's observation): on the
+    tensor-core tile where the stack's other layers hold enough work (U =
+    1024), else on the register tile. U = 301 keeps the register tile
+    either way (TMA's rows are 16 bytes)."""
     lib = _EmulatingLib(act)
     monkeypatch.setattr(tstack, "_library", lambda: lib)
     x, ws, bs = _stack(conn, m, d0, u, n_layers, seed=n_layers)
     ws = [w / np.sqrt(w.shape[0]) for w in ws]
     zs = torch.full((m, n_layers * u), float("nan"))
     with torch.no_grad():
-        out = tstack._kernel_forward(x, ws, bs, conn, act, zs, tc=tc)
-    on_tc = tc and u % 4 == 0
+        out = _forward(x, ws, bs, conn, act, zs, tc)
+    on_tc = _plans(conn, m, d0, u, n_layers, tc)[0][0] == tstack._TC_CONFIG
     assert {n for n, _ in lib.calls} == (
         {"dense_layer_fwd_tc"} if on_tc
         else {"dense_fwd_stream_init", "dense_layer_fwd_rt"})
@@ -650,14 +713,13 @@ def test_whole_stack_launch_plan(recorded, name, m, with_zs):
 def test_forward_takes_every_kernel_on_the_training_shapes():
     """At the training path's shapes the wide stacks stream at the actor
     pool's 32 rows and take the tensor-core tile at the batch (the
-    register tile where the tensor-core tile is not asked for), the OFENet
-    stacks take the whole-stack kernel at both; ``dense_tile.cuh`` is left
-    to mlp and d2rl past 32 rows."""
+    register tile where the timing asks for it), the OFENet stacks take
+    the whole-stack kernel at both; ``dense_tile.cuh`` is left to mlp and
+    d2rl past 32 rows."""
     shapes = [(32, 3, 64, 4), (32, 259, 2048, 2), (256, 3, 64, 4),
               (256, 260, 64, 4), (256, 259, 2048, 2), (256, 516, 2048, 2)]
-    kinds = {tc: {tstack.fwd_kernel_of(tstack.plan_fwd(
-        m, u, d0, 132, stack=(d0, n), tc=tc)[0]) for m, d0, u, n in shapes}
-        for tc in (True, False)}
+    kinds = {tc: {tstack.fwd_kernel_of(_plans("densenet", m, d0, u, n, tc)[
+        0][0]) for m, d0, u, n in shapes} for tc in (True, False)}
     assert kinds[True] == set(tstack.FWD_KERNELS) - {"tile", "rt"}
     assert kinds[False] == set(tstack.FWD_KERNELS) - {"tile", "tc"}
     assert tstack.fwd_kernel_of(tstack.plan_fwd(

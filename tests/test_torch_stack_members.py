@@ -246,15 +246,13 @@ def _same_plan(solo, member, e):
     return margs[n + 1:-1]
 
 
-def _planned_for(monkeypatch, members):
-    """``plan_fwd`` planning every call for ``members`` members: a solo
-    call then takes a member call's plan."""
-    real = tstack.plan_fwd
-
-    def plan(*args, members=1, **kw):      # the caller's count, replaced
-        return real(*args, members=count, **kw)
-    count = members
-    monkeypatch.setattr(tstack, "plan_fwd", plan)
+def _member_plans(conn, m, d0, u, n_layers):
+    """The layer plans of an E-member call (``plan_fwd_stack`` for E
+    members), which a solo call is given to launch what one member of the
+    member call launches."""
+    return tstack.plan_fwd_stack(
+        m, u, [tstack.in_dim(conn, i, d0, u) for i in range(n_layers)], 132,
+        stack=(d0, n_layers) if conn == "densenet" else None, members=E)
 
 
 @pytest.mark.parametrize("conn,m,d0,u,n_layers", [
@@ -266,21 +264,22 @@ def _planned_for(monkeypatch, members):
     ("densenet", 256, 259, 2048, 2),    # the actor: tensor-core tile
     ("mlp", 128, 130, 128, 2),          # tensor-core tile, x padded
     ("mlp", 201, 3, 301, 3),            # register tile over h^T
-    ("d2rl", 128, 4, 128, 3),           # tensor-core tile over [h | x]
+    ("d2rl", 128, 4, 128, 3),           # thin: register tile over [h | x]^T
+    ("d2rl", 128, 37, 128, 3),          # tensor-core tile over [h | x]
     ("d2rl", 201, 4, 301, 3),           # register tile over [h | x]^T
     ("densenet", 256, 260, 64, 4),      # phi_sa: whole forward and back
     ("d2rl", 8, 40, 64, 3),             # streaming, two segments
     ("d2rl", 256, 20, 64, 3)])          # U < 128: dense_tile.cuh
-def test_member_launches_are_the_solo_plans(recorded, monkeypatch, conn, m,
-                                            d0, u, n_layers):
+def test_member_launches_are_the_solo_plans(recorded, conn, m, d0, u,
+                                            n_layers):
     """Forward and backward: the member call launches what one solo
-    member launches (planned as one of E members), once for all E, with
+    member launches (given the member call's plans), once for all E, with
     each operand's member stride (layer 1's weight shared: stride 0) and E
     sets of split counters."""
     libs, asked = recorded
     x, ws, bs, g = _members(conn, E, m, d0, u, n_layers)
     ws[1] = ws[1][:1].expand(E, *ws[1].shape[1:])       # shared, stride 0
-    _planned_for(monkeypatch, E)
+    plans = _member_plans(conn, m, d0, u, n_layers)
     runs = {}
     for name, (xx, ww, bb, gg) in {
             "solo": (x[0], [w[0] for w in ws], [b[0] for b in bs], g[0]),
@@ -289,7 +288,9 @@ def test_member_launches_are_the_solo_plans(recorded, monkeypatch, conn, m,
             lib.calls.clear()
         asked.clear()
         zs = torch.empty((*xx.shape[:-1], n_layers * u))
-        out = tstack._kernel_forward(xx, ww, bb, conn, "swish", zs)
+        out = tstack._kernel_forward(xx, ww, bb, conn, "swish", zs) \
+            if name == "members" else \
+            tstack._forward_planned(xx, ww, bb, conn, "swish", zs, plans)
         keep = out if conn == "densenet" else xx
         tstack._kernel_backward((keep, zs), ww, gg, conn, "swish", True,
                                 [True] * n_layers, [True] * n_layers)
@@ -335,23 +336,22 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("conn,m,d0,u,n_layers", [
-    ("densenet", 256, 259, 2048, 2),    # the actor: register tile
+    ("densenet", 256, 259, 2048, 2),    # the actor: tensor-core tile
     ("densenet", 32, 259, 2048, 2),     # the actor at collect: streaming
     ("densenet", 1, 3, 64, 4),          # phi_s at a slot: whole stack
     ("densenet", 256, 260, 64, 4),      # phi_sa: whole stack
     ("densenet", 201, 37, 301, 3),      # register tile, ragged
-    ("mlp", 256, 3, 2048, 2),           # fig3's mlp: register tile
-    ("d2rl", 256, 4, 128, 3),           # register tile over [h | x]^T
+    ("mlp", 256, 3, 2048, 2),           # fig3's mlp: tensor-core tile
+    ("d2rl", 256, 4, 128, 3),           # tensor-core tile (thin, 3 members)
     ("mlp", 256, 3, 64, 3),             # U < 128: dense_tile.cuh
     ("d2rl", 8, 40, 64, 3)])            # streaming, two segments
-def test_cuda_member_kernels_are_bitwise_solo_launches(cuda_device,
-                                                       monkeypatch, conn, m,
+def test_cuda_member_kernels_are_bitwise_solo_launches(cuda_device, conn, m,
                                                        d0, u, n_layers):
     """Every member launch bitwise E solo launches of its plan: the solo
-    calls are planned as one of E members (the tensor-core tile's split
+    calls are given the member call's plans (the tensor-core tile's split
     counts the members)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    _planned_for(monkeypatch, E)
+    plans = _member_plans(conn, m, d0, u, n_layers)
     x, ws, bs, g = (t.to(cuda_device) if isinstance(t, torch.Tensor)
                     else [v.to(cuda_device) for v in t]
                     for t in _members(conn, E, m, d0, u, n_layers, seed=7))
@@ -368,8 +368,8 @@ def test_cuda_member_kernels_are_bitwise_solo_launches(cuda_device,
     for e in range(E):
         se = ([w[e].contiguous() for w in ws], [b[e] for b in bs])
         z1 = torch.empty((m, n_layers * u), device=cuda_device)
-        o1 = tstack._kernel_forward(x[e].contiguous(), *se, conn, "swish",
-                                    z1)
+        o1 = tstack._forward_planned(x[e].contiguous(), *se, conn, "swish",
+                                     z1, plans)
         solo.append((o1, z1, tstack._kernel_backward(
             (o1 if conn == "densenet" else x[e].contiguous(), z1), se[0],
             g[e].contiguous(), conn, "swish", True, [True] * n_layers,

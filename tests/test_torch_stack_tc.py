@@ -6,14 +6,16 @@ wide stack of the benchmark's cells (mlp U=2048 L=2 and L=16, solo and as
 5 members; the densenet actor and critic; d2rl) launches the tensor-core
 tile once a layer, counted under ``"tc"``, with no register-tile launch and
 no transposed init; and a training superstep at the cells' shapes counts
-as many ``"tc"`` launches as ``plan_fwd`` gives its stack layers at the
-batch.
+as many ``"tc"`` launches as ``plan_fwd_stack`` gives its stack layers at
+the batch.
 
 On the card (skipped without one): the kernel against the plain version at
 the cells' shapes within the forward's bar (1e-4 of max|want|), the
-pre-activations too, bitwise from call to call; each member of a member
-launch bitwise a solo launch of the same plan; and a superstep's ``"tc"``
-launches as the CPU accounting predicts:
+pre-activations too, bitwise from call to call; its error against a float64
+version at most twice the plain float32 version's at the cells' long
+reductions (K = 2048 and 4355, the L = 16 chain, all-positive products);
+each member of a member launch bitwise a solo launch of the same plan; and
+a superstep's ``"tc"`` launches as the CPU accounting predicts:
 
     python -m pytest tests/test_torch_stack_tc.py -k cuda
 """
@@ -28,12 +30,13 @@ from repro_torch.kernels.dense_block import stack as tstack
 # (connectivity, members, M, d0, U, L) of the benchmark cells' wide stacks
 # at the batch: fig3's mlp critic and actor (pendulum: d0 = 4 and 3), Fig.
 # 4's L=16, the densenet actor (stream 4355 wide) and critic, a d2rl stack
-# and a ragged M
+# and a ragged M (its first layer 35 wide: a thin one would keep this
+# small stack on the register tile, plan_fwd_stack)
 CELLS = [("mlp", None, 256, 4, 2048, 2), ("mlp", None, 256, 3, 2048, 2),
          ("mlp", 5, 256, 4, 2048, 2), ("mlp", 5, 256, 3, 2048, 16),
          ("densenet", None, 256, 259, 2048, 2),
          ("densenet", None, 256, 260, 2048, 2),
-         ("d2rl", None, 256, 4, 2048, 2), ("mlp", None, 201, 3, 256, 3)]
+         ("d2rl", None, 256, 4, 2048, 2), ("mlp", None, 201, 35, 256, 3)]
 
 
 def _stack(conn, e, m, d0, u, n_layers, seed=0, device="cpu"):
@@ -115,9 +118,11 @@ def _tc_layers_per_superstep(acfg, batch_size: int) -> int:
     total = 0
     for n, blk in calls:
         dense = blk.connectivity == "densenet"
-        plan = tstack.plan_fwd(
-            batch_size, blk.num_units, blk.in_dim, 132,
-            stack=(blk.in_dim, blk.num_layers) if dense else None)
+        plan = tstack.plan_fwd_stack(
+            batch_size, blk.num_units,
+            [tstack.in_dim(blk.connectivity, i, blk.in_dim, blk.num_units)
+             for i in range(blk.num_layers)], 132,
+            stack=(blk.in_dim, blk.num_layers) if dense else None)[0]
         if plan[0] == tstack._TC_CONFIG:
             total += n * blk.num_layers
     return total
@@ -195,27 +200,27 @@ def test_cuda_tc_matches_plain_at_the_cells_shapes(cuda_device, conn, e, m,
 
 @pytest.mark.parametrize("conn,d0,u,n_layers", [
     ("mlp", 4, 2048, 2), ("densenet", 259, 2048, 2), ("d2rl", 4, 512, 3)])
-def test_cuda_tc_members_are_bitwise_solo_launches(cuda_device, monkeypatch,
-                                                   conn, d0, u, n_layers):
+def test_cuda_tc_members_are_bitwise_solo_launches(cuda_device, conn, d0, u,
+                                                   n_layers):
     """A 5-member launch: member e bitwise the solo launch of the same
-    plan on its operands (the solo calls planned as one of 5 members)."""
+    plan on its operands (the solo calls given the member call's plans)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     e = 5
     x, ws, bs = _stack(conn, e, 256, d0, u, n_layers, seed=4,
                        device=cuda_device)
     zs = torch.empty((e, 256, n_layers * u), device=cuda_device)
     out = tstack._kernel_forward(x, ws, bs, conn, "swish", zs)
-    real = tstack.plan_fwd
-
-    def plan(*args, members=1, **kw):
-        return real(*args, members=e, **kw)
-    monkeypatch.setattr(tstack, "plan_fwd", plan)
+    plans = tstack.plan_fwd_stack(
+        256, u, [w.shape[-2] for w in ws],
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count,
+        stack=(d0, n_layers) if conn == "densenet" else None, members=e)
+    assert {p[0] for p in plans} == {tstack._TC_CONFIG}
     for i in range(e):
         z1 = torch.empty((256, n_layers * u), device=cuda_device)
-        o1 = tstack._kernel_forward(x[i].contiguous(),
-                                    [w[i].contiguous() for w in ws],
-                                    [b[i].contiguous() for b in bs], conn,
-                                    "swish", z1)
+        o1 = tstack._forward_planned(x[i].contiguous(),
+                                     [w[i].contiguous() for w in ws],
+                                     [b[i].contiguous() for b in bs], conn,
+                                     "swish", z1, plans)
         torch.cuda.synchronize()
         assert torch.equal(out[i], o1) and torch.equal(zs[i], z1)
 
@@ -237,3 +242,50 @@ def test_cuda_superstep_tc_launches(cuda_device, name, over):
     assert tstack.launch_count("tc") == _tc_layers_per_superstep(
         tr.acfg, tr.batch_size)
     assert tstack.launch_count("rt") == tstack.transpose_count() == 0
+
+
+# the cells' long reductions, held to the plain float32 version's error:
+# fig3's K = 2048, the L = 16 chain of Fig. 4 at 5 members, the densenet
+# actor (K = 259, 2307), a K = 4355 layer (the actor's stream width); and
+# K = 2048 and 4355 with every product positive (a nonzero mean, so a sum
+# that rounds toward zero drifts one way)
+PRECISION = [("mlp", None, 256, 4, 2048, 2, False),
+             ("mlp", 5, 256, 3, 2048, 16, False),
+             ("densenet", None, 256, 259, 2048, 2, False),
+             ("mlp", None, 256, 4355, 2048, 1, False),
+             ("mlp", None, 256, 2048, 2048, 1, True),
+             ("mlp", None, 256, 4355, 2048, 1, True)]
+
+
+@pytest.mark.parametrize("conn,e,m,d0,u,n_layers,positive", PRECISION)
+def test_cuda_tc_error_is_the_float32_versions(cuda_device, conn, e, m, d0,
+                                               u, n_layers, positive):
+    """Against a float64 version on the same inputs, the tile's largest
+    error (feature and pre-activations) is at most twice the plain
+    float32 version's (``allow_tf32`` off): 3xTF32 products summed in
+    float32. A tile that let the tensor core sum all of K (its sums round
+    toward zero) read 1.6e-5 of max|z| at K = 2048, 20 times this."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, ws, bs = _stack(conn, e, m, d0, u, n_layers, seed=5,
+                       device=cuda_device)
+    if positive:
+        x = x.abs()
+        ws = [w.abs() for w in ws]
+        bs = [b.abs() for b in bs]
+    zs = torch.empty((*x.shape[:-1], n_layers * u), device=cuda_device)
+    got = tstack._kernel_forward(x, ws, bs, conn, "swish", zs)
+    f32 = _ref(conn, x, ws, bs, zs_too=True)
+    f64 = _ref(conn, x.double(), [w.double() for w in ws],
+               [b.double() for b in bs], zs_too=True)
+    torch.cuda.synchronize()
+    for name, a, b, c in (("feature", got, f32[0], f64[0]),
+                          ("z", zs, f32[1], f64[1])):
+        err = float((a.double() - c).abs().max())
+        err32 = float((b.double() - c).abs().max())
+        top = float(c.abs().max())
+        print(f"{conn} E={e} d0={d0} L={n_layers} positive={positive} "
+              f"{name}: tile {err / top:.3e}, float32 {err32 / top:.3e} "
+              f"of max|want|; mean error tile "
+              f"{float((a.double() - c).mean()) / top:.3e}, float32 "
+              f"{float((b.double() - c).mean()) / top:.3e}")
+        assert err <= 2 * err32
